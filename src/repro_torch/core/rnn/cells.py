@@ -1,0 +1,99 @@
+"""LSTM / GRU cells: Keras-compatible math (paper Eq. 1).
+
+Weight layout follows Keras, as in the JAX package:
+
+  LSTM: kernel W [in, 4h] (gates i|f|c|o), recurrent U [h, 4h], bias [4h]
+  GRU (reset_after): kernel [in, 3h] (z|r|hh), recurrent [h, 3h],
+                     bias [2, 3h] (input bias ; recurrent bias)
+
+Products follow jnp's type promotion (bfloat16 x float32 in float32).  The
+fixed-point (quantized) cells are not in this slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.config import RNNConfig
+from repro_torch.models.init import ParamSpec, ParamSpecs
+
+
+def rnn_param_specs(rnn: RNNConfig, prefix: str = "rnn") -> ParamSpecs:
+    h, fin = rnn.hidden, rnn.input_size
+    g = 4 if rnn.cell == "lstm" else 3
+    bias = (g * h,) if rnn.cell == "lstm" else (2, g * h)
+    return {
+        f"{prefix}/kernel": ParamSpec((fin, g * h), "lecun"),
+        f"{prefix}/recurrent": ParamSpec((h, g * h), "rnn_ortho"),
+        f"{prefix}/bias": ParamSpec(bias, "zeros"),
+    }
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor,
+                 reuse: int = 1) -> torch.Tensor:
+    """x @ w computed as ``reuse`` sequential column tiles: the cell-level
+    realization of the schedule's reuse factor.  Column tiles are
+    independent, so any R agrees with R=1 up to fp accumulation order."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    if reuse <= 1:
+        return x @ w
+    n = w.shape[-1]
+    if n % reuse:
+        raise ValueError(f"reuse {reuse} does not divide {n} columns")
+    ns = n // reuse
+    return torch.cat([x @ w[:, r * ns:(r + 1) * ns] for r in range(reuse)],
+                     dim=-1)
+
+
+def lstm_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
+              zx: Optional[torch.Tensor] = None):
+    """One LSTM step.  x_t: [b, in]; state = (h, c): [b, h] each.
+
+    ``matmul`` swaps the gate matmul implementation; ``zx`` injects a
+    precomputed input projection x_t @ W (no bias), keeping the association
+    (xW + hU) + b.
+    """
+    mm = matmul if matmul is not None else (
+        lambda a, w: tiled_matmul(a, w, reuse))
+    h_prev, c_prev = state
+    hdim = h_prev.shape[-1]
+    z = (zx if zx is not None else mm(x_t, W)) + mm(h_prev, U) + b
+    i = torch.sigmoid(z[..., :hdim])
+    f = torch.sigmoid(z[..., hdim:2 * hdim])
+    g = torch.tanh(z[..., 2 * hdim:3 * hdim])
+    o = torch.sigmoid(z[..., 3 * hdim:])
+    c_t = f * c_prev + i * g                         # Hadamard products
+    h_t = o * torch.tanh(c_t)
+    return h_t, (h_t, c_t)
+
+
+def gru_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
+             zx: Optional[torch.Tensor] = None):
+    """One GRU step (reset_after).  x_t: [b, in]; state h: [b, h];
+    b: [2, 3h] = (input bias; recurrent bias).  ``matmul`` and ``zx`` as in
+    :func:`lstm_cell`."""
+    mm = matmul if matmul is not None else (
+        lambda a, w: tiled_matmul(a, w, reuse))
+    h_prev = state
+    b_in, b_rec = b[0], b[1]
+    zx = (zx if zx is not None else mm(x_t, W)) + b_in   # [b, 3h]
+    zh = mm(h_prev, U) + b_rec
+    zxz, zxr, zxh = torch.chunk(zx, 3, dim=-1)
+    zhz, zhr, zhh = torch.chunk(zh, 3, dim=-1)
+    z = torch.sigmoid(zxz + zhz)
+    r = torch.sigmoid(zxr + zhr)
+    hh = torch.tanh(zxh + r * zhh)                   # Hadamard inside tanh
+    h_t = z * h_prev + (1.0 - z) * hh                # Hadamard combine
+    return h_t, h_t
+
+
+def initial_state(cell: str, batch: int, hidden: int,
+                  dtype: torch.dtype = torch.float32,
+                  device: Union[str, torch.device, None] = None):
+    h0 = torch.zeros(batch, hidden, dtype=dtype, device=device)
+    if cell == "lstm":
+        return (h0, torch.zeros_like(h0))
+    return h0

@@ -1,0 +1,162 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at first use (or through :func:`build`) into ``build/kernels/``
+at the root of the checkout; a library's file name carries a hash of its
+source and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing is built or loaded at import time.
+
+Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
+launches its kernel, and nowhere else, so a caller can show that a run went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of every exported function, per library
+SIGNATURES = {
+    "rnn_scan": {
+        "lstm_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "gru_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "lstm_scan_hoisted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "gru_scan_hoisted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "scan_rows_per_block": (_I, [_I]),
+        "scan_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+#: kernel name -> launches since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"lstm_scan": 0, "lstm_scan_hoisted": 0,
+                            "gru_scan": 0, "gru_scan_hoisted": 0}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or "
+                       "/usr/local/cuda/bin: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
+    """Compile every library in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together.  Returns name -> library path; the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside each library as ``.log``."""
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n, path in paths.items() if not path.exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        log = open(paths[n].with_suffix(".log"), "w")
+        procs[n] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for n, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, paths[n])
+        else:
+            failed.append(f"{n} (exit {rc}, see {paths[n].with_suffix('.log')})")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
+        return lib
+
+
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call the scan library's C function ``kernel`` with ``args`` on
+    PyTorch's current stream of ``device``, raise if it returned a CUDA
+    error (a refused launch never runs, and a later synchronise would not
+    report it), and count the launch."""
+    lib = library("rnn_scan")
+    rc = getattr(lib, kernel)(*args,
+                              torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.scan_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
+    LAUNCHES[kernel] += 1
+
+
+def require(kernel: str, io_dtype: torch.dtype, **tensors: torch.Tensor
+            ) -> torch.device:
+    """Check the arguments of a launch: ``io_dtype`` (the activations'
+    type) is float32 or bfloat16, a tensor named ``xs`` has it, every other
+    tensor is float32, and all are contiguous on one CUDA device, which is
+    returned."""
+    if io_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: activations must be float32 or "
+                        f"bfloat16, not {io_dtype}")
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        want = io_dtype if name == "xs" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{kernel}: {name} must be {want}, not "
+                            f"{t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    return device
+
+
+def rows_per_block(batch: int) -> int:
+    """Batch rows each thread block of the scan kernels carries."""
+    return library("rnn_scan").scan_rows_per_block(batch)

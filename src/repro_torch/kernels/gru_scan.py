@@ -1,0 +1,120 @@
+"""Static-mode GRU (reset_after) scan: the CUDA kernel's wrappers and plain
+versions.
+
+Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas`` and
+``gru_scan_hoisted_pallas``.  The kernels live in ``csrc/rnn_scan.cu``.
+
+A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
+version, which repeats the kernel's R-tiled arithmetic: per step, R column
+tiles of ``zx = x_t W + b_in`` (hoisted: precomputed) and
+``zh = h U + b_rec``, then ``hh = tanh(zx_h + r * zh_h)`` and
+``h = z * h + (1 - z) * hh``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda
+
+
+def _gate_update(zx: torch.Tensor, zh: torch.Tensor, h: torch.Tensor,
+                 hidden: int) -> torch.Tensor:
+    """zx, zh: [bt, 3h] input-/recurrent-side pre-activations (z|r|hh),
+    h: [bt, h] -> h_new."""
+    z = torch.sigmoid(zx[:, :hidden] + zh[:, :hidden])
+    rg = torch.sigmoid(zx[:, hidden:2 * hidden] + zh[:, hidden:2 * hidden])
+    hh = torch.tanh(zx[:, 2 * hidden:] + rg * zh[:, 2 * hidden:])
+    return z * h + (1.0 - z) * hh
+
+
+def _plain_scan(zx_fn, U, b_rec, B, T, reuse, out_dtype, device):
+    """The R-tiled recurrence; ``zx_fn(t, cols)`` gives the input-side
+    pre-activation (b_in included) of tile ``cols`` at step t."""
+    hidden = U.shape[0]
+    gw = (3 * hidden) // reuse
+    h = torch.zeros(B, hidden, dtype=torch.float32, device=device)
+    for t in range(T):
+        zx, zh = [], []
+        for r in range(reuse):
+            cols = slice(r * gw, (r + 1) * gw)
+            zx.append(zx_fn(t, cols))
+            zh.append(h @ U[:, cols] + b_rec[cols])
+        h = _gate_update(torch.cat(zx, dim=-1), torch.cat(zh, dim=-1), h,
+                         hidden)
+    return h.to(out_dtype)
+
+
+def gru_scan_plain(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
+    """Plain version of :func:`gru_scan_kernel`."""
+    B, T, _ = xs.shape
+    x32 = xs.float()
+    return _plain_scan(lambda t, cols: x32[:, t] @ W[:, cols] + b[0, cols],
+                       U, b[1], B, T, reuse, xs.dtype, xs.device)
+
+
+def gru_scan_hoisted_plain(zx, U, b_rec, *, reuse: int = 1,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of :func:`gru_scan_hoisted_kernel`."""
+    B, T, _ = zx.shape
+    return _plain_scan(lambda t, cols: zx[:, t, cols], U, b_rec, B, T, reuse,
+                       out_dtype, zx.device)
+
+
+def _check_shapes(kernel, hidden, reuse, U, gates_in):
+    if U.shape != (hidden, 3 * hidden) or gates_in != 3 * hidden:
+        raise ValueError(f"{kernel}: U {tuple(U.shape)} / gate width "
+                         f"{gates_in} do not fit hidden={hidden}")
+    if reuse < 1 or (3 * hidden) % reuse:
+        raise ValueError(f"{kernel}: reuse {reuse} does not divide 3h = "
+                         f"{3 * hidden}")
+
+
+def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
+                    b: torch.Tensor, *, reuse: int = 1) -> torch.Tensor:
+    """xs: [B, T, in] f32|bf16; W: [in, 3h], U: [h, 3h], b: [2, 3h] f32
+    -> final h [B, h] in xs's dtype.  ``reuse`` must divide 3h."""
+    hidden = U.shape[0]
+    _check_shapes("gru_scan", hidden, reuse, U, W.shape[-1])
+    if W.shape[0] != xs.shape[-1] or b.shape != (2, 3 * hidden):
+        raise ValueError(f"gru_scan: W {tuple(W.shape)} / b {tuple(b.shape)}"
+                         f" vs xs {tuple(xs.shape)}")
+    if xs.device.type == "cpu":
+        return gru_scan_plain(xs, W, U, b, reuse=reuse)
+    if xs.device.type != "cuda":
+        raise ValueError(f"gru_scan: no kernel for device {xs.device}")
+    dev = cuda.require("gru_scan", xs.dtype, xs=xs, W=W, U=U, b=b)
+    B, T, fin = xs.shape
+    out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
+    if B:
+        cuda.launch("gru_scan", dev, xs.data_ptr(),
+                    int(xs.dtype == torch.bfloat16), W.data_ptr(),
+                    U.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, fin,
+                    hidden, reuse)
+    return out
+
+
+def gru_scan_hoisted_kernel(zx: torch.Tensor, U: torch.Tensor,
+                            b_rec: torch.Tensor, *, reuse: int = 1,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """zx: [B, T, 3h] f32 precomputed x W + b_in; U: [h, 3h]; b_rec: [3h]
+    f32 -> final h [B, h] in ``out_dtype`` (float32 or bfloat16)."""
+    hidden = U.shape[0]
+    _check_shapes("gru_scan_hoisted", hidden, reuse, U, zx.shape[-1])
+    if b_rec.shape != (3 * hidden,):
+        raise ValueError(f"gru_scan_hoisted: b_rec {tuple(b_rec.shape)}")
+    if zx.device.type == "cpu":
+        return gru_scan_hoisted_plain(zx, U, b_rec, reuse=reuse,
+                                      out_dtype=out_dtype)
+    if zx.device.type != "cuda":
+        raise ValueError(f"gru_scan_hoisted: no kernel for device "
+                         f"{zx.device}")
+    dev = cuda.require("gru_scan_hoisted", out_dtype, zx=zx, U=U,
+                       b_rec=b_rec)
+    B, T, _ = zx.shape
+    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
+    if B:
+        cuda.launch("gru_scan_hoisted", dev, zx.data_ptr(), U.data_ptr(),
+                    b_rec.data_ptr(), out.data_ptr(),
+                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
+    return out

@@ -1,0 +1,120 @@
+"""The paper's benchmark models: RNN (LSTM/GRU) + dense head classifiers.
+
+Top tagging:    [b, 20, 6]  -> LSTM/GRU(20)  -> Dense(64, ReLU) -> sigmoid(1)
+Flavor tagging: [b, 15, 6]  -> LSTM/GRU(120) -> Dense(50) -> Dense(10) -> softmax(3)
+QuickDraw:      [b, 100, 3] -> LSTM/GRU(128) -> Dense(256) -> Dense(128) -> softmax(5)
+
+Parameters keep the JAX package's flat layout and names
+(``rnn/kernel`` [in, G*h], ``rnn/recurrent`` [h, G*h], ``rnn/bias`` [G*h]
+or [2, 3h] for the GRU, ``dense{i}/w`` [in, out], ``dense{i}/b``,
+``head/w``, ``head/b``), so both packages compute the same function on the
+same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.rnn.cells import rnn_param_specs
+from repro_torch.core.rnn.layer import rnn_layer
+from repro_torch.models.init import ParamSpec, ParamSpecs, Params, init_params
+
+Device = Union[str, torch.device]
+
+
+def param_specs(cfg: ModelConfig) -> ParamSpecs:
+    rnn = cfg.rnn
+    if rnn is None:
+        raise ValueError(f"{cfg.name} has no rnn config")
+    specs = dict(rnn_param_specs(rnn, "rnn"))
+    prev = rnn.hidden
+    for i, width in enumerate(rnn.dense_sizes):
+        specs[f"dense{i}/w"] = ParamSpec((prev, width), "lecun")
+        specs[f"dense{i}/b"] = ParamSpec((width,), "zeros")
+        prev = width
+    specs["head/w"] = ParamSpec((prev, rnn.n_outputs), "lecun")
+    specs["head/b"] = ParamSpec((rnn.n_outputs,), "zeros")
+    return specs
+
+
+def params_from_jax(params: Mapping[str, object],
+                    device: Device = "cuda") -> Params:
+    """The JAX package's flat tagger parameters (``{"rnn/kernel": ...,
+    "dense0/w": ...}``, numpy or JAX arrays) as float32 tensors on
+    ``device``, layout unchanged: ``[in, out]`` matrices, Keras gate order
+    i|f|c|o (LSTM) and z|r|hh (GRU), GRU bias ``[2, 3h]``."""
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+           for k, v in params.items()}
+    W, U, b = (out.get(f"rnn/{n}") for n in ("kernel", "recurrent", "bias"))
+    if W is None or U is None or b is None:
+        raise KeyError(f"not tagger parameters: {sorted(out)}")
+    h = U.shape[0]
+    gates = U.shape[1] // h if h else 0
+    if (gates not in (3, 4) or U.shape[1] != gates * h
+            or W.shape[1] != gates * h
+            or b.shape != ((4 * h,) if gates == 4 else (2, 3 * h))):
+        raise ValueError(
+            f"rnn parameters do not have the Keras layout: kernel "
+            f"{tuple(W.shape)}, recurrent {tuple(U.shape)}, bias "
+            f"{tuple(b.shape)}")
+    return out
+
+
+class RNNTagger(nn.Module):
+    """One tagger: the recurrent layer and its dense head.
+
+    ``params`` is a flat mapping in the layout of :func:`param_specs`
+    (tensors or numpy arrays); without it the weights are drawn from
+    ``generator`` (seed 0 when none is given).  The weights are held as
+    float32 tensors on ``device`` from construction on.
+    """
+
+    def __init__(self, cfg: ModelConfig,
+                 params: Optional[Mapping[str, object]] = None, *,
+                 device: Device = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        specs = param_specs(cfg)
+        if params is None:
+            params = init_params(specs, generator or
+                                 torch.Generator().manual_seed(0), "cpu")
+        if set(params) != set(specs):
+            raise KeyError(f"{cfg.name}: parameters {sorted(params)} do not "
+                           f"match {sorted(specs)}")
+        self.weights = nn.ParameterDict()
+        for path, spec in specs.items():
+            t = torch.as_tensor(params[path], dtype=torch.float32,
+                                device=device)
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"{cfg.name}: {path} has shape "
+                                 f"{tuple(t.shape)}, expected {spec.shape}")
+            self.weights[path] = nn.Parameter(t.contiguous(),
+                                              requires_grad=False)
+
+    def forward(self, x: torch.Tensor, *, fp=None, mode: Optional[str] = None,
+                impl: str = "xla", schedule=None, lengths=None,
+                return_logits: bool = False) -> torch.Tensor:
+        """[b, T, features] -> class probabilities [b, n_outputs] (or the
+        pre-activation logits).  ``schedule`` overrides the config-derived
+        schedule of the recurrent layer; ``lengths`` [b] routes a padded
+        batch through the masked-scan ragged path."""
+        rnn = self.cfg.rnn
+        p = self.weights
+        h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
+                      p["rnn/bias"], fp=fp, mode=mode, impl=impl,
+                      schedule=schedule, lengths=lengths)
+        h = h.float()
+        for i in range(len(rnn.dense_sizes)):
+            h = torch.relu(h @ p[f"dense{i}/w"] + p[f"dense{i}/b"])
+        logits = h @ p["head/w"] + p["head/b"]
+        if return_logits:
+            return logits
+        if rnn.output_activation == "sigmoid":
+            return torch.sigmoid(logits)
+        return torch.softmax(logits.float(), dim=-1)
