@@ -5,19 +5,34 @@
 
 In order, it
   1. prints the card's name and power limit and builds every CUDA kernel
-     from ``src/repro_torch/csrc`` (timed);
-  2. holds each scan kernel against its plain PyTorch version on the card,
-     at the main path's shapes of all six taggers (B = 256, R in {1, 4},
-     float32 and bfloat16 inputs);
-  3. serves requests for all six (config x cell) taggers at full width
-     through ``RNNServingEngine(..., impl="pallas", device="cuda")`` with
-     seeded random weights (``predict``, ``predict_one``, ``submit`` /
-     ``flush``, a hoisted and an R=4 schedule), checks every answer against
-     the same model on ``backend="xla"``, and checks that every kernel was
-     launched;
-  4. times each kernel (CUDA events) beside its plain version, one PyTorch
-     library call for the same function (``torch.nn.LSTM`` / ``GRU``), and
-     its bound on the card;
+     from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel;
+     timed);
+  2. holds each of the eight kernels against its plain PyTorch version on
+     the card, at the main path's shapes of all six taggers (B = 256,
+     R in {1, 4}, float32 and bfloat16): the static, hoisted and pipeline
+     scans; ``col_matmul`` at each step's x-side and h-side product and at
+     the hoist stage's [256*T, in] product (R = 2); ``reuse_matmul`` at
+     QuickDraw's h-side shape;
+  3. drives the port's main paths, each with the launch counts set to 0
+     just before it and read just after, and checks every answer against
+     the same model on ``backend="xla"``:
+       static   all six taggers served through ``RNNServingEngine(...,
+                impl="pallas", device="cuda")`` with seeded random weights
+                (``predict``, ``predict_one``, ``submit`` / ``flush``, a
+                hoisted and an R=4 schedule);
+       modes    the same taggers in non-static mode (``predict`` and one
+                ``submit`` / ``flush``), non-static with the hoist,
+                pipeline at R = 1 and R = 4, and the hoist stage at
+                ``hoist_reuse = 2``;
+       matmul   the scheduled matmul entry point ``ops.reuse_matmul``;
+     and checks that every kernel of each path was launched;
+  4. times each kernel (CUDA events around back-to-back calls, and the
+     device's own time per call from a ``torch.profiler`` trace) beside its
+     plain version, one PyTorch library call for the same function
+     (cuDNN's ``LSTM`` / ``GRU`` for the scans, ``torch.matmul`` for the
+     products) and its bound on the card, and whole QuickDraw LSTM scans
+     end to end per mode with their launch counts and the device's idle
+     share;
   5. ends with the JSON result line.
 
 Any failed check raises, so the script exits non-zero; it exits non-zero
@@ -44,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 BATCH = 256                      # the engine's max_batch: every flush's rows
 REUSES = (1, 4)
+HOIST_REUSE = 2                  # the hoist stage's column tiles
 ONE_CALLS = 12                   # predict_one calls per tagger (first builds)
 F32_PEAK = 67e12                 # H100 SXM f32 CUDA-core peak, FLOP/s
 HBM_BPS = 3.35e12                # H100 SXM device memory, bytes/s
@@ -51,15 +67,22 @@ TAGGERS = ("top-tagging-lstm", "top-tagging-gru", "flavor-tagging-lstm",
            "flavor-tagging-gru", "quickdraw-lstm", "quickdraw-gru")
 #: the shape whose timings go into the result line (the largest tagger)
 HEADLINE = "quickdraw"
+#: reuse_matmul's shape: QuickDraw LSTM's h-side product (M, K, N)
+MATMUL_SHAPE = (BATCH, 128, 512)
 
+SCAN_SRC = "src/repro_torch/csrc/rnn_scan.cu"
+MATMUL_SRC = "src/repro_torch/csrc/reuse_matmul.cu"
 #: kernel -> (TPU kernel it replaces, source of the CUDA kernel)
 KERNELS = {
-    "lstm_scan": "src/repro/kernels/lstm_scan.py:120",
-    "lstm_scan_hoisted": "src/repro/kernels/lstm_scan.py:238",
-    "gru_scan": "src/repro/kernels/gru_scan.py:99",
-    "gru_scan_hoisted": "src/repro/kernels/gru_scan.py:200",
+    "lstm_scan": ("src/repro/kernels/lstm_scan.py:120", SCAN_SRC),
+    "lstm_scan_hoisted": ("src/repro/kernels/lstm_scan.py:238", SCAN_SRC),
+    "gru_scan": ("src/repro/kernels/gru_scan.py:99", SCAN_SRC),
+    "gru_scan_hoisted": ("src/repro/kernels/gru_scan.py:200", SCAN_SRC),
+    "lstm_scan_pipeline": ("src/repro/kernels/lstm_scan.py:197", SCAN_SRC),
+    "gru_scan_pipeline": ("src/repro/kernels/gru_scan.py:164", SCAN_SRC),
+    "col_matmul": ("src/repro/kernels/reuse_matmul.py:78", MATMUL_SRC),
+    "reuse_matmul": ("src/repro/kernels/reuse_matmul.py:42", MATMUL_SRC),
 }
-SOURCE = "src/repro_torch/csrc/rnn_scan.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -102,52 +125,136 @@ def scan_inputs(cell, T, fin, H, dtype, seed, device):
     return as_t(xs, dtype), as_t(W), as_t(U), as_t(b)
 
 
-def kernel_calls(cell, xs, W, U, b, reuse):
-    """(name, kernel thunk, plain thunk, inputs of the bound) per kernel of
-    ``cell`` on these inputs; the hoisted kernels get zx from the port's
-    hoist stage, as on the main path."""
+def call(name, shape, kern, plain, inputs, flops, library=None,
+         headline=False) -> dict:
+    """One kernel call: its thunk, its plain version's, the inputs and
+    FLOPs of its bound, and (for timing) one library call's thunk."""
+    return {"name": name, "shape": shape, "kern": kern, "plain": plain,
+            "inputs": inputs, "flops": flops, "library": library,
+            "headline": headline}
+
+
+def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False) -> list:
+    """The static, hoisted and pipeline scans of ``rnn.cell`` on these
+    inputs; the hoisted and pipeline kernels get zx from the port's hoist
+    stage, as on the main path."""
     from repro_torch.kernels import gru_scan as gs
     from repro_torch.kernels import lstm_scan as ls
     from repro_torch.kernels.ops import _hoist_stage
+    from repro_torch.kernels.schedule import KernelSchedule
 
-    zx = _hoist_stage(xs, W)
+    zx = _hoist_stage(xs, W, KernelSchedule())
     od = xs.dtype
-    if cell == "lstm":
-        return [
-            ("lstm_scan", lambda: ls.lstm_scan_kernel(xs, W, U, b, reuse=reuse),
-             lambda: ls.lstm_scan_plain(xs, W, U, b, reuse=reuse),
-             (xs, W, U, b)),
-            ("lstm_scan_hoisted",
-             lambda: ls.lstm_scan_hoisted_kernel(zx, U, b, reuse=reuse,
-                                                 out_dtype=od),
-             lambda: ls.lstm_scan_hoisted_plain(zx, U, b, reuse=reuse,
-                                                out_dtype=od),
-             (zx, U, b)),
-        ]
-    zxb = (zx + b[0]).contiguous()
-    b_rec = b[1].contiguous()
-    return [
-        ("gru_scan", lambda: gs.gru_scan_kernel(xs, W, U, b, reuse=reuse),
-         lambda: gs.gru_scan_plain(xs, W, U, b, reuse=reuse), (xs, W, U, b)),
-        ("gru_scan_hoisted",
-         lambda: gs.gru_scan_hoisted_kernel(zxb, U, b_rec, reuse=reuse,
-                                            out_dtype=od),
-         lambda: gs.gru_scan_hoisted_plain(zxb, U, b_rec, reuse=reuse,
-                                           out_dtype=od),
-         (zxb, U, b_rec)),
-    ]
+    B, T, fin = xs.shape
+    H = U.shape[0]
+    g = 4 if rnn.cell == "lstm" else 3
+    shape = f"{tag} B={B} R={reuse}"
+    head = tag.startswith(HEADLINE) and reuse == 1
+    f_in, f_h = 2.0 * B * T * (fin + H) * g * H, 2.0 * B * T * H * g * H
+
+    def lib(name, args):
+        return library_call(name, args) if timing else None
+
+    c = rnn.cell
+    mod = ls if c == "lstm" else gs
+    hoisted_args = (zx, U, b) if c == "lstm" else \
+        ((zx + b[0]).contiguous(), U, b[1].contiguous())
+    out = []
+    for kind, args, flops, kw in (
+            ("", (xs, W, U, b), f_in, {"reuse": reuse}),
+            ("_hoisted", hoisted_args, f_h, {"reuse": reuse, "out_dtype": od}),
+            ("_pipeline", hoisted_args, f_h, {"reuse": reuse,
+                                              "out_dtype": od})):
+        name = f"{c}_scan{kind}"
+        kern = getattr(mod, f"{name}_kernel")
+        plain = getattr(mod, f"{name}_plain")
+        out.append(call(name, shape,
+                        lambda k=kern, a=args, kw=kw: k(*a, **kw),
+                        lambda p=plain, a=args, kw=kw: p(*a, **kw),
+                        args, flops, lib(name, args), head))
+    return out
+
+
+def matmul_calls(tag, rnn, xs, U, reuse, seed) -> list:
+    """``col_matmul`` at one step's x-side and h-side products of a tagger
+    (M = 256 rows): x_t @ W and h @ U; and, at R = 1 only,
+    ``reuse_matmul`` at QuickDraw's h-side shape (no model calls it)."""
+    import torch
+
+    from repro_torch.kernels import reuse_matmul as rm
+
+    dev, dt = xs.device, xs.dtype
+    g = 4 if rnn.cell == "lstm" else 3
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    W = rand(rnn.input_size, g * rnn.hidden) / np.sqrt(rnn.input_size)
+    sides = {"x-side": (xs[:, 0].contiguous(), W),
+             "h-side": (torch.tanh(rand(BATCH, rnn.hidden)).to(dt), U)}
+    out = []
+    for side, (x, w) in sides.items():
+        out.append(call(
+            "col_matmul", f"{tag} {side} {tuple(x.shape)}@{tuple(w.shape)} "
+            f"R={reuse}",
+            lambda x=x, w=w: rm.col_matmul_kernel(x, w, reuse=reuse),
+            lambda x=x, w=w: rm.col_matmul_plain(x, w, reuse=reuse),
+            (x, w), 2.0 * x.shape[0] * x.shape[1] * w.shape[1],
+            lambda x=x, w=w: torch.matmul(x, w),
+            tag.startswith(HEADLINE) and side == "h-side" and reuse == 1
+            and rnn.cell == "lstm"))
+    if tag == "quickdraw-lstm":
+        M, K, N = MATMUL_SHAPE
+        x, w = rand(M, K).to(dt), rand(K, N).to(dt) / np.sqrt(K)
+        out.append(call(
+            "reuse_matmul", f"({M},{K})@({K},{N}) R={reuse}",
+            lambda: rm.reuse_matmul_kernel(x, w, reuse=reuse),
+            lambda: rm.reuse_matmul_plain(x, w, reuse=reuse),
+            (x, w), 2.0 * M * K * N, lambda: torch.matmul(x, w),
+            reuse == 1))
+    return out
+
+
+def hoist_call(tag, xs, W) -> dict:
+    """``col_matmul`` at the hoist stage's [B*T, in] @ [in, G*h] product in
+    ``HOIST_REUSE`` column tiles."""
+    import torch
+
+    from repro_torch.kernels import reuse_matmul as rm
+
+    x = xs.reshape(-1, xs.shape[-1])
+    return call("col_matmul", f"{tag} hoist {tuple(x.shape)}@"
+                f"{tuple(W.shape)} R={HOIST_REUSE}",
+                lambda: rm.col_matmul_kernel(x, W, reuse=HOIST_REUSE),
+                lambda: rm.col_matmul_plain(x, W, reuse=HOIST_REUSE),
+                (x, W), 2.0 * x.shape[0] * x.shape[1] * W.shape[1],
+                lambda: torch.matmul(x, W))
+
+
+def all_calls(dtype, device, timing=False):
+    """(tagger, R, call) for every kernel call of phases 2 and 4."""
+    from repro_torch.configs import get_config
+
+    for i, tag in enumerate(TAGGERS):
+        r = get_config(tag).rnn
+        xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                                  dtype, (200 if timing else 100) + i,
+                                  device)
+        for reuse in REUSES:
+            for c in (scan_calls(tag, r, xs, W, U, b, reuse, timing)
+                      + matmul_calls(tag, r, xs, U, reuse, 300 + i)):
+                yield tag, reuse, c
+        yield tag, HOIST_REUSE, hoist_call(tag, xs, W)
 
 
 def library_call(name, inputs):
-    """One PyTorch call computing the same function as kernel ``name`` on
-    its ``inputs`` (cuDNN's LSTM / GRU), used only as a yardstick.  torch's
-    LSTM gate order i|f|g|o equals Keras i|f|c|o (bias_hh = 0); its GRU is
-    reset_after with gates r|z|n, a permutation of Keras z|r|hh.  The hoisted
-    kernels' function (final h from precomputed zx) is the same cell with an
-    identity input weight."""
+    """One PyTorch call computing the same function as scan kernel ``name``
+    on its ``inputs`` (cuDNN's LSTM / GRU), used only as a yardstick.
+    torch's LSTM gate order i|f|g|o equals Keras i|f|c|o (bias_hh = 0); its
+    GRU is reset_after with gates r|z|n, a permutation of Keras z|r|hh.  The
+    hoisted and pipeline kernels' function (final h from precomputed zx) is
+    the same cell with an identity input weight."""
     import torch
 
-    hoisted = name.endswith("hoisted")
+    hoisted = not name.endswith("_scan")
     if hoisted:
         xs, U, b = inputs
     else:
@@ -198,59 +305,120 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(name, inputs, out_bytes, B, T, H, fin):
-    """(bound_ms, bound_by): the larger of the bytes each input read once
-    and the output written once over device-memory bandwidth, and the gate
-    matmul FLOPs over the f32 CUDA-core peak (the kernels use no tensor
-    cores)."""
-    g = 4 if name.startswith("lstm") else 3
-    k = H if name.endswith("hoisted") else fin + H
-    flops = 2.0 * B * T * k * g * H
-    nbytes = sum(t.numel() * t.element_size() for t in inputs) + out_bytes
+#: device kernel name fragment -> what launched it, for the trace readings
+KERNEL_GROUPS = (("col_matmul_kernel", "col_matmul"),
+                 ("reuse_matmul_kernel", "reuse_matmul"),
+                 ("rnn_scan_kernel", "scan kernels"))
+
+
+def device_trace(fn, calls: int = 1) -> dict:
+    """Read ``calls`` calls of ``fn`` from a ``torch.profiler`` trace of the
+    device: the span from the first device event to the last, the time
+    some device event ran (the union of their intervals) and its idle
+    share, and per group of kernels the launches and their device time.
+    Empty where the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    if not events:
+        return {}
+    busy, end = 0.0, events[0][0]
+    groups: dict = {}
+    for start, stop, name in events:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        group = next((g for frag, g in KERNEL_GROUPS if frag in name),
+                     "other")
+        n, us = groups.get(group, (0, 0.0))
+        groups[group] = (n + 1, us + stop - start)
+    span = end - events[0][0]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span if span else 0.0,
+            "kernels": {g: {"launches": n, "device_ms": us / 1e3}
+                        for g, (n, us) in groups.items()}}
+
+
+def bound(inputs, out, flops):
+    """(bound_ms, bound_by, bytes): the larger of the bytes each input read
+    once and the output written once over device-memory bandwidth, and the
+    FLOPs over the f32 CUDA-core peak (the kernels use no tensor cores)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
     t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
 
 def phase_kernels(device) -> dict:
     """Every kernel against its plain version at every main-path shape."""
     import torch
 
-    from repro_torch.configs import get_config
-
     errs: dict = {}
-    for i, tag in enumerate(TAGGERS):
-        r = get_config(tag).rnn
-        for dtype in (torch.float32, torch.bfloat16):
-            for reuse in REUSES:
-                xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size,
-                                          r.hidden, dtype, 100 + i, device)
-                with torch.inference_mode():
-                    for name, kern, plain, _ in kernel_calls(r.cell, xs, W, U,
-                                                             b, reuse):
-                        got = kern()
-                        torch.cuda.synchronize()
-                        want = plain()
-                        check(got.dtype == want.dtype
-                              and got.shape == (BATCH, r.hidden),
-                              f"{name} {tag}: {got.dtype} {tuple(got.shape)}")
-                        err, scale = max_err(got, want)
-                        tol = TOL[str(dtype).split(".")[1]]
-                        print(f"check {name:18s} {tag:20s} "
-                              f"{str(dtype)[6:]:8s} R={reuse}: max_abs_err "
-                              f"{err:.3e} (tol {tol * scale:.1e})")
-                        check(bool(np.isfinite(err)) and err <= tol * scale,
-                              f"{name} {tag} {dtype} R={reuse}: err {err}")
-                        errs[name] = max(errs.get(name, 0.0), err)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for tag, reuse, c in all_calls(dtype, device):
+            with torch.inference_mode():
+                got = c["kern"]()
+                torch.cuda.synchronize()
+                want = c["plain"]()
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"{c['name']} {c['shape']}: {got.dtype} "
+                  f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+            err, scale = max_err(got, want)
+            print(f"check {c['name']:18s} {c['shape']:44s} "
+                  f"{str(dtype)[6:]:8s}: max_abs_err {err:.3e} "
+                  f"(tol {tol * scale:.1e})")
+            check(bool(np.isfinite(err)) and err <= tol * scale,
+                  f"{c['name']} {c['shape']} {dtype}: err {err}")
+            errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
+    check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
 
 
+def drive(path: str, run, kernels) -> tuple:
+    """Run one main path with every launch count set to 0 just before it;
+    read the counts just after and check each kernel of the path ran.
+    Returns (launches, the path's result)."""
+    import torch
+
+    from repro_torch.kernels import cuda
+
+    cuda.reset_launches()
+    result = run()
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    print(f"launches on the {path} path: {launches}")
+    for name in kernels:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
+    return launches, result
+
+
+def check_served(tag, what, g, w) -> None:
+    check(g.shape == w.shape and bool(np.isfinite(g).all()),
+          f"{tag} {what}: shape {g.shape} vs {w.shape}")
+    err = float(np.abs(g - w).max())
+    scale = max(1.0, float(np.abs(w).max()))
+    check(err <= TOL["float32"] * scale,
+          f"{tag} {what}: err {err} vs backend xla")
+
+
 def phase_serving(device) -> dict:
-    """The port's main path: all six taggers served on the kernels."""
+    """The port's main paths, each driven with the counts set to 0."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda
+    from repro_torch.kernels import ops
     from repro_torch.kernels.schedule import KernelSchedule, schedule_key
     from repro_torch.models.init import init_params
     from repro_torch.models.rnn_tagger import param_specs
@@ -258,110 +426,194 @@ def phase_serving(device) -> dict:
 
     hoist = KernelSchedule(hoist_input=True)
     r4 = KernelSchedule(reuse_factor=4)
+    modes = {
+        "nonstatic_hoist": KernelSchedule(mode="nonstatic", hoist_input=True),
+        "pipeline_r1": KernelSchedule(mode="pipeline"),
+        "pipeline_r4": KernelSchedule(mode="pipeline", reuse_factor=4),
+        "hoist_reuse2": KernelSchedule(hoist_input=True,
+                                       hoist_reuse=HOIST_REUSE),
+    }
     engines = []
     for i, tag in enumerate(TAGGERS):
         cfg = get_config(tag)
         params = init_params(param_specs(cfg),
                              torch.Generator().manual_seed(i), "cpu")
         eng = RNNServingEngine(cfg, params, impl="pallas", device=device)
+        nonstatic = RNNServingEngine(cfg, params, mode="nonstatic",
+                                     impl="pallas", device=device)
         ref = RNNServingEngine(cfg, params, impl="xla", device=device)
         rnn = cfg.rnn
         x = np.random.RandomState(i).randn(
             24, rnn.seq_len, rnn.input_size).astype(np.float32)
-        engines.append((tag, eng, ref, x))
+        engines.append((tag, eng, nonstatic, ref, x))
 
-    cuda.reset_launches()
-    served = {}
-    for tag, eng, _, x in engines:
-        got = {
-            "predict": eng.predict(x[:8]),
-            "predict_r4": eng.predict(x[:8], schedule=r4),
-            "predict_one": np.stack([eng.predict_one(x[j])
-                                     for j in range(ONE_CALLS)]),
-        }
-        reqs = eng.serve(list(x[:16]))
-        hreqs = eng.serve(list(x[16:]), schedules=[hoist] * 8)
-        for q in reqs + hreqs:
-            check(q.status == "answered",
-                  f"{tag}: request {q.req_id} {q.status}: {q.error!r}")
-        got["flush"] = np.stack([q.result for q in reqs])
-        got["flush_hoist"] = np.stack([q.result for q in hreqs])
-        served[tag] = got
-    torch.cuda.synchronize()
-    launches = dict(cuda.LAUNCHES)
+    def static_path():
+        served = {}
+        for tag, eng, _, _, x in engines:
+            got = {
+                "predict": eng.predict(x[:8]),
+                "predict_r4": eng.predict(x[:8], schedule=r4),
+                "predict_one": np.stack([eng.predict_one(x[j])
+                                         for j in range(ONE_CALLS)]),
+            }
+            reqs = eng.serve(list(x[:16]))
+            hreqs = eng.serve(list(x[16:]), schedules=[hoist] * 8)
+            for q in reqs + hreqs:
+                check(q.status == "answered",
+                      f"{tag}: request {q.req_id} {q.status}: {q.error!r}")
+            got["flush"] = np.stack([q.result for q in reqs])
+            got["flush_hoist"] = np.stack([q.result for q in hreqs])
+            served[tag] = got
+        return served
 
-    for tag, eng, ref, x in engines:
+    def modes_path():
+        served = {}
+        for tag, eng, nonstatic, _, x in engines:
+            got = {"nonstatic": nonstatic.predict(x[:8])}
+            for what, sched in modes.items():
+                got[what] = eng.predict(x[:8], schedule=sched)
+            reqs = nonstatic.serve(list(x[:16]))
+            for q in reqs:
+                check(q.status == "answered",
+                      f"{tag}: request {q.req_id} {q.status}: {q.error!r}")
+            got["nonstatic_flush"] = np.stack([q.result for q in reqs])
+            served[tag] = got
+        return served
+
+    M, K, N = MATMUL_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    mx = torch.randn(M, K, generator=gen).to(device)
+    mw = (torch.randn(K, N, generator=gen) / np.sqrt(K)).to(device)
+    msched = KernelSchedule(reuse_factor=4)
+
+    def matmul_path():
+        return ops.reuse_matmul(mx, mw, schedule=msched)
+
+    launches = {}
+    launches["static"], static = drive(
+        "static", static_path, ("lstm_scan", "lstm_scan_hoisted",
+                                "gru_scan", "gru_scan_hoisted"))
+    launches["modes"], moded = drive(
+        "modes", modes_path, ("col_matmul", "lstm_scan_pipeline",
+                              "gru_scan_pipeline", "lstm_scan_hoisted",
+                              "gru_scan_hoisted"))
+    launches["matmul"], mm = drive("matmul", matmul_path, ("reuse_matmul",))
+
+    rows = {"predict": slice(0, 8), "predict_r4": slice(0, 8),
+            "predict_one": slice(0, ONE_CALLS), "flush": slice(0, 16),
+            "flush_hoist": slice(16, 24), "nonstatic_flush": slice(0, 16)}
+    for tag, eng, nonstatic, ref, x in engines:
         want = ref.predict(x)
-        got = served[tag]
-        for what, rows in (("predict", slice(0, 8)),
-                           ("predict_r4", slice(0, 8)),
-                           ("predict_one", slice(0, ONE_CALLS)),
-                           ("flush", slice(0, 16)),
-                           ("flush_hoist", slice(16, 24))):
-            g, w = got[what], want[rows]
-            check(g.shape == w.shape and bool(np.isfinite(g).all()),
-                  f"{tag} {what}: shape {g.shape} vs {w.shape}")
-            err = float(np.abs(g - w).max())
-            scale = max(1.0, float(np.abs(w).max()))
-            check(err <= TOL["float32"] * scale,
-                  f"{tag} {what}: err {err} vs backend xla")
-        for key in eng._infer_cache:
-            check(eng.trace_count(key) == 1, f"{tag}: {key} built "
-                  f"{eng.trace_count(key)} times")
+        for what, g in {**static[tag], **moded[tag]}.items():
+            check_served(tag, what, g, want[rows.get(what, slice(0, 8))])
+        for e in (eng, nonstatic):
+            for key in e._infer_cache:
+                check(e.trace_count(key) == 1, f"{tag}: {key} built "
+                      f"{e.trace_count(key)} times")
         rep = eng.serve_report()
         key = schedule_key(eng.resolved_schedule)
         fast = rep[key]["fast_path"]["latency_p50_s"] * 1e3
         flush = rep[key]["measured"]
-        print(f"served {tag:20s} keys={sorted(eng._infer_cache)} "
-              f"predict_one p50 {fast:.3f} ms, flush of {BATCH} rows: "
-              f"{int(flush['batches'])} batch(es), request latency p50 "
-              f"{flush['latency_p50_s'] * 1e3:.3f} ms; all answers within "
-              f"{TOL['float32']:.0e} of backend xla")
-    print(f"launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        nkey = schedule_key(nonstatic.resolved_schedule)
+        nflush = nonstatic.serve_report()[nkey]["measured"]
+        print(f"served {tag:20s} keys={sorted(eng._infer_cache)} + "
+              f"{sorted(nonstatic._infer_cache)}; predict_one p50 "
+              f"{fast:.3f} ms, flush of {BATCH} rows: static request "
+              f"latency p50 {flush['latency_p50_s'] * 1e3:.3f} ms, "
+              f"nonstatic {nflush['latency_p50_s'] * 1e3:.3f} ms; all "
+              f"answers within {TOL['float32']:.0e} of backend xla")
+    mm_want = ops.reuse_matmul(mx, mw, schedule=msched.replace(backend="xla"))
+    err, scale = max_err(mm, mm_want)
+    print(f"served ops.reuse_matmul {tuple(mx.shape)}@{tuple(mw.shape)} "
+          f"{msched.key()}: max_abs_err {err:.3e} vs backend xla")
+    check(err <= TOL["float32"] * scale, f"ops.reuse_matmul: err {err}")
     return launches
 
 
-def phase_timing(device) -> list:
-    """Kernel, plain and library times and the bound at B = 256."""
+def phase_timing(device) -> tuple:
+    """Kernel, plain and library times and the bound at B = 256, and whole
+    scans end to end."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
 
     rows = []
-    for i, tag in enumerate(TAGGERS):
-        r = get_config(tag).rnn
-        xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
-                                  torch.float32, 200 + i, device)
-        for reuse in REUSES:
-            for name, kern, plain, inputs in kernel_calls(r.cell, xs, W, U, b,
-                                                          reuse):
-                lib = library_call(name, inputs)
-                with torch.inference_mode():
-                    lib_err = float((lib() - kern()).abs().max())
-                ms = time_ms(kern, 20)
-                plain_ms = time_ms(plain, 3, warmup=1)
-                library_ms = time_ms(lib, 20)
-                b_ms, b_by, flops, nbytes = bound(
-                    name, inputs, BATCH * r.hidden * 4, BATCH, r.seq_len,
-                    r.hidden, r.input_size)
-                row = {"name": name, "tagger": tag, "reuse": reuse,
-                       "B": BATCH, "T": r.seq_len, "in": r.input_size,
-                       "H": r.hidden, "chain_steps": r.seq_len * reuse,
-                       "rows_per_block": cuda.rows_per_block(BATCH),
-                       "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "flop": flops, "bytes": nbytes,
-                       "library_max_abs_err": lib_err}
-                rows.append(row)
-                print(f"time {name:18s} {tag:20s} R={reuse}: kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library "
-                      f"{library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                      f"chain {r.seq_len * reuse} steps, library err "
-                      f"{lib_err:.1e}")
-    return rows
+    for tag, reuse, c in all_calls(torch.float32, device, timing=True):
+        with torch.inference_mode():
+            out = c["kern"]()
+            lib_err = float((c["library"]().float() - out.float())
+                            .abs().max())
+        small = c["name"] in ("col_matmul", "reuse_matmul")
+        ms = time_ms(c["kern"], 200 if small else 20)
+        plain_ms = time_ms(c["plain"], 20 if small else 3, warmup=1)
+        library_ms = time_ms(c["library"], 200 if small else 20)
+        b_ms, b_by, nbytes = bound(c["inputs"], out, c["flops"])
+        row = {"name": c["name"], "tagger": tag, "reuse": reuse,
+               "shape": c["shape"], "headline": c["headline"],
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "flop": c["flops"],
+               "bytes": nbytes, "library_max_abs_err": lib_err}
+        # events around back-to-back calls of a small kernel time the host's
+        # launch rate; the trace reads the device's own time per call
+        calls = 50 if small else 10
+        row["device_ms"] = per_call(
+            c["kern"], c["name"] if small else "scan kernels", calls)
+        row["library_device_ms"] = per_call(c["library"], "other", calls)
+        if not small:
+            row["rows_per_block"] = cuda.rows_per_block(BATCH)
+        rows.append(row)
+        print(f"time {c['name']:18s} {c['shape']:44s}: kernel {ms:.4f} ms "
+              f"(device {row['device_ms']:.4f}), plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms (device "
+              f"{row['library_device_ms']:.4f}), bound {b_ms:.5f} ms "
+              f"({b_by}), library err {lib_err:.1e}")
+    return rows, time_nonstatic_scans(device)
+
+
+def per_call(fn, group: str, calls: int) -> float:
+    """Device time of ``group``'s kernels per call of ``fn``, over
+    ``calls`` calls from the trace (nan where it holds none)."""
+    k = device_trace(fn, calls).get("kernels", {}).get(group)
+    return k["device_ms"] / calls if k else float("nan")
+
+
+def time_nonstatic_scans(device) -> list:
+    """One whole scan of QuickDraw LSTM at B = 256 through ``ops.lstm_scan``
+    per schedule: device time between CUDA events around 5 calls (host
+    launch gaps included), the launches of one call, and from a trace of
+    one call the device's busy time and idle share."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    r = get_config("quickdraw-lstm").rnn
+    xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                              torch.float32, 400, device)
+    scheds = {"nonstatic": KernelSchedule(mode="nonstatic"),
+              "nonstatic_hoist": KernelSchedule(mode="nonstatic",
+                                                hoist_input=True),
+              "pipeline_r1": KernelSchedule(mode="pipeline"),
+              "static": KernelSchedule()}
+    out = []
+    for what, sched in scheds.items():
+        fn = lambda s=sched: ops.lstm_scan(xs, W, U, b, schedule=s)  # noqa
+        cuda.reset_launches()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        ms = time_ms(fn, 5)
+        n = sum(launches.values())
+        trace = device_trace(fn)
+        out.append({"schedule": sched.key(), "ms": ms, "launches": launches,
+                    "us_per_launch": ms * 1e3 / n, "trace": trace})
+        print(f"scan quickdraw-lstm B={BATCH} {sched.key():32s}: {ms:.3f} ms "
+              f"device span, {n} launches {launches}, "
+              f"{ms * 1e3 / n:.2f} us per launch; trace of one call: "
+              f"{json.dumps(trace)}")
+    return out
 
 
 def main() -> int:
@@ -394,30 +646,33 @@ def main() -> int:
             regs = [ln.strip() for ln in lines if "registers" in ln]
             spills = [ln.strip() for ln in lines
                       if "spill" in ln and " 0 bytes spill" not in ln]
-            print(f"ptxas: {len(regs)} kernels, e.g. "
-                  f"{regs[0] if regs else 'n/a'}; spilling: {spills or 'none'}")
+            print(f"ptxas {p.name}: {len(regs)} kernels, e.g. "
+                  f"{regs[0] if regs else 'n/a'}; spilling: "
+                  f"{spills or 'none'}")
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
-    rows = phase_timing(device)
+    rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "timings": rows, "launches": launches,
-         "max_abs_err": errs}, indent=1))
+        {"card": card, "timings": rows, "nonstatic_scans": scans,
+         "launches": launches, "max_abs_err": errs}, indent=1))
 
     kernels = []
-    for name, replaces in KERNELS.items():
-        row = next(r for r in rows if r["name"] == name and r["reuse"] == 1
-                   and r["tagger"].startswith(HEADLINE))
+    for name, (replaces, source) in KERNELS.items():
+        row = next(r for r in rows if r["name"] == name and r["headline"])
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(run[name] for run in launches.values()),
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": f"{row['tagger']} B={BATCH} R=1", "card": card})
+            "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "shape": row["shape"], "card": card})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

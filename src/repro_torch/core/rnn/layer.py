@@ -1,11 +1,12 @@
 """The recurrent layer: the paper's static / non-static schedules.
 
 impl="pallas" (fp=None) routes the layer through the scheduled scan
-(kernels/ops.py), which runs the CUDA kernels on a CUDA tensor.  Every other
-route runs the cells of core/rnn/cells.py in a Python loop over time: in
-eager PyTorch the static scan and the unrolled one-block-per-timestep form
-are the same loop, so both modes share it.  With ``schedule.hoist_input``
-the cell loop consumes zx = xs @ W precomputed for all timesteps.
+(kernels/ops.py), which runs every mode of the schedule (static, nonstatic,
+pipeline) on the CUDA kernels for a CUDA tensor.  impl="xla" runs the cells
+of core/rnn/cells.py in a Python loop over time: in eager PyTorch the
+static scan and the unrolled one-block-per-timestep form are the same loop,
+so every mode shares it.  With ``schedule.hoist_input`` the cell loop
+consumes zx = xs @ W precomputed for all timesteps.
 
 ``lengths`` selects the pad-and-mask ragged path; as in the JAX package it
 runs on the cells for every impl.

@@ -1,8 +1,11 @@
-// Static-mode LSTM / GRU scan kernels for Hopper (sm_90a).
+// LSTM / GRU scan kernels for Hopper (sm_90a): the static and the pipeline
+// schedules.
 //
-// Replaces the four Pallas TPU kernels of the JAX package's static route:
-//   src/repro/kernels/lstm_scan.py  lstm_scan_pallas, lstm_scan_hoisted_pallas
-//   src/repro/kernels/gru_scan.py   gru_scan_pallas,  gru_scan_hoisted_pallas
+// Replaces six Pallas TPU kernels of the JAX package:
+//   src/repro/kernels/lstm_scan.py  lstm_scan_pallas, lstm_scan_hoisted_pallas,
+//                                   lstm_scan_pipeline_pallas
+//   src/repro/kernels/gru_scan.py   gru_scan_pallas,  gru_scan_hoisted_pallas,
+//                                   gru_scan_pipeline_pallas
 //
 // What they compute.  The final hidden state of a Keras LSTM (gates i|f|c|o,
 // bias [4h]) or reset_after GRU (gates z|r|hh, bias [2, 3h]) over xs [B,T,in].
@@ -19,6 +22,15 @@
 // its meaning: R sequential column tiles per step, so only gw = G*h/R
 // columns (one per thread) are in flight at a time.
 //
+// Pipeline kernels.  The TPU pipeline kernels (grid (B/bt, T) only) unroll
+// the R column passes of h U inside one grid step over a fully resident U,
+// so a step costs one pass, not R.  Here the same kernel template runs with
+// PIPE set: the R tiles are issued together, one thread per gate column
+// (G*h <= 512 for every tagger), with no barrier between tiles; a step
+// costs one barrier after z and one after the gate update, where the
+// hoisted kernel pays R + 1.  They take the hoisted kernels' inputs (zx
+// precomputed) and compute the same function; R only names the tiles.
+//
 // Rows per block.  Chosen for the card, not from the schedule's block_batch:
 // the smallest ROWS in {1, 2, 4, 8} that keeps the grid within one wave of
 // SMs (B = 256 on 132 SMs gives ROWS = 2, 128 blocks).  block_batch only sets
@@ -32,13 +44,13 @@
 //
 // What bounds it.  The work is small (QuickDraw LSTM at B = 256: 3.4 GFLOP,
 // 51 us at the 67 TFLOP/s f32 peak; the bytes are < 1 MB besides the input)
-// but it is a chain of T*R dependent steps, each a block-wide barrier plus a
-// pass over U from L2.  The per-step L2 read of U by every block
-// (G*h*h*4 bytes) is the throughput limit at this batch; the chain of
-// dependent steps sets the latency.  The design keeps the state on chip, so
-// a step costs one U pass and two barriers and nothing goes to device
-// memory between steps; staging U across a block cluster's shared memory is
-// left for a later change.
+// but it is a chain of T*R dependent steps (T for the pipeline kernels),
+// each a block-wide barrier plus a pass over U from L2.  The per-step L2
+// read of U by every block (G*h*h*4 bytes) is the throughput limit at this
+// batch; the chain of dependent steps sets the latency.  The design keeps
+// the state on chip, so a step costs one U pass and two barriers and
+// nothing goes to device memory between steps; staging U across a block
+// cluster's shared memory is left for a later change.
 //
 // Numerics (held to the TPU kernel): f32 FMA accumulation on CUDA cores (no
 // tensor cores), LSTM pre-activation as (dot_x + dot_h) + b, GRU as
@@ -89,7 +101,8 @@ __host__ __device__ size_t smem_floats(int rows, int fin, int H) {
 // W [fin,G*h] (in-loop only), U [h,G*h], all f32 row-major.
 // bias: LSTM [4h]; GRU in-loop [2,3h] (b_in ; b_rec); GRU hoisted b_rec [3h].
 // out [B,h].
-template <int CELL, bool HOIST, typename XT, typename OT, int ROWS>
+// PIPE (hoisted only): all R column tiles in one pass, no barrier between.
+template <int CELL, bool HOIST, bool PIPE, typename XT, typename OT, int ROWS>
 __global__ void __launch_bounds__(kMaxThreads)
 rnn_scan_kernel(const XT* __restrict__ in, const float* __restrict__ W,
                 const float* __restrict__ U, const float* __restrict__ bias,
@@ -97,7 +110,8 @@ rnn_scan_kernel(const XT* __restrict__ in, const float* __restrict__ W,
                 int reuse) {
   constexpr int G = CELL == kLSTM ? 4 : 3;
   const int GH = G * H;
-  const int gw = GH / reuse;
+  const int tiles = PIPE ? 1 : reuse;
+  const int gw = GH / tiles;
   const int row0 = blockIdx.x * ROWS;
 
   extern __shared__ float smem[];
@@ -122,8 +136,8 @@ rnn_scan_kernel(const XT* __restrict__ in, const float* __restrict__ W,
       __syncthreads();
     }
 
-    // R sequential column tiles of the gate pre-activation
-    for (int tile = 0; tile < reuse; ++tile) {
+    // R sequential column tiles of the gate pre-activation (PIPE: together)
+    for (int tile = 0; tile < tiles; ++tile) {
       const int n_end = (tile + 1) * gw;
       for (int n = tile * gw + threadIdx.x; n < n_end; n += blockDim.x) {
         float acc_h[ROWS];
@@ -224,11 +238,12 @@ int rows_for(int B) {
   return rows;
 }
 
-template <int CELL, bool HOIST, typename XT, typename OT, int ROWS>
+template <int CELL, bool HOIST, bool PIPE, typename XT, typename OT,
+          int ROWS>
 int run(const void* in, const float* W, const float* U, const float* bias,
         void* out, int B, int T, int fin, int H, int reuse, int threads,
         size_t smem, cudaStream_t stream) {
-  auto kernel = rnn_scan_kernel<CELL, HOIST, XT, OT, ROWS>;
+  auto kernel = rnn_scan_kernel<CELL, HOIST, PIPE, XT, OT, ROWS>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -241,13 +256,13 @@ int run(const void* in, const float* W, const float* U, const float* bias,
   return (int)cudaGetLastError();
 }
 
-template <int CELL, bool HOIST, typename XT, typename OT>
+template <int CELL, bool HOIST, bool PIPE, typename XT, typename OT>
 int launch(const void* in, const float* W, const float* U, const float* bias,
            void* out, int B, int T, int fin, int H, int reuse, void* stream) {
   const int GH = (CELL == kLSTM ? 4 : 3) * H;
   if (B < 1 || T < 0 || H < 1 || fin < 0 || reuse < 1 || GH % reuse != 0)
     return (int)cudaErrorInvalidValue;
-  const int gw = GH / reuse;
+  const int gw = PIPE ? GH : GH / reuse;  // columns in flight per pass
   int threads = ((gw + 31) / 32) * 32;
   threads = threads > kMaxThreads ? kMaxThreads : threads;
   const int rows = rows_for(B);
@@ -256,17 +271,17 @@ int launch(const void* in, const float* W, const float* U, const float* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
     case 1:
-      return run<CELL, HOIST, XT, OT, 1>(in, W, U, bias, out, B, T, fin, H,
-                                         reuse, threads, smem, s);
+      return run<CELL, HOIST, PIPE, XT, OT, 1>(in, W, U, bias, out, B, T, fin,
+                                               H, reuse, threads, smem, s);
     case 2:
-      return run<CELL, HOIST, XT, OT, 2>(in, W, U, bias, out, B, T, fin, H,
-                                         reuse, threads, smem, s);
+      return run<CELL, HOIST, PIPE, XT, OT, 2>(in, W, U, bias, out, B, T, fin,
+                                               H, reuse, threads, smem, s);
     case 4:
-      return run<CELL, HOIST, XT, OT, 4>(in, W, U, bias, out, B, T, fin, H,
-                                         reuse, threads, smem, s);
+      return run<CELL, HOIST, PIPE, XT, OT, 4>(in, W, U, bias, out, B, T, fin,
+                                               H, reuse, threads, smem, s);
     default:
-      return run<CELL, HOIST, XT, OT, 8>(in, W, U, bias, out, B, T, fin, H,
-                                         reuse, threads, smem, s);
+      return run<CELL, HOIST, PIPE, XT, OT, 8>(in, W, U, bias, out, B, T, fin,
+                                               H, reuse, threads, smem, s);
   }
 }
 
@@ -284,46 +299,66 @@ int lstm_scan(const void* xs, int xs_bf16, const float* W, const float* U,
               const float* b, void* out, int B, int T, int fin, int H,
               int reuse, void* stream) {
   if (xs_bf16)
-    return launch<kLSTM, false, __nv_bfloat16, __nv_bfloat16>(
+    return launch<kLSTM, false, false, __nv_bfloat16, __nv_bfloat16>(
         xs, W, U, b, out, B, T, fin, H, reuse, stream);
-  return launch<kLSTM, false, float, float>(xs, W, U, b, out, B, T, fin, H,
-                                            reuse, stream);
+  return launch<kLSTM, false, false, float, float>(xs, W, U, b, out, B, T,
+                                                   fin, H, reuse, stream);
 }
 
 int lstm_scan_hoisted(const float* zx, const float* U, const float* b,
                       void* out, int out_bf16, int B, int T, int H, int reuse,
                       void* stream) {
   if (out_bf16)
-    return launch<kLSTM, true, float, __nv_bfloat16>(
+    return launch<kLSTM, true, false, float, __nv_bfloat16>(
         zx, nullptr, U, b, out, B, T, 0, H, reuse, stream);
-  return launch<kLSTM, true, float, float>(zx, nullptr, U, b, out, B, T, 0, H,
-                                           reuse, stream);
+  return launch<kLSTM, true, false, float, float>(zx, nullptr, U, b, out, B,
+                                                  T, 0, H, reuse, stream);
 }
 
 int gru_scan(const void* xs, int xs_bf16, const float* W, const float* U,
              const float* b, void* out, int B, int T, int fin, int H,
              int reuse, void* stream) {
   if (xs_bf16)
-    return launch<kGRU, false, __nv_bfloat16, __nv_bfloat16>(
+    return launch<kGRU, false, false, __nv_bfloat16, __nv_bfloat16>(
         xs, W, U, b, out, B, T, fin, H, reuse, stream);
-  return launch<kGRU, false, float, float>(xs, W, U, b, out, B, T, fin, H,
-                                           reuse, stream);
+  return launch<kGRU, false, false, float, float>(xs, W, U, b, out, B, T,
+                                                  fin, H, reuse, stream);
 }
 
 int gru_scan_hoisted(const float* zx, const float* U, const float* b_rec,
                      void* out, int out_bf16, int B, int T, int H, int reuse,
                      void* stream) {
   if (out_bf16)
-    return launch<kGRU, true, float, __nv_bfloat16>(
+    return launch<kGRU, true, false, float, __nv_bfloat16>(
         zx, nullptr, U, b_rec, out, B, T, 0, H, reuse, stream);
-  return launch<kGRU, true, float, float>(zx, nullptr, U, b_rec, out, B, T, 0,
-                                          H, reuse, stream);
+  return launch<kGRU, true, false, float, float>(zx, nullptr, U, b_rec, out,
+                                                 B, T, 0, H, reuse, stream);
+}
+
+int lstm_scan_pipeline(const float* zx, const float* U, const float* b,
+                       void* out, int out_bf16, int B, int T, int H, int reuse,
+                       void* stream) {
+  if (out_bf16)
+    return launch<kLSTM, true, true, float, __nv_bfloat16>(
+        zx, nullptr, U, b, out, B, T, 0, H, reuse, stream);
+  return launch<kLSTM, true, true, float, float>(zx, nullptr, U, b, out, B, T,
+                                                 0, H, reuse, stream);
+}
+
+int gru_scan_pipeline(const float* zx, const float* U, const float* b_rec,
+                      void* out, int out_bf16, int B, int T, int H, int reuse,
+                      void* stream) {
+  if (out_bf16)
+    return launch<kGRU, true, true, float, __nv_bfloat16>(
+        zx, nullptr, U, b_rec, out, B, T, 0, H, reuse, stream);
+  return launch<kGRU, true, true, float, float>(zx, nullptr, U, b_rec, out, B,
+                                                T, 0, H, reuse, stream);
 }
 
 // Rows of the batch each thread block carries for a batch of B rows.
 int scan_rows_per_block(int B) { return rows_for(B); }
 
-const char* scan_error_string(int err) {
+const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

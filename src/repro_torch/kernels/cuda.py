@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -32,21 +32,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of every exported function, per library
+_HOISTED = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+#: C signature of every exported function, per library (``csrc/<name>.cu``);
+#: each library exports ``kernel_error_string`` for its error codes
 SIGNATURES = {
     "rnn_scan": {
         "lstm_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "gru_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "lstm_scan_hoisted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "gru_scan_hoisted": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "lstm_scan_hoisted": _HOISTED,
+        "gru_scan_hoisted": _HOISTED,
+        "lstm_scan_pipeline": _HOISTED,
+        "gru_scan_pipeline": _HOISTED,
         "scan_rows_per_block": (_I, [_I]),
-        "scan_error_string": (ctypes.c_char_p, [_I]),
+        "kernel_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "reuse_matmul": {
+        "col_matmul": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
+        "reuse_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
+        "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"lstm_scan": 0, "lstm_scan_hoisted": 0,
-                            "gru_scan": 0, "gru_scan_hoisted": 0}
+LAUNCHES: Dict[str, int] = {
+    "lstm_scan": 0, "lstm_scan_hoisted": 0, "lstm_scan_pipeline": 0,
+    "gru_scan": 0, "gru_scan_hoisted": 0, "gru_scan_pipeline": 0,
+    "col_matmul": 0, "reuse_matmul": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -120,32 +131,33 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(kernel: str, device: torch.device, *args) -> None:
-    """Call the scan library's C function ``kernel`` with ``args`` on
-    PyTorch's current stream of ``device``, raise if it returned a CUDA
+def launch(lib_name: str, kernel: str, device: torch.device, *args) -> None:
+    """Call the C function ``kernel`` of library ``lib_name`` with ``args``
+    on PyTorch's current stream of ``device``, raise if it returned a CUDA
     error (a refused launch never runs, and a later synchronise would not
     report it), and count the launch."""
-    lib = library("rnn_scan")
+    lib = library(lib_name)
     rc = getattr(lib, kernel)(*args,
                               torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        msg = lib.scan_error_string(rc).decode()
+        msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
     LAUNCHES[kernel] += 1
 
 
-def require(kernel: str, io_dtype: torch.dtype, **tensors: torch.Tensor
+def require(kernel: str, io_dtype: torch.dtype, *,
+            io: Tuple[str, ...] = ("xs",), **tensors: torch.Tensor
             ) -> torch.device:
     """Check the arguments of a launch: ``io_dtype`` (the activations'
-    type) is float32 or bfloat16, a tensor named ``xs`` has it, every other
-    tensor is float32, and all are contiguous on one CUDA device, which is
-    returned."""
+    type) is float32 or bfloat16, the tensors named in ``io`` have it, every
+    other tensor is float32, and all are contiguous on one CUDA device,
+    which is returned."""
     if io_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel}: activations must be float32 or "
                         f"bfloat16, not {io_dtype}")
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
-        want = io_dtype if name == "xs" else torch.float32
+        want = io_dtype if name in io else torch.float32
         if t.dtype != want:
             raise TypeError(f"{kernel}: {name} must be {want}, not "
                             f"{t.dtype}")

@@ -1,8 +1,10 @@
-"""Static-mode GRU (reset_after) scan: the CUDA kernel's wrappers and plain
-versions.
+"""GRU (reset_after) scan: the CUDA kernels' wrappers and plain versions.
 
-Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas`` and
-``gru_scan_hoisted_pallas``.  The kernels live in ``csrc/rnn_scan.cu``.
+Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas``,
+``gru_scan_hoisted_pallas`` and ``gru_scan_pipeline_pallas``.  The kernels
+live in ``csrc/rnn_scan.cu``; the pipeline kernel computes the hoisted
+kernel's function with its R column tiles issued together, so both share
+one plain version.
 
 A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, which repeats the kernel's R-tiled arithmetic: per step, R column
@@ -87,10 +89,31 @@ def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
     B, T, fin = xs.shape
     out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
     if B:
-        cuda.launch("gru_scan", dev, xs.data_ptr(),
+        cuda.launch("rnn_scan", "gru_scan", dev, xs.data_ptr(),
                     int(xs.dtype == torch.bfloat16), W.data_ptr(),
                     U.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, fin,
                     hidden, reuse)
+    return out
+
+
+def _hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype) -> torch.Tensor:
+    """Wrapper of the two kernels that take zx precomputed."""
+    hidden = U.shape[0]
+    _check_shapes(kernel, hidden, reuse, U, zx.shape[-1])
+    if b_rec.shape != (3 * hidden,):
+        raise ValueError(f"{kernel}: b_rec {tuple(b_rec.shape)}")
+    if zx.device.type == "cpu":
+        return gru_scan_hoisted_plain(zx, U, b_rec, reuse=reuse,
+                                      out_dtype=out_dtype)
+    if zx.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {zx.device}")
+    dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b_rec=b_rec)
+    B, T, _ = zx.shape
+    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
+    if B:
+        cuda.launch("rnn_scan", kernel, dev, zx.data_ptr(), U.data_ptr(),
+                    b_rec.data_ptr(), out.data_ptr(),
+                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
     return out
 
 
@@ -99,22 +122,17 @@ def gru_scan_hoisted_kernel(zx: torch.Tensor, U: torch.Tensor,
                             out_dtype=torch.float32) -> torch.Tensor:
     """zx: [B, T, 3h] f32 precomputed x W + b_in; U: [h, 3h]; b_rec: [3h]
     f32 -> final h [B, h] in ``out_dtype`` (float32 or bfloat16)."""
-    hidden = U.shape[0]
-    _check_shapes("gru_scan_hoisted", hidden, reuse, U, zx.shape[-1])
-    if b_rec.shape != (3 * hidden,):
-        raise ValueError(f"gru_scan_hoisted: b_rec {tuple(b_rec.shape)}")
-    if zx.device.type == "cpu":
-        return gru_scan_hoisted_plain(zx, U, b_rec, reuse=reuse,
-                                      out_dtype=out_dtype)
-    if zx.device.type != "cuda":
-        raise ValueError(f"gru_scan_hoisted: no kernel for device "
-                         f"{zx.device}")
-    dev = cuda.require("gru_scan_hoisted", out_dtype, zx=zx, U=U,
-                       b_rec=b_rec)
-    B, T, _ = zx.shape
-    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
-    if B:
-        cuda.launch("gru_scan_hoisted", dev, zx.data_ptr(), U.data_ptr(),
-                    b_rec.data_ptr(), out.data_ptr(),
-                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
-    return out
+    return _hoisted("gru_scan_hoisted", zx, U, b_rec, reuse, out_dtype)
+
+
+def gru_scan_pipeline_kernel(zx: torch.Tensor, U: torch.Tensor,
+                             b_rec: torch.Tensor, *, reuse: int = 1,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """The pipeline schedule's scan: arguments and result as
+    :func:`gru_scan_hoisted_kernel`, the R column tiles of each step's
+    h U issued together (a chain of T steps, not T*R)."""
+    return _hoisted("gru_scan_pipeline", zx, U, b_rec, reuse, out_dtype)
+
+
+#: plain version of :func:`gru_scan_pipeline_kernel` (the same function)
+gru_scan_pipeline_plain = gru_scan_hoisted_plain

@@ -1,8 +1,11 @@
-"""Static-mode LSTM scan: the CUDA kernel's wrappers and plain versions.
+"""LSTM scan: the CUDA kernels' wrappers and plain versions.
 
-Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas`` and
-``lstm_scan_hoisted_pallas``.  The kernels live in ``csrc/rnn_scan.cu``
-(its header says what bounds them on an H100 and how the design answers).
+Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas``,
+``lstm_scan_hoisted_pallas`` and ``lstm_scan_pipeline_pallas``.  The kernels
+live in ``csrc/rnn_scan.cu`` (its header says what bounds them on an H100
+and how the design answers).  The pipeline kernel computes the hoisted
+kernel's function with its R column tiles issued together, so both share
+one plain version.
 
 Each wrapper takes the tensor's device as the dispatch: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version beside
@@ -89,10 +92,29 @@ def lstm_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
     B, T, fin = xs.shape
     out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
     if B:
-        cuda.launch("lstm_scan", dev, xs.data_ptr(),
+        cuda.launch("rnn_scan", "lstm_scan", dev, xs.data_ptr(),
                     int(xs.dtype == torch.bfloat16), W.data_ptr(),
                     U.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, fin,
                     hidden, reuse)
+    return out
+
+
+def _hoisted(kernel: str, zx, U, b, reuse, out_dtype) -> torch.Tensor:
+    """Wrapper of the two kernels that take zx precomputed."""
+    hidden = U.shape[0]
+    _check_shapes(kernel, hidden, reuse, U, b, zx.shape[-1])
+    if zx.device.type == "cpu":
+        return lstm_scan_hoisted_plain(zx, U, b, reuse=reuse,
+                                       out_dtype=out_dtype)
+    if zx.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {zx.device}")
+    dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b=b)
+    B, T, _ = zx.shape
+    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
+    if B:
+        cuda.launch("rnn_scan", kernel, dev, zx.data_ptr(), U.data_ptr(),
+                    b.data_ptr(), out.data_ptr(),
+                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
     return out
 
 
@@ -101,19 +123,17 @@ def lstm_scan_hoisted_kernel(zx: torch.Tensor, U: torch.Tensor,
                              out_dtype=torch.float32) -> torch.Tensor:
     """zx: [B, T, 4h] f32 precomputed x W (no bias); U: [h, 4h], b: [4h] f32
     -> final h [B, h] in ``out_dtype`` (float32 or bfloat16)."""
-    hidden = U.shape[0]
-    _check_shapes("lstm_scan_hoisted", hidden, reuse, U, b, zx.shape[-1])
-    if zx.device.type == "cpu":
-        return lstm_scan_hoisted_plain(zx, U, b, reuse=reuse,
-                                       out_dtype=out_dtype)
-    if zx.device.type != "cuda":
-        raise ValueError(f"lstm_scan_hoisted: no kernel for device "
-                         f"{zx.device}")
-    dev = cuda.require("lstm_scan_hoisted", out_dtype, zx=zx, U=U, b=b)
-    B, T, _ = zx.shape
-    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
-    if B:
-        cuda.launch("lstm_scan_hoisted", dev, zx.data_ptr(), U.data_ptr(),
-                    b.data_ptr(), out.data_ptr(),
-                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
-    return out
+    return _hoisted("lstm_scan_hoisted", zx, U, b, reuse, out_dtype)
+
+
+def lstm_scan_pipeline_kernel(zx: torch.Tensor, U: torch.Tensor,
+                              b: torch.Tensor, *, reuse: int = 1,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """The pipeline schedule's scan: arguments and result as
+    :func:`lstm_scan_hoisted_kernel`, the R column tiles of each step's
+    h U issued together (a chain of T steps, not T*R)."""
+    return _hoisted("lstm_scan_pipeline", zx, U, b, reuse, out_dtype)
+
+
+#: plain version of :func:`lstm_scan_pipeline_kernel` (the same function)
+lstm_scan_pipeline_plain = lstm_scan_hoisted_plain

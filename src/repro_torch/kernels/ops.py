@@ -1,35 +1,45 @@
-"""Public scan entry points: dispatch of the LSTM / GRU scans through one
-:class:`KernelSchedule`.
+"""Public scheduled entry points: dispatch of the LSTM / GRU scans and the
+reuse-tiled matmul through one :class:`KernelSchedule`.
 
   backend "xla"     the golden reference (kernels/ref.py);
-  any other backend the kernel path.  Static mode runs the scan kernels
-                    with the gate matmuls partitioned into reuse_factor
-                    sequential column tiles; with ``hoist_input`` the input
-                    projection xW for all timesteps runs first as one
-                    batched f32 matmul and the hoisted kernels carry only hU.
+  any other backend the kernel path:
+    static     the scan kernels, the gate matmuls partitioned into
+               reuse_factor sequential column tiles per step;
+    nonstatic  one block per timestep (paper Fig. 1 right): the cell
+               equations of core/rnn/cells.py with every gate product on
+               the column-tiled ``col_matmul`` kernel;
+    pipeline   the hoist stage, then ONE pipeline scan kernel whose steps
+               issue their R column tiles of h U together.
+
+With ``hoist_input`` the input projection xW for all timesteps runs first
+as one batched [B*T, fin] @ [fin, G*h] product in f32 (through
+``col_matmul`` when ``hoist_reuse`` > 1) and only hU stays in the
+recurrence.
 
 The kernel path dispatches on the tensor's device: a CUDA tensor launches
-the CUDA kernels (or raises), a CPU tensor runs their plain versions.
-
-Not in this slice of the port: non-static and pipeline modes and
-``hoist_reuse > 1`` on a kernel backend (they need ``col_matmul`` and the
-pipeline kernels: ROADMAP.md, kernels to port, items 3, 6 and 7) and the
-fixed-point datapaths.  They raise :class:`NotImplementedError`; with
-``backend="xla"`` every mode runs.
+the CUDA kernels (or raises), a CPU tensor runs their plain versions.  The
+fixed-point datapaths (``fp``) are not ported yet and raise
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.rnn.cells import gru_cell, initial_state, lstm_cell
 from repro_torch.kernels import ref
 from repro_torch.kernels.gru_scan import (gru_scan_hoisted_kernel,
-                                          gru_scan_kernel)
+                                          gru_scan_kernel,
+                                          gru_scan_pipeline_kernel)
 from repro_torch.kernels.lstm_scan import (lstm_scan_hoisted_kernel,
-                                           lstm_scan_kernel)
+                                           lstm_scan_kernel,
+                                           lstm_scan_pipeline_kernel)
+from repro_torch.kernels.reuse_matmul import (col_matmul_kernel,
+                                              reuse_matmul_kernel)
 from repro_torch.kernels.schedule import KernelSchedule
 
 
@@ -52,39 +62,35 @@ def _resolve(schedule: Optional[KernelSchedule],
     return schedule
 
 
-def _require_static(schedule: KernelSchedule, kernel: str) -> None:
-    if schedule.mode != "static":
-        raise NotImplementedError(
-            f"{kernel}: mode {schedule.mode!r} on a kernel backend needs the "
-            f"col_matmul and pipeline kernels, not ported yet (ROADMAP.md, "
-            f"kernels to port, items 3, 6 and 7); use backend='xla'")
-    if schedule.hoist_reuse != 1:
-        raise NotImplementedError(
-            f"{kernel}: hoist_reuse={schedule.hoist_reuse} needs the "
-            f"col_matmul kernel, not ported yet (ROADMAP.md, kernels to "
-            f"port, item 3); use hoist_reuse=1 or backend='xla'")
+def _gate_mm(x: torch.Tensor, w: torch.Tensor, reuse: int) -> torch.Tensor:
+    """f32 x @ w through the column-tiled kernel (one per-timestep block of
+    the non-static schedule), rows padded to repro's granule."""
+    M = x.shape[0]
+    x_p = _pad_axis(x.float(), 0, min(128, max(8, M))).contiguous()
+    return col_matmul_kernel(x_p, w.float().contiguous(), reuse=reuse)[:M]
 
 
-def _hoist_stage(xs: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """The hoisted input projection at ``hoist_reuse == 1``: ONE batched
-    [B*T, fin] @ [fin, G*h] matmul in f32, no bias.  On the card this is a
-    cuBLAS f32 product, which stays in full f32 as long as TF32 matmuls are
-    off (PyTorch's default)."""
+def _hoist_stage(xs: torch.Tensor, W: torch.Tensor,
+                 schedule: KernelSchedule) -> torch.Tensor:
+    """The hoisted input projection: ONE batched [B*T, fin] @ [fin, G*h]
+    product in f32, no bias.  At ``hoist_reuse`` > 1 it runs as sequential
+    column tiles on ``col_matmul``; otherwise it is a cuBLAS f32 product on
+    the card (full f32 as long as TF32 matmuls are off, PyTorch's default),
+    as ``repro`` leaves it to XLA."""
     B, T, fin = xs.shape
-    zx = xs.reshape(B * T, fin).float() @ W
+    flat = xs.reshape(B * T, fin)
+    hr = math.gcd(schedule.hoist_reuse, W.shape[-1])
+    zx = _gate_mm(flat, W, hr) if hr > 1 else flat.float() @ W
     return zx.reshape(B, T, W.shape[-1])
 
 
 def _static_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):
-    _require_static(schedule, f"{cell}_scan")
-    # the kernels compute every gate product in f32 from f32 weights
-    W, U, b = (t.float().contiguous() for t in (W, U, b))
     B = xs.shape[0]
     g = 4 if cell == "lstm" else 3
     reuse = schedule.effective_reuse(g * U.shape[0])
     xs_p = _pad_axis(xs, 0, min(schedule.block_batch, max(8, B))).contiguous()
     if schedule.hoist_input:
-        zx = _hoist_stage(xs_p, W)
+        zx = _hoist_stage(xs_p, W, schedule)
         if cell == "lstm":
             out = lstm_scan_hoisted_kernel(zx, U, b, reuse=reuse,
                                            out_dtype=xs.dtype)
@@ -101,13 +107,68 @@ def _static_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):
     return out[:B]
 
 
+def _cell_pipeline(cell: str, xs, W, U, b, schedule: KernelSchedule):
+    """Pipeline mode: pad to the batch granule, the hoist stage, then the
+    pipeline scan kernel."""
+    B = xs.shape[0]
+    g = 4 if cell == "lstm" else 3
+    reuse = schedule.effective_reuse(g * U.shape[0])
+    xs_p = _pad_axis(xs, 0, min(schedule.block_batch, max(8, B)))
+    zx = _hoist_stage(xs_p, W, schedule)
+    if cell == "lstm":
+        out = lstm_scan_pipeline_kernel(zx.contiguous(), U, b, reuse=reuse,
+                                        out_dtype=xs.dtype)
+    else:
+        out = gru_scan_pipeline_kernel((zx + b[0]).contiguous(), U,
+                                       b[1].contiguous(), reuse=reuse,
+                                       out_dtype=xs.dtype)
+    return out[:B]
+
+
+def _cell_unrolled(cell: str, xs, W, U, b, schedule: KernelSchedule):
+    """Non-static mode, one block per timestep: the cells of
+    core/rnn/cells.py with every gate product on ``col_matmul``.  With
+    ``hoist_input`` the xW products of all timesteps come from one
+    ``col_matmul`` first (at ``hoist_reuse`` R, 1 included, as in repro) and
+    each block computes only its hU tiles."""
+    B, T, _ = xs.shape
+    H = U.shape[0]
+    g = 4 if cell == "lstm" else 3
+    reuse = schedule.effective_reuse(g * H)
+
+    def mm(a, w):
+        return _gate_mm(a, w, reuse)
+
+    zx_all = None
+    if schedule.hoist_input:
+        hr = math.gcd(schedule.hoist_reuse, g * H)
+        zx_all = _gate_mm(xs.reshape(B * T, -1), W, hr).reshape(B, T, g * H)
+    state = initial_state(cell, B, H, torch.float32, xs.device)
+    step = lstm_cell if cell == "lstm" else gru_cell
+    for t in range(T):
+        _, state = step(xs[:, t], state, W, U, b, matmul=mm,
+                        zx=None if zx_all is None else zx_all[:, t])
+    h = state[0] if cell == "lstm" else state
+    return h.to(xs.dtype)
+
+
+_MODES = {"static": _static_scan, "nonstatic": _cell_unrolled,
+          "pipeline": _cell_pipeline}
+
+
+def _kernel_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):
+    # the kernels compute every gate product in f32 from f32 weights
+    W, U, b = (t.float().contiguous() for t in (W, U, b))
+    return _MODES[schedule.mode](cell, xs, W, U, b, schedule)
+
+
 def lstm_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
               block_batch: Optional[int] = None) -> torch.Tensor:
     """[B, T, in] -> final hidden [B, h], scheduled by ``schedule``."""
     schedule = _resolve(schedule, block_batch)
     if not schedule.use_pallas:
         return ref.lstm_scan_ref(xs, W, U, b)
-    return _static_scan("lstm", xs, W, U, b, schedule)
+    return _kernel_scan("lstm", xs, W, U, b, schedule)
 
 
 def gru_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
@@ -116,11 +177,31 @@ def gru_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
     schedule = _resolve(schedule, block_batch)
     if not schedule.use_pallas:
         return ref.gru_scan_ref(xs, W, U, b)
-    return _static_scan("gru", xs, W, U, b, schedule)
+    return _kernel_scan("gru", xs, W, U, b, schedule)
+
+
+def reuse_matmul(x, w, *, reuse: int = 1, block_m: int = 128,
+                 schedule: Optional[KernelSchedule] = None,
+                 fp=None) -> torch.Tensor:
+    """[M, K] @ [K, N] with K serialized into ``reuse`` passes (a schedule's
+    reuse_factor overrides the bare ``reuse`` argument; a schedule on
+    ``backend="xla"`` runs the reference)."""
+    if fp is not None:
+        raise NotImplementedError(
+            "reuse_matmul: fixed-point (fp) datapaths are not ported yet "
+            "(ROADMAP.md, modules to port, item 6); call it with fp=None")
+    if schedule is not None:
+        if not schedule.use_pallas:
+            return ref.reuse_matmul_ref(x, w)
+        reuse = schedule.effective_reuse(x.shape[1])
+    M = x.shape[0]
+    x_p = _pad_axis(x, 0, min(block_m, max(8, M))).contiguous()
+    return reuse_matmul_kernel(x_p, w.contiguous(), reuse=reuse)[:M]
 
 
 # kernel name -> (scheduled entry point, golden reference)
 SCHEDULED_KERNELS = {
     "lstm": (lstm_scan, ref.lstm_scan_ref),
     "gru": (gru_scan, ref.gru_scan_ref),
+    "reuse_matmul": (reuse_matmul, ref.reuse_matmul_ref),
 }

@@ -1,4 +1,5 @@
-"""Golden models of the scan kernels in plain PyTorch (``backend="xla"``).
+"""Golden models of the scheduled kernels in plain PyTorch
+(``backend="xla"``).
 
 They follow the JAX package's ``lax.scan`` references step for step,
 including its type promotion: a product of a bfloat16 and a float32 operand
@@ -49,3 +50,8 @@ def gru_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
         hh = torch.tanh(zx[:, 2 * h:] + r * zh[:, 2 * h:])
         hp = z * hp + (1.0 - z) * hh
     return hp.to(xs.dtype)
+
+
+def reuse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in float32, result in x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)

@@ -14,9 +14,11 @@ carries a :class:`KernelSchedule`, and the engine
 
 One difference from the JAX package's engine: ``impl`` defaults to
 ``"pallas"``, so the normal entry point runs the CUDA kernels; the JAX
-engine defaults to ``"xla"``, its golden reference.  The engine runs on
-``device`` ("cuda" unless the caller asks for "cpu") and holds its float32
-weights there from construction on.
+engine defaults to ``"xla"``, its golden reference.  Every float schedule
+(static, nonstatic and pipeline mode, any reuse factor, hoisted or not)
+runs on the CUDA kernels.  The engine runs on ``device`` ("cuda" unless
+the caller asks for "cpu") and holds its float32 weights there from
+construction on.
 
 Not in this slice of the port: fixed-point datapaths, design targets and
 auto-scheduling, HLS pricing (the ``analytical`` column of

@@ -5,8 +5,10 @@
     sources' import statements).
   * Entry points run on ``"cuda"`` unless told otherwise, and raise where
     there is no CUDA device instead of carrying on on the CPU.
-  * The kernel backends refuse the modes and datapaths that are not ported
-    yet with ``NotImplementedError``; ``backend="xla"`` runs every mode.
+  * The kernel backends run every float schedule (static, non-static,
+    pipeline, ``hoist_reuse`` > 1) and refuse the fixed-point datapaths,
+    which are not ported yet, with ``NotImplementedError``;
+    ``backend="xla"`` runs every mode.
 """
 
 import ast
@@ -22,6 +24,8 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from repro.config import FixedPointConfig as JFixedPoint  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.schedule import KernelSchedule as JSchedule  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro.registry import get_config as jget_config  # noqa: E402
 from repro.serving import RNNServingEngine as JEngine  # noqa: E402
@@ -115,18 +119,23 @@ def test_kernel_wrapper_never_falls_back():
     KernelSchedule(mode="nonstatic", backend="pallas_interpret")),
     ids=lambda s: s.key())
 def test_unported_modes_raise_on_kernel_backends(sched):
+    """The schedules the first slice of the port refused on a kernel
+    backend now run there: the scan matches repro's kernel path, and the
+    engine (per request and as its default) matches its own reference."""
     cfg, params = _tagger()
-    xs, W, U, b = (torch.from_numpy(np.array(a)) for a in
-                   make_kernel_inputs("gru", B=2, T=3, H=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.gru_scan(xs, W, U, b, schedule=sched)
+    inputs = make_kernel_inputs("gru", B=2, T=3, H=8)
+    xs, W, U, b = (torch.from_numpy(np.array(a)) for a in inputs)
+    jsched = JSchedule(**{**sched.__dict__, "backend": "pallas_interpret"})
+    want = np.asarray(jops.gru_scan(*inputs, schedule=jsched))
+    got = ops.gru_scan(xs, W, U, b, schedule=sched).numpy()
+    assert np.abs(got - want).max() <= CONFORMANCE_TOL["float32"]
+    x = np.random.RandomState(0).randn(2, 20, 6).astype(np.float32)
+    ref = RNNServingEngine(cfg, params, device="cpu", impl="xla").predict(x)
     eng = RNNServingEngine(cfg, params, device="cpu", max_batch=4)
-    x = np.zeros((2, 20, 6), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.predict(x, schedule=sched)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RNNServingEngine(cfg, params, device="cpu", schedule=sched
-                         ).predict(x)
+    for out in (eng.predict(x, schedule=sched),
+                RNNServingEngine(cfg, params, device="cpu", schedule=sched
+                                 ).predict(x)):
+        assert np.abs(out - ref).max() <= CONFORMANCE_TOL["float32"]
 
 
 @pytest.mark.parametrize("mode", ("nonstatic", "pipeline"))
@@ -231,10 +240,20 @@ def test_launch_arguments_are_checked_before_any_launch():
 def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
                                                         tmp_path):
     monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
-    path = cuda.library_path("rnn_scan")
-    assert path == cuda.library_path("rnn_scan")
-    assert path.parent == tmp_path / "kernels"
-    assert path.name.startswith("librnn_scan-") and path.suffix == ".so"
+    assert set(cuda.SIGNATURES) == {"rnn_scan", "reuse_matmul"}
+    paths = {n: cuda.library_path(n) for n in cuda.SIGNATURES}
+    for name, path in paths.items():
+        assert path == cuda.library_path(name)
+        assert path.parent == tmp_path / "kernels"
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert (cuda.CSRC / f"{name}.cu").exists()
+        # every library reports its own errors, and every kernel it exports
+        # has a launch counter
+        assert "kernel_error_string" in cuda.SIGNATURES[name]
+    assert len(set(paths.values())) == 2
+    kernels = {fn for sigs in cuda.SIGNATURES.values() for fn in sigs
+               if fn not in ("kernel_error_string", "scan_rows_per_block")}
+    assert kernels == set(cuda.LAUNCHES) and len(kernels) == 8
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     if Path("/usr/local/cuda/bin/nvcc").exists():
