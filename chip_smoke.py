@@ -7,12 +7,15 @@ In order, it
   1. prints the card's name and power limit and builds every CUDA kernel
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel;
      timed);
-  2. holds each of the eight kernels against its plain PyTorch version on
+  2. holds each of the ten kernels against its plain PyTorch version on
      the card, at the main path's shapes of all six taggers (B = 256,
      R in {1, 4}, float32 and bfloat16): the static, hoisted and pipeline
      scans; ``col_matmul`` at each step's x-side and h-side product and at
      the hoist stage's [256*T, in] product (R = 2); ``reuse_matmul`` at
-     QuickDraw's h-side shape;
+     QuickDraw's h-side shape; ``quant_matmul`` (tolerance 0) at every
+     native gate product, int8 and int4-range operands; ``fixed_point``
+     (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
+     steps, float32 and bfloat16, for seven ap_fixed configs;
   3. drives the port's main paths, each with the launch counts set to 0
      just before it and read just after, and checks every answer against
      the same model on ``backend="xla"``:
@@ -25,14 +28,24 @@ In order, it
                 pipeline at R = 1 and R = 4, and the hoist stage at
                 ``hoist_reuse = 2``;
        matmul   the scheduled matmul entry point ``ops.reuse_matmul``;
+       fixed_point  the six taggers with PTQ'd weights through
+                ``RNNServingEngine(..., fp=ap_fixed<8,3>)`` and
+                ``fp=ap_fixed<4,2>`` (the native int8 / int4 datapath, every
+                gate product on ``quant_matmul``), each answer bit for bit
+                equal to the same engine on ``backend="xla"``; then
+                ``fp=ap_fixed<16,6>`` on the emulation cells (no kernel);
+       ops_fixed_point  ``ops.fixed_point`` on a CUDA tensor;
      and checks that every kernel of each path was launched;
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace) beside its
      plain version, one PyTorch library call for the same function
      (cuDNN's ``LSTM`` / ``GRU`` for the scans, ``torch.matmul`` for the
-     products) and its bound on the card, and whole QuickDraw LSTM scans
-     end to end per mode with their launch counts and the device's idle
-     share;
+     products, ``torch._int_mm`` for ``quant_matmul`` where it takes the
+     shape and an f32 ``torch.matmul`` of the same integers elsewhere,
+     ``fake_quantize_per_tensor_affine`` for ``fixed_point``) and
+     its bound on the card, and whole QuickDraw LSTM scans end to end per
+     mode (the native int8 scan too) with their launch counts and the
+     device's idle share;
   5. ends with the JSON result line.
 
 Any failed check raises, so the script exits non-zero; it exits non-zero
@@ -62,6 +75,7 @@ REUSES = (1, 4)
 HOIST_REUSE = 2                  # the hoist stage's column tiles
 ONE_CALLS = 12                   # predict_one calls per tagger (first builds)
 F32_PEAK = 67e12                 # H100 SXM f32 CUDA-core peak, FLOP/s
+INT8_PEAK = 1979e12              # H100 SXM dense int8 tensor-core peak, OP/s
 HBM_BPS = 3.35e12                # H100 SXM device memory, bytes/s
 TAGGERS = ("top-tagging-lstm", "top-tagging-gru", "flavor-tagging-lstm",
            "flavor-tagging-gru", "quickdraw-lstm", "quickdraw-gru")
@@ -72,6 +86,17 @@ MATMUL_SHAPE = (BATCH, 128, 512)
 
 SCAN_SRC = "src/repro_torch/csrc/rnn_scan.cu"
 MATMUL_SRC = "src/repro_torch/csrc/reuse_matmul.cu"
+QUANT_SRC = "src/repro_torch/csrc/quantized.cu"
+#: (total, integer, rounding, saturation): the paper's ap_fixed<16,6>, the
+#: native int8 / int4 configs, and the trn / wrap corners
+FP_GRID = ((16, 6, "rnd", "sat"), (8, 3, "rnd", "sat"), (4, 2, "rnd", "sat"),
+           (12, 4, "rnd", "sat"), (16, 6, "trn", "sat"),
+           (8, 4, "rnd", "wrap"), (10, 3, "trn", "wrap"))
+#: the native configs served on quant_matmul, and the emulated one
+FP_NATIVE = {"int8": FP_GRID[1], "int4": FP_GRID[2]}
+FP_EMULATED = FP_GRID[0]
+#: fixed_point's shapes: QuickDraw LSTM's gate block, one step and all T
+FXP_SHAPES = ((BATCH, 512), (BATCH * 100, 512))
 #: kernel -> (TPU kernel it replaces, source of the CUDA kernel)
 KERNELS = {
     "lstm_scan": ("src/repro/kernels/lstm_scan.py:120", SCAN_SRC),
@@ -82,6 +107,8 @@ KERNELS = {
     "gru_scan_pipeline": ("src/repro/kernels/gru_scan.py:164", SCAN_SRC),
     "col_matmul": ("src/repro/kernels/reuse_matmul.py:78", MATMUL_SRC),
     "reuse_matmul": ("src/repro/kernels/reuse_matmul.py:42", MATMUL_SRC),
+    "quant_matmul": ("src/repro/kernels/quantized.py:114", QUANT_SRC),
+    "fixed_point": ("src/repro/kernels/fixed_point.py:26", QUANT_SRC),
 }
 
 
@@ -126,12 +153,13 @@ def scan_inputs(cell, T, fin, H, dtype, seed, device):
 
 
 def call(name, shape, kern, plain, inputs, flops, library=None,
-         headline=False) -> dict:
+         headline=False, peak=F32_PEAK) -> dict:
     """One kernel call: its thunk, its plain version's, the inputs and
-    FLOPs of its bound, and (for timing) one library call's thunk."""
+    operations of its bound (at ``peak`` per second), and (for timing) one
+    library call's thunk."""
     return {"name": name, "shape": shape, "kern": kern, "plain": plain,
             "inputs": inputs, "flops": flops, "library": library,
-            "headline": headline}
+            "headline": headline, "peak": peak}
 
 
 def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False) -> list:
@@ -245,6 +273,106 @@ def all_calls(dtype, device, timing=False):
         yield tag, HOIST_REUSE, hoist_call(tag, xs, W)
 
 
+def fixed_point_config(spec):
+    from repro_torch.config import FixedPointConfig
+
+    total, integer, rounding, saturation = spec
+    return FixedPointConfig(total, integer, rounding=rounding,
+                            saturation=saturation)
+
+
+def int_matmul_library(x, w):
+    """``torch._int_mm`` (cuBLASLt int8 -> int32) where it takes the shape
+    (M > 16, K and N multiples of 8), else an f32 ``torch.matmul`` on f32
+    copies made ahead of the timed call: the same exact integer product
+    while |acc| < 2^24, with TF32 off (int8 fan-ins here stay below 2^21)."""
+    import torch
+
+    (M, K), N = x.shape, w.shape[1]
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        return lambda: torch._int_mm(x, w)
+    xf, wf = x.float(), w.float()
+    return lambda: torch.matmul(xf, wf)
+
+
+def quant_calls(device, timing=False):
+    """(tagger, R, call) for ``quant_matmul`` at every native gate product
+    of the six taggers (x-side and h-side, int8 and int4-range operands)
+    and ``fixed_point`` at its shapes, dtypes and configs (in timing runs:
+    int8 products only, and two configs)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fixed_point as fx
+    from repro_torch.kernels import quantized as qm
+
+    gen = torch.Generator().manual_seed(500 if timing else 400)
+    for tag in TAGGERS:
+        r = get_config(tag).rnn
+        g = 4 if r.cell == "lstm" else 3
+        for side, K in (("x-side", r.input_size), ("h-side", r.hidden)):
+            for reuse in REUSES:
+                for kind, lim in (("int8", 128), ("int4", 8)):
+                    if timing and kind == "int4":
+                        continue
+                    x = torch.randint(-lim, lim, (BATCH, K), generator=gen,
+                                      dtype=torch.int8).to(device)
+                    w = torch.randint(-lim, lim, (K, g * r.hidden),
+                                      generator=gen,
+                                      dtype=torch.int8).to(device)
+                    yield tag, reuse, call(
+                        "quant_matmul", f"{tag} {side} {tuple(x.shape)}@"
+                        f"{tuple(w.shape)} {kind} R={reuse}",
+                        lambda x=x, w=w, R=reuse: qm.quant_matmul_kernel(
+                            x, w, reuse=R),
+                        lambda x=x, w=w, R=reuse: qm.quant_matmul_plain(
+                            x, w, reuse=R),
+                        (x, w), 2.0 * BATCH * K * w.shape[1],
+                        int_matmul_library(x, w) if timing else None,
+                        tag == "quickdraw-lstm" and side == "h-side"
+                        and reuse == 1 and kind == "int8",
+                        peak=INT8_PEAK)
+    specs = (FP_GRID[0], FP_GRID[6]) if timing else FP_GRID
+    for shape in FXP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(*shape, generator=gen) * 8).to(dtype)
+            x.view(-1)[::7] = torch.round(x.view(-1)[::7] * 64) / 64  # ties
+            x = x.to(device)
+            for spec in specs:
+                fp = fixed_point_config(spec)
+                lib = None
+                if timing and dtype == torch.float32 and spec[2:] == (
+                        "rnd", "sat"):
+                    from repro_torch.core.quant.fixed_point import \
+                        grid_constants
+
+                    scale, lo, hi = grid_constants(fp)
+                    lib = (lambda x=x, s=1.0 / scale, lo=int(lo), hi=int(hi):
+                           torch.fake_quantize_per_tensor_affine(
+                               x, s, 0, lo, hi))
+                yield "quickdraw-lstm", 1, call(
+                    "fixed_point", f"{tuple(shape)} {str(dtype)[6:]} "
+                    f"ap{'_'.join(map(str, spec))}",
+                    lambda x=x, fp=fp: fx.fixed_point_kernel(x, fp),
+                    lambda x=x, fp=fp: fx.fixed_point_plain(x, fp),
+                    (x,), 0.0, lib,
+                    shape == FXP_SHAPES[1] and dtype == torch.float32
+                    and spec == FP_GRID[0])
+
+
+def same_bits(got, want) -> bool:
+    """Equal bit for bit (int32 products; float32 / bfloat16 as raw bits,
+    so the sign of a zero counts)."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        view = torch.int16 if got.element_size() == 2 else torch.int32
+        got, want = got.view(view), want.view(view)
+    return torch.equal(got, want)
+
+
 def library_call(name, inputs):
     """One PyTorch call computing the same function as scan kernel ``name``
     on its ``inputs`` (cuDNN's LSTM / GRU), used only as a yardstick.
@@ -308,6 +436,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 #: device kernel name fragment -> what launched it, for the trace readings
 KERNEL_GROUPS = (("col_matmul_kernel", "col_matmul"),
                  ("reuse_matmul_kernel", "reuse_matmul"),
+                 ("quant_matmul_kernel", "quant_matmul"),
+                 ("fixed_point_kernel", "fixed_point"),
                  ("rnn_scan_kernel", "scan kernels"))
 
 
@@ -349,12 +479,14 @@ def device_trace(fn, calls: int = 1) -> dict:
                         for g, (n, us) in groups.items()}}
 
 
-def bound(inputs, out, flops):
+def bound(inputs, out, flops, peak=F32_PEAK):
     """(bound_ms, bound_by, bytes): the larger of the bytes each input read
     once and the output written once over device-memory bandwidth, and the
-    FLOPs over the f32 CUDA-core peak (the kernels use no tensor cores)."""
+    operations over ``peak``: the f32 CUDA-core peak for the float kernels
+    (they use no tensor cores), the int8 tensor-core peak for
+    ``quant_matmul``."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
@@ -381,6 +513,18 @@ def phase_kernels(device) -> dict:
             check(bool(np.isfinite(err)) and err <= tol * scale,
                   f"{c['name']} {c['shape']} {dtype}: err {err}")
             errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
+    for tag, reuse, c in quant_calls(device):
+        with torch.inference_mode():
+            got = c["kern"]()
+            torch.cuda.synchronize()
+            want = c["plain"]()
+        same = same_bits(got, want)
+        err = max_err(got, want)[0] if got.shape == want.shape else np.inf
+        print(f"check {c['name']:18s} {c['shape']:44s}: max_abs_err "
+              f"{err:.3e}, bit for bit {same} (tol 0)")
+        check(same, f"{c['name']} {c['shape']}: differs from its plain "
+              f"version (err {err})")
+        errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
     check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
 
@@ -530,6 +674,104 @@ def phase_serving(device) -> dict:
     return launches
 
 
+FP_ONE_CALLS = 4                 # predict_one calls per fixed-point engine
+
+
+def serve_fixed_point(eng, x) -> dict:
+    """One engine's fixed-point calls: ``predict`` of 8 rows at R = 1 and
+    R = 4, ``predict_one`` calls, one 16-request ``submit`` / ``flush``
+    (padded to ``BATCH`` rows)."""
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    got = {"predict": eng.predict(x[:8]),
+           "predict_r4": eng.predict(x[:8],
+                                     schedule=KernelSchedule(reuse_factor=4)),
+           "predict_one": np.stack([eng.predict_one(x[j])
+                                    for j in range(FP_ONE_CALLS)])}
+    reqs = eng.serve(list(x[:16]))
+    for q in reqs:
+        check(q.status == "answered",
+              f"request {q.req_id} {q.status}: {q.error!r}")
+    got["flush"] = np.stack([q.result for q in reqs])
+    return got
+
+
+def phase_fixed_point(device) -> dict:
+    """The fixed-point paths, each driven with the counts set to 0: the
+    six taggers on the native int8 / int4 datapath (then on the emulated
+    ap_fixed<16,6> cells, which launch no kernel), and ``ops.fixed_point``;
+    every served answer bit for bit equal to the same engine on
+    ``backend="xla"``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.ptq import ptq_quantize_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fixed_point import fixed_point_plain
+    from repro_torch.kernels.schedule import schedule_key
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    specs = {**{k: fixed_point_config(v) for k, v in FP_NATIVE.items()},
+             "ap16_6": fixed_point_config(FP_EMULATED)}
+    engines = []
+    for i, tag in enumerate(TAGGERS):
+        cfg = get_config(tag)
+        params = init_params(param_specs(cfg),
+                             torch.Generator().manual_seed(i), "cpu")
+        x = np.random.RandomState(50 + i).randn(
+            16, cfg.rnn.seq_len, cfg.rnn.input_size).astype(np.float32)
+        for kind, fp in specs.items():
+            q = ptq_quantize_model(params, fp)
+            engines.append((tag, kind, fp, x, RNNServingEngine(
+                cfg, q, impl="pallas", device=device, fp=fp),
+                RNNServingEngine(cfg, q, impl="xla", device=device, fp=fp)))
+
+    def serve(kinds):
+        return {(tag, kind): serve_fixed_point(eng, x)
+                for tag, kind, _, x, eng, _ in engines if kind in kinds}
+
+    launches = {}
+    launches["fixed_point"], native = drive(
+        "fixed_point", lambda: serve(tuple(FP_NATIVE)), ("quant_matmul",))
+    launches["fixed_point_emulated"], emulated = drive(
+        "fixed_point_emulated", lambda: serve(("ap16_6",)), ())
+    check(sum(launches["fixed_point_emulated"].values()) == 0,
+          "the emulated ap_fixed<16,6> path launched a kernel")
+    served = {**native, **emulated}
+    for tag, kind, fp, x, eng, ref in engines:
+        want = serve_fixed_point(ref, x)
+        for what, g in served[(tag, kind)].items():
+            w = want[what]
+            check(g.shape == w.shape and bool(np.isfinite(g).all()),
+                  f"{tag} {kind} {what}: shape {g.shape} vs {w.shape}")
+            check(np.array_equal(g.view(np.int32), w.view(np.int32)),
+                  f"{tag} {kind} {what}: differs from backend xla by "
+                  f"{float(np.abs(g - w).max())}")
+        keys = sorted(eng._infer_cache)
+        check(len(keys) == 2 and all(eng.trace_count(k) == 1 for k in keys),
+              f"{tag} {kind}: executors {[(k, eng.trace_count(k)) for k in keys]}")
+        key = schedule_key(eng.resolved_schedule, fp)
+        rep = eng.serve_report()[key]
+        print(f"served {tag:20s} {kind:6s} keys={keys}; predict_one p50 "
+              f"{rep['fast_path']['latency_p50_s'] * 1e3:.3f} ms, flush of "
+              f"{BATCH} rows: request latency p50 "
+              f"{rep['measured']['latency_p50_s'] * 1e3:.3f} ms; every "
+              f"answer bit for bit equal to backend xla")
+
+    fp = specs["ap16_6"]
+    x = (torch.randn(*FXP_SHAPES[0], generator=torch.Generator()
+                     .manual_seed(9)) * 8).to(device)
+    launches["ops_fixed_point"], out = drive(
+        "ops_fixed_point", lambda: ops.fixed_point(x, fp), ("fixed_point",))
+    check(same_bits(out, fixed_point_plain(x, fp)),
+          "ops.fixed_point differs from its plain version")
+    print(f"served ops.fixed_point {tuple(x.shape)} ap16_6: bit for bit "
+          f"equal to its plain version")
+    return launches
+
+
 def phase_timing(device) -> tuple:
     """Kernel, plain and library times and the bound at B = 256, and whole
     scans end to end."""
@@ -538,16 +780,21 @@ def phase_timing(device) -> tuple:
     from repro_torch.kernels import cuda
 
     rows = []
-    for tag, reuse, c in all_calls(torch.float32, device, timing=True):
+    small_kernels = ("col_matmul", "reuse_matmul", "quant_matmul",
+                     "fixed_point")
+    calls_all = [*all_calls(torch.float32, device, timing=True),
+                 *quant_calls(device, timing=True)]
+    for tag, reuse, c in calls_all:
+        lib = c["library"]
         with torch.inference_mode():
             out = c["kern"]()
-            lib_err = float((c["library"]().float() - out.float())
-                            .abs().max())
-        small = c["name"] in ("col_matmul", "reuse_matmul")
+            lib_err = (float((lib().float() - out.float()).abs().max())
+                       if lib else None)
+        small = c["name"] in small_kernels
         ms = time_ms(c["kern"], 200 if small else 20)
         plain_ms = time_ms(c["plain"], 20 if small else 3, warmup=1)
-        library_ms = time_ms(c["library"], 200 if small else 20)
-        b_ms, b_by, nbytes = bound(c["inputs"], out, c["flops"])
+        library_ms = time_ms(lib, 200 if small else 20) if lib else None
+        b_ms, b_by, nbytes = bound(c["inputs"], out, c["flops"], c["peak"])
         row = {"name": c["name"], "tagger": tag, "reuse": reuse,
                "shape": c["shape"], "headline": c["headline"],
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -558,16 +805,18 @@ def phase_timing(device) -> tuple:
         calls = 50 if small else 10
         row["device_ms"] = per_call(
             c["kern"], c["name"] if small else "scan kernels", calls)
-        row["library_device_ms"] = per_call(c["library"], "other", calls)
+        row["library_device_ms"] = (per_call(lib, "other", calls) if lib
+                                    else None)
         if not small:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
         rows.append(row)
+        lib_txt = ("n/a" if lib is None else
+                   f"{library_ms:.4f} ms (device "
+                   f"{row['library_device_ms']:.4f}), err {lib_err:.1e}")
         print(f"time {c['name']:18s} {c['shape']:44s}: kernel {ms:.4f} ms "
               f"(device {row['device_ms']:.4f}), plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms (device "
-              f"{row['library_device_ms']:.4f}), bound {b_ms:.5f} ms "
-              f"({b_by}), library err {lib_err:.1e}")
-    return rows, time_nonstatic_scans(device)
+              f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by})")
+    return rows, time_nonstatic_scans(device) + [time_quantized_scan(device)]
 
 
 def per_call(fn, group: str, calls: int) -> float:
@@ -616,6 +865,45 @@ def time_nonstatic_scans(device) -> list:
     return out
 
 
+def time_quantized_scan(device) -> dict:
+    """One whole native int8 scan of QuickDraw LSTM at B = 256 through
+    ``ops.lstm_scan(fp=ap_fixed<8,3>)`` (weights PTQ'd): as
+    :func:`time_nonstatic_scans`, beside the same scan on the emulation
+    cells (``backend="xla"``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.fixed_point import quantize
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    r = get_config("quickdraw-lstm").rnn
+    fp = fixed_point_config(FP_NATIVE["int8"])
+    xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                              torch.float32, 401, device)
+    W, U, b = (quantize(t, fp) for t in (W, U, b))
+    sched = KernelSchedule()
+    out = {"schedule": sched.key(), "fp": "ap8_3"}
+    for what, s in (("native", sched), ("emulated", sched.replace(
+            backend="xla"))):
+        fn = lambda s=s: ops.lstm_scan(xs, W, U, b, schedule=s, fp=fp)  # noqa
+        cuda.reset_launches()
+        with torch.inference_mode():
+            h = fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        ms = time_ms(fn, 3, warmup=1)
+        trace = device_trace(fn)
+        out[what] = {"ms": ms, "launches": launches, "trace": trace}
+        out[f"{what}_h"] = h
+        print(f"scan quickdraw-lstm B={BATCH} {sched.key()} ap8_3 {what:8s}: "
+              f"{ms:.3f} ms device span, launches {launches}; trace of one "
+              f"call: {json.dumps(trace)}")
+    check(same_bits(out.pop("native_h"), out.pop("emulated_h")),
+          "native int8 scan differs from the emulation")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -652,6 +940,7 @@ def main() -> int:
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
+    launches.update(phase_fixed_point(device))
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"

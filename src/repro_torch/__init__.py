@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of ``repro`` for NVIDIA Hopper (H100).
 
-Mirrors ``repro``'s layout.  This slice serves the paper's LSTM/GRU taggers
-(``configs``) through ``serving.RNNServingEngine`` on hand-written CUDA scan
-kernels (``csrc/rnn_scan.cu``, wrapped in ``kernels/lstm_scan.py`` and
-``kernels/gru_scan.py``).  The package imports neither ``jax`` nor
+Mirrors ``repro``'s layout.  It serves the paper's LSTM/GRU taggers
+(``configs``) through ``serving.RNNServingEngine`` on hand-written CUDA
+kernels (``csrc/*.cu``, wrapped in ``kernels/``): every float schedule, and
+the fixed-point datapaths (``core/quant``; native int8/int4 on
+``quant_matmul``, the ap_fixed emulation on the quantized cells).  The
+package imports neither ``jax`` nor
 ``repro``; entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"``.
 """

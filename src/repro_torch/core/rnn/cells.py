@@ -7,7 +7,8 @@ Weight layout follows Keras, as in the JAX package:
                      bias [2, 3h] (input bias ; recurrent bias)
 
 Products follow jnp's type promotion (bfloat16 x float32 in float32).  The
-fixed-point (quantized) cells are not in this slice of the port.
+fixed-point cells (``*_cell_quantized``) emulate the hls4ml datapath: f32
+compute with ``quantize`` at every ap_fixed point.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.config import RNNConfig
+from repro_torch.config import FixedPointConfig, RNNConfig
+from repro_torch.core.quant.fixed_point import quantize
 from repro_torch.models.init import ParamSpec, ParamSpecs
 
 
@@ -88,6 +90,74 @@ def gru_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
     hh = torch.tanh(zxh + r * zhh)                   # Hadamard inside tanh
     h_t = z * h_prev + (1.0 - z) * hh                # Hadamard combine
     return h_t, h_t
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point cells (bit-accurate hls4ml datapath emulation)
+# ---------------------------------------------------------------------------
+
+
+def _q(x, fp: Optional[FixedPointConfig]):
+    return x if fp is None else quantize(x, fp)
+
+
+def lstm_cell_quantized(x_t, state, W, U, b, fp: FixedPointConfig, *,
+                        matmul=None):
+    """LSTM step with every intermediate on the ap_fixed grid.
+
+    Matches hls4ml's datapath: quantized inputs/weights, quantized
+    accumulator outputs, LUT-indexed activations (quantized in/out),
+    quantized Hadamard products.  ``matmul`` injects the gate matmul
+    implementation; it must be value-equal to ``@`` for the datapath to
+    stay bit-accurate.
+    """
+    mm = matmul if matmul is not None else tiled_matmul
+    h_prev, c_prev = state
+    hdim = h_prev.shape[-1]
+    x_t = _q(x_t, fp)
+    z = _q(mm(x_t, W) + mm(h_prev, U) + b, fp)
+    i, f, g, o = (z[..., :hdim], z[..., hdim:2 * hdim],
+                  z[..., 2 * hdim:3 * hdim], z[..., 3 * hdim:])
+    i = _q(torch.sigmoid(i), fp)
+    f = _q(torch.sigmoid(f), fp)
+    g = _q(torch.tanh(g), fp)
+    o = _q(torch.sigmoid(o), fp)
+    c_t = _q(_q(f * c_prev, fp) + _q(i * g, fp), fp)
+    h_t = _q(o * _q(torch.tanh(c_t), fp), fp)
+    return h_t, (h_t, c_t)
+
+
+def gru_cell_quantized(x_t, state, W, U, b, fp: FixedPointConfig, *,
+                       matmul=None):
+    """GRU (reset_after) counterpart of :func:`lstm_cell_quantized`."""
+    mm = matmul if matmul is not None else tiled_matmul
+    h_prev = state
+    x_t = _q(x_t, fp)
+    zx = _q(mm(x_t, W) + b[0], fp)
+    zh = _q(mm(h_prev, U) + b[1], fp)
+    zxz, zxr, zxh = torch.chunk(zx, 3, dim=-1)
+    zhz, zhr, zhh = torch.chunk(zh, 3, dim=-1)
+    z = _q(torch.sigmoid(zxz + zhz), fp)
+    r = _q(torch.sigmoid(zxr + zhr), fp)
+    hh = _q(torch.tanh(_q(zxh + _q(r * zhh, fp), fp)), fp)
+    h_t = _q(_q(z * h_prev, fp) + _q((1.0 - z) * hh, fp), fp)
+    return h_t, h_t
+
+
+def quantized_cell_scan(cell: str, xs, W, U, b, fp: FixedPointConfig, *,
+                        matmul=None) -> torch.Tensor:
+    """[B, T, in] -> final hidden [B, h]: the quantized cells over T on an
+    f32 state, the result in xs's dtype.  ``matmul`` as in
+    :func:`lstm_cell_quantized`: the ap_fixed emulation leaves it unset, the
+    native int datapath passes its integer gate product."""
+    B, T, _ = xs.shape
+    step = lstm_cell_quantized if cell == "lstm" else gru_cell_quantized
+    state = initial_state(cell, B, U.shape[0], torch.float32, xs.device)
+    bf = b.float()
+    for t in range(T):
+        _, state = step(xs[:, t].float(), state, W, U, bf, fp, matmul=matmul)
+    h = state[0] if cell == "lstm" else state
+    return h.to(xs.dtype)
 
 
 def initial_state(cell: str, batch: int, hidden: int,

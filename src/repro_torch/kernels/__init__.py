@@ -1,4 +1,4 @@
-"""Scan kernels of the port: CUDA sources in ``csrc/``, their wrappers and
-plain versions (``lstm_scan``, ``gru_scan``), the build and launch counters
-(``cuda``), the golden references (``ref``) and the scheduled dispatch
-(``ops``).  Importing builds nothing: a kernel is built at first launch."""
+"""Kernels of the port: CUDA sources in ``csrc/``, their wrappers and
+plain versions (``lstm_scan``, ``gru_scan``, ``reuse_matmul``,
+``quantized``, ``fixed_point``), the build and launch counters (``cuda``),
+the golden references (``ref``) and the scheduled dispatch (``ops``).  Importing builds nothing: a kernel is built at first launch."""

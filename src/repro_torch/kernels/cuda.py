@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _HOISTED = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 #: C signature of every exported function, per library (``csrc/<name>.cu``);
 #: each library exports ``kernel_error_string`` for its error codes
@@ -51,13 +52,19 @@ SIGNATURES = {
         "reuse_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
+    "quantized": {
+        "quant_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+        "fixed_point": (_I, [_P, _I, _P, ctypes.c_longlong, _F, _F, _F, _I,
+                             _I, _F, _P]),
+        "kernel_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "lstm_scan": 0, "lstm_scan_hoisted": 0, "lstm_scan_pipeline": 0,
     "gru_scan": 0, "gru_scan_hoisted": 0, "gru_scan_pipeline": 0,
-    "col_matmul": 0, "reuse_matmul": 0}
+    "col_matmul": 0, "reuse_matmul": 0, "quant_matmul": 0, "fixed_point": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -160,6 +167,22 @@ def require(kernel: str, io_dtype: torch.dtype, *,
         want = io_dtype if name in io else torch.float32
         if t.dtype != want:
             raise TypeError(f"{kernel}: {name} must be {want}, not "
+                            f"{t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    return device
+
+
+def require_int8(kernel: str, **tensors: torch.Tensor) -> torch.device:
+    """Check the arguments of an integer launch: every tensor is int8 and
+    contiguous, all on one CUDA device, which is returned."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.dtype != torch.int8:
+            raise TypeError(f"{kernel}: {name} must be torch.int8, not "
                             f"{t.dtype}")
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected "

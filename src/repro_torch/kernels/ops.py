@@ -16,10 +16,16 @@ as one batched [B*T, fin] @ [fin, G*h] product in f32 (through
 ``col_matmul`` when ``hoist_reuse`` > 1) and only hU stays in the
 recurrence.
 
+``fp`` selects a fixed-point datapath: an ``is_native_int`` config
+(signed, rnd, sat, <= 8 bits) on a kernel backend runs the native int8/int4
+scan of kernels/quantized.py, every gate product on ``quant_matmul``; any
+other config, and every config on ``backend="xla"``, runs the ap_fixed
+emulation (the quantized cells, f32 compute with ``quantize`` at every
+hls4ml point).  Quantized scans never hoist.  ``fixed_point`` runs the
+``fixed_point`` kernel.
+
 The kernel path dispatches on the tensor's device: a CUDA tensor launches
-the CUDA kernels (or raises), a CPU tensor runs their plain versions.  The
-fixed-point datapaths (``fp``) are not ported yet and raise
-:class:`NotImplementedError`.
+the CUDA kernels (or raises), a CPU tensor runs their plain versions.
 """
 
 from __future__ import annotations
@@ -30,14 +36,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.rnn.cells import gru_cell, initial_state, lstm_cell
+from repro_torch.config import FixedPointConfig
+from repro_torch.core.quant.fixed_point import is_native_int, quantize
+from repro_torch.core.rnn.cells import (gru_cell, initial_state, lstm_cell,
+                                        quantized_cell_scan)
 from repro_torch.kernels import ref
+from repro_torch.kernels.fixed_point import fixed_point_kernel
 from repro_torch.kernels.gru_scan import (gru_scan_hoisted_kernel,
                                           gru_scan_kernel,
                                           gru_scan_pipeline_kernel)
 from repro_torch.kernels.lstm_scan import (lstm_scan_hoisted_kernel,
                                            lstm_scan_kernel,
                                            lstm_scan_pipeline_kernel)
+from repro_torch.kernels.quantized import (quantized_reuse_matmul,
+                                           quantized_scan)
 from repro_torch.kernels.reuse_matmul import (col_matmul_kernel,
                                               reuse_matmul_kernel)
 from repro_torch.kernels.schedule import KernelSchedule
@@ -162,34 +174,75 @@ def _kernel_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):
     return _MODES[schedule.mode](cell, xs, W, U, b, schedule)
 
 
+# ---------------------------------------------------------------------------
+# Fixed-point dispatch: native int bodies vs ap_fixed emulation
+# ---------------------------------------------------------------------------
+
+
+def _scan_fp_dispatch(cell: str, xs, W, U, b, schedule: KernelSchedule,
+                      fp: FixedPointConfig) -> torch.Tensor:
+    """Native int bodies for integral fp on a kernel backend, otherwise the
+    ap_fixed EMULATION scan: the quantized cells (f32 compute, quantize() at
+    every hls4ml datapath point), which stay the quantized golden reference
+    on backend="xla".  Its f32 products are exact on grid operands only
+    with TF32 off (PyTorch's default)."""
+    if is_native_int(fp) and schedule.use_pallas:
+        return quantized_scan(cell, xs, W, U, b, fp=fp, schedule=schedule)
+    return quantized_cell_scan(cell, xs, W, U, b, fp)
+
+
 def lstm_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
-              block_batch: Optional[int] = None) -> torch.Tensor:
-    """[B, T, in] -> final hidden [B, h], scheduled by ``schedule``."""
+              block_batch: Optional[int] = None,
+              fp: Optional[FixedPointConfig] = None) -> torch.Tensor:
+    """[B, T, in] -> final hidden [B, h], scheduled by ``schedule``; ``fp``
+    selects a fixed-point datapath (module docstring)."""
     schedule = _resolve(schedule, block_batch)
+    if fp is not None:
+        return _scan_fp_dispatch("lstm", xs, W, U, b, schedule, fp)
     if not schedule.use_pallas:
         return ref.lstm_scan_ref(xs, W, U, b)
     return _kernel_scan("lstm", xs, W, U, b, schedule)
 
 
 def gru_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
-             block_batch: Optional[int] = None) -> torch.Tensor:
+             block_batch: Optional[int] = None,
+             fp: Optional[FixedPointConfig] = None) -> torch.Tensor:
     """GRU counterpart of :func:`lstm_scan` (b: [2, 3h])."""
     schedule = _resolve(schedule, block_batch)
+    if fp is not None:
+        return _scan_fp_dispatch("gru", xs, W, U, b, schedule, fp)
     if not schedule.use_pallas:
         return ref.gru_scan_ref(xs, W, U, b)
     return _kernel_scan("gru", xs, W, U, b, schedule)
 
 
+def fixed_point(x: torch.Tensor, fp: FixedPointConfig) -> torch.Tensor:
+    """``x`` (any shape, f32 or bf16) quantized to the ap_fixed grid on the
+    ``fixed_point`` kernel."""
+    return fixed_point_kernel(x.contiguous(), fp)
+
+
 def reuse_matmul(x, w, *, reuse: int = 1, block_m: int = 128,
                  schedule: Optional[KernelSchedule] = None,
-                 fp=None) -> torch.Tensor:
+                 fp: Optional[FixedPointConfig] = None) -> torch.Tensor:
     """[M, K] @ [K, N] with K serialized into ``reuse`` passes (a schedule's
     reuse_factor overrides the bare ``reuse`` argument; a schedule on
-    ``backend="xla"`` runs the reference)."""
+    ``backend="xla"`` runs the reference).
+
+    ``fp``: integral configs on a kernel schedule run ``quant_matmul``
+    (z = q(q(x) @ q(w)) with int32 accumulation, the reuse factor tiling
+    the output columns); other fp configs emulate the same quantization
+    points in f32 around the float product.
+    """
     if fp is not None:
-        raise NotImplementedError(
-            "reuse_matmul: fixed-point (fp) datapaths are not ported yet "
-            "(ROADMAP.md, modules to port, item 6); call it with fp=None")
+        if (is_native_int(fp) and schedule is not None
+                and schedule.use_pallas):
+            return quantized_reuse_matmul(x, w, fp=fp, schedule=schedule)
+        xq = quantize(x.float(), fp)
+        wq = quantize(w.float(), fp)
+        out = reuse_matmul(xq, wq, reuse=reuse, block_m=block_m,
+                           schedule=schedule)
+        return quantize(out, fp).to(x.dtype)
     if schedule is not None:
         if not schedule.use_pallas:
             return ref.reuse_matmul_ref(x, w)

@@ -1,0 +1,219 @@
+"""Native int8/int4 datapath: the ``quant_matmul`` CUDA kernel's wrapper
+and plain version, the packed integer weight layouts, and the native
+quantized cells and scan.
+
+Replaces ``repro/kernels/quantized.py``'s ``quant_matmul_pallas``
+(int8 [M, K] @ int8 [K, N] -> exact int32, the N columns in R sequential
+tiles in-block, the whole weight resident); the kernel lives in
+``csrc/quantized.cu``.  The integral configs (``is_native_int``: signed,
+rnd, sat, <= 8 total bits) run genuinely low-precision:
+
+  * weights pack to int8 grid indices (int4 configs nibble-pack two
+    weights per byte along K) once per scan call, ahead of the time loop,
+    and unpack to int8 before the kernel, as ``repro`` does;
+  * gate products run int8 x int8 -> int32 on ``quant_matmul``;
+  * the int32 accumulator (scale 2^2F) is rescaled once, and the quantized
+    cells of ``core/rnn/cells.py`` run with this product as their
+    ``matmul``, so the activation / Hadamard steps and every quantization
+    point are the emulation's own code.
+
+Numerical contract: ``native_matmul`` returns ``(a_int @ w_int) / scale^2``
+with the division EXACT in f32 (int8 products are <= 2^14 and the K-sums of
+tagger fan-ins stay far below 2^24), so the native gate pre-activation is
+bit-identical to the emulation's f32 product of the same on-grid operands.
+Hence native == emulation bit for bit on the same device whenever the
+weights are already on the fp grid (PTQ'd).
+
+Quantized datapaths never hoist (splitting z = q(xW + hU + b) would move
+the hls4ml quantization points), so every schedule mode runs the same
+per-timestep structure; the reuse factor still tiles the kernel's output
+columns.
+
+The kernel wrapper dispatches on the tensor's device: a CUDA tensor
+launches the kernel (or raises), a CPU tensor runs the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Union
+
+import torch
+
+from repro_torch.config import FixedPointConfig
+from repro_torch.core.quant.fixed_point import (grid_constants,
+                                                is_native_int, native_bits,
+                                                quantize, to_ints)
+from repro_torch.core.rnn.cells import quantized_cell_scan
+from repro_torch.kernels import cuda, ref
+from repro_torch.kernels.schedule import KernelSchedule
+
+#: shared memory a block may use; quant_matmul stages the whole weight
+MAX_SMEM_BYTES = 227 * 1024
+
+
+# ---------------------------------------------------------------------------
+# Packed integer weight layouts
+# ---------------------------------------------------------------------------
+
+
+def pack_ints(w: torch.Tensor, fp: FixedPointConfig) -> torch.Tensor:
+    """Quantize a float [K, N] weight matrix to its packed int8 layout.
+
+    int8 grids store one weight per byte.  int4 grids nibble-pack two
+    K-adjacent weights per byte (low nibble = even row, high nibble = odd
+    row; odd K pads a zero row), so the packed array is [ceil(K/2), N]:
+    1/8 of the f32 bytes (``packed_weight_bytes``).
+    """
+    q = to_ints(w, fp)
+    if native_bits(fp) == 8:
+        return q
+    if q.shape[0] % 2:
+        q = torch.cat([q, q.new_zeros((1,) + tuple(q.shape[1:]))])
+    qi = q.to(torch.int32) & 0xF             # two's-complement nibbles
+    return (qi[0::2] | (qi[1::2] << 4)).to(torch.int8)
+
+
+def unpack_ints(packed: torch.Tensor, fp: FixedPointConfig,
+                k: int) -> torch.Tensor:
+    """Packed layout -> int8 grid indices [k, N] (inverse of pack_ints)."""
+    if native_bits(fp) == 8:
+        return packed
+    b = packed.to(torch.int32) & 0xFF
+    lo = b & 0xF
+    lo = torch.where(lo >= 8, lo - 16, lo)   # sign-extend the 4-bit field
+    hi = (b >> 4) & 0xF
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    out = torch.stack([lo, hi], dim=1).reshape((-1,) + tuple(packed.shape[1:]))
+    return out[:k].to(torch.int8)
+
+
+def packed_nbytes(packed: Union[torch.Tensor, Iterable[torch.Tensor]]) -> int:
+    """Measured bytes of a packed layout (one tensor or several)."""
+    if isinstance(packed, torch.Tensor):
+        packed = (packed,)
+    return sum(t.numel() * t.element_size() for t in packed)
+
+
+# ---------------------------------------------------------------------------
+# The int32-accumulating scheduled matmul kernel
+# ---------------------------------------------------------------------------
+
+
+def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
+                       reuse: int = 1) -> torch.Tensor:
+    """Plain version of :func:`quant_matmul_kernel`: the R column tiles as
+    float64 products, exact while |acc| < 2^53 (int32 products are not
+    implemented on CUDA)."""
+    ns = w.shape[1] // reuse
+    x64 = x.double()
+    tiles = [x64 @ w[:, r * ns:(r + 1) * ns].double() for r in range(reuse)]
+    return torch.cat(tiles, dim=-1).to(torch.int32)
+
+
+def quant_matmul_smem_bytes(k: int, n: int) -> int:
+    """Shared memory the kernel stages for a [k, n] weight at its most rows
+    per block (8): the weight and x, K-interleaved in 4-byte words."""
+    k4 = -(-k // 4)
+    return 4 * (k4 * n + 8 * k4)
+
+
+def quant_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
+                        reuse: int = 1) -> torch.Tensor:
+    """x: [M, K] int8 @ w: [K, N] int8 -> [M, N] int32, exact, the N
+    columns in ``reuse`` sequential tiles over the resident weight
+    (``reuse`` must divide N)."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"quant_matmul: x {tuple(x.shape)} @ w "
+                         f"{tuple(w.shape)} is not a matrix product")
+    (M, K), N = x.shape, w.shape[1]
+    if reuse < 1 or N % reuse:
+        raise ValueError(f"quant_matmul: reuse {reuse} does not divide {N}")
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w, reuse=reuse)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul: no kernel for device {x.device}")
+    dev = cuda.require_int8("quant_matmul", x=x, w=w)
+    if quant_matmul_smem_bytes(K, N) > MAX_SMEM_BYTES:
+        raise ValueError(f"quant_matmul: a {K}x{N} int8 weight does not fit "
+                         f"the {MAX_SMEM_BYTES} bytes of a block")
+    out = torch.empty(M, N, dtype=torch.int32, device=dev)
+    if M:
+        cuda.launch("quantized", "quant_matmul", dev, x.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), M, K, N, reuse)
+    return out
+
+
+def _int_matmul(ai: torch.Tensor, wq: torch.Tensor,
+                schedule: Optional[KernelSchedule]) -> torch.Tensor:
+    """int8 [M, K] @ int8 [K, N] -> int32, scheduled.  Kernel backends run
+    the in-block reuse-tiled kernel (it takes any M: no row padding); the
+    xla backend (and schedule=None) keep the exact integer reference."""
+    if schedule is None or not schedule.use_pallas:
+        return ref.int_matmul_ref(ai, wq)
+    re = schedule.effective_reuse(wq.shape[-1])
+    return quant_matmul_kernel(ai.contiguous(), wq.contiguous(), reuse=re)
+
+
+def native_int_matmul(a: torch.Tensor, wq: torch.Tensor,
+                      fp: FixedPointConfig,
+                      schedule: Optional[KernelSchedule] = None
+                      ) -> torch.Tensor:
+    """The native gate product on already unpacked int8 weights ``wq``:
+    quantize ``a`` to ints, int32-accumulate, rescale by 1/scale^2."""
+    acc = _int_matmul(to_ints(a, fp), wq, schedule)
+    scale, _, _ = grid_constants(fp)
+    return acc.float() * (1.0 / (scale * scale))
+
+
+def native_matmul(a: torch.Tensor, w: torch.Tensor, fp: FixedPointConfig, *,
+                  schedule: Optional[KernelSchedule] = None) -> torch.Tensor:
+    """The native gate matmul: quantize-to-ints, int32-accumulate, rescale.
+
+    ``a`` [M, K] holds on-grid activations (the quantized cells quantize
+    every input before the matmul, so ``to_ints`` is exact); ``w`` is the
+    float weight matrix, PTQ'd to ints by the packer.  Returns
+    ``(a_int @ w_int) / scale^2`` as f32: EXACT for int8/int4 ranges, i.e.
+    bit-identical to the emulation's f32 ``a @ quantize(w)``.
+    """
+    wq = unpack_ints(pack_ints(w, fp), fp, w.shape[0])
+    return native_int_matmul(a, wq, fp, schedule)
+
+
+# ---------------------------------------------------------------------------
+# Scheduled entry points (what ops.py dispatches to for integral fp)
+# ---------------------------------------------------------------------------
+
+
+def quantized_scan(cell: str, xs, W, U, b, *, fp: FixedPointConfig,
+                   schedule: KernelSchedule) -> torch.Tensor:
+    """[B, T, in] -> final hidden [B, h] on the native integer datapath.
+
+    W and U pack once per call, ahead of the time loop, and unpack to int8
+    grid indices; then every timestep runs the native cell: on-grid f32
+    state and activations, int32-accumulated gate products on
+    ``quant_matmul`` (2 launches per step).  All modes share the
+    per-timestep structure: quantized datapaths never hoist.
+    """
+    if not is_native_int(fp):
+        raise ValueError(f"quantized_scan: {fp} is not a native int config")
+    Wq = unpack_ints(pack_ints(W, fp), fp, W.shape[0])
+    Uq = unpack_ints(pack_ints(U, fp), fp, U.shape[0])
+    return quantized_cell_scan(
+        cell, xs, Wq, Uq, b, fp,
+        matmul=lambda a, w: native_int_matmul(a, w, fp, schedule))
+
+
+def quantized_reuse_matmul(x, w, *, fp: FixedPointConfig,
+                           schedule: Optional[KernelSchedule] = None
+                           ) -> torch.Tensor:
+    """Native scheduled matmul: q(x) and PTQ'd w multiply as integers, the
+    int32 accumulator requantizes ONCE to the fp grid (z = q(xW), the
+    dense-layer gate boundary).  The reuse factor serializes output column
+    tiles in-block (the float kernel's K-split reuse has no integer
+    analogue without double-rounding the accumulator)."""
+    if not is_native_int(fp):
+        raise ValueError(f"quantized_reuse_matmul: {fp} is not a native "
+                         f"int config")
+    xq = quantize(x.float(), fp)
+    out = native_matmul(xq, w, fp, schedule=schedule)
+    return quantize(out, fp).to(x.dtype)

@@ -55,3 +55,10 @@ def gru_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
 def reuse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated in float32, result in x's dtype."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product [M, K] @ [K, N] -> int32 (the native
+    datapath's golden reference), taken in float64: exact while |acc| <
+    2^53, and integer products are not implemented on CUDA."""
+    return (a.double() @ w.double()).to(torch.int32)

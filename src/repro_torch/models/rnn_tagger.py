@@ -19,7 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import FixedPointConfig, ModelConfig
+from repro_torch.core.quant.fixed_point import quantize
 from repro_torch.core.rnn.cells import rnn_param_specs
 from repro_torch.core.rnn.layer import rnn_layer
 from repro_torch.models.init import ParamSpec, ParamSpecs, Params, init_params
@@ -97,24 +98,34 @@ class RNNTagger(nn.Module):
             self.weights[path] = nn.Parameter(t.contiguous(),
                                               requires_grad=False)
 
-    def forward(self, x: torch.Tensor, *, fp=None, mode: Optional[str] = None,
-                impl: str = "xla", schedule=None, lengths=None,
+    def forward(self, x: torch.Tensor, *,
+                fp: Optional[FixedPointConfig] = None,
+                mode: Optional[str] = None, impl: str = "xla",
+                schedule=None, lengths=None,
                 return_logits: bool = False) -> torch.Tensor:
         """[b, T, features] -> class probabilities [b, n_outputs] (or the
         pre-activation logits).  ``schedule`` overrides the config-derived
         schedule of the recurrent layer; ``lengths`` [b] routes a padded
-        batch through the masked-scan ragged path."""
+        batch through the masked-scan ragged path.  ``fp`` quantizes the
+        recurrent layer and every point of the dense head to the ap_fixed
+        grid, as hls4ml does; the softmax takes unquantized logits (its LUT
+        gets extra precision in hls4ml, paper Sec. 5.1)."""
         rnn = self.cfg.rnn
         p = self.weights
         h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
                       p["rnn/bias"], fp=fp, mode=mode, impl=impl,
                       schedule=schedule, lengths=lengths)
-        h = h.float()
+
+        def q(t):
+            return t if fp is None else quantize(t, fp)
+
+        h = q(h.float())
         for i in range(len(rnn.dense_sizes)):
-            h = torch.relu(h @ p[f"dense{i}/w"] + p[f"dense{i}/b"])
-        logits = h @ p["head/w"] + p["head/b"]
+            h = q(h @ q(p[f"dense{i}/w"]) + q(p[f"dense{i}/b"]))
+            h = q(torch.relu(h))
+        logits = h @ q(p["head/w"]) + q(p["head/b"])
         if return_logits:
             return logits
         if rnn.output_activation == "sigmoid":
-            return torch.sigmoid(logits)
+            return torch.sigmoid(q(logits))
         return torch.softmax(logits.float(), dim=-1)

@@ -16,14 +16,16 @@ One difference from the JAX package's engine: ``impl`` defaults to
 ``"pallas"``, so the normal entry point runs the CUDA kernels; the JAX
 engine defaults to ``"xla"``, its golden reference.  Every float schedule
 (static, nonstatic and pipeline mode, any reuse factor, hoisted or not)
-runs on the CUDA kernels.  The engine runs on ``device`` ("cuda" unless
-the caller asks for "cpu") and holds its float32 weights there from
-construction on.
+runs on the CUDA kernels.  ``fp`` (the engine's, or a request's) selects a
+fixed-point datapath: the native int8/int4 configs run every gate product
+on the ``quant_matmul`` kernel, every other config the ap_fixed emulation
+cells; the key of a request names its (schedule, fp) pair.  The engine
+runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
+float32 weights there from construction on.
 
-Not in this slice of the port: fixed-point datapaths, design targets and
-auto-scheduling, HLS pricing (the ``analytical`` column of
-``serve_report``), the persistent compile cache and weight residency
-(ROADMAP.md, modules to port).
+Not in this slice of the port: design targets and auto-scheduling, HLS
+pricing (the ``analytical`` column of ``serve_report``), the persistent
+compile cache and weight residency (ROADMAP.md, modules to port).
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
-from repro_torch.core.rnn.layer import require_float
+from repro_torch.config import FixedPointConfig, ModelConfig
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY, KernelSchedule,
                                           schedule_key)
 from repro_torch.models.rnn_tagger import RNNTagger
@@ -64,14 +65,14 @@ class RNNServingEngine:
     mode: Optional[str] = None            # static | nonstatic | pipeline |
                                           # None: from the schedule / config
     impl: str = "pallas"                  # pallas (kernels) | xla (reference)
-    fp: Optional[object] = None           # fixed point: not ported yet
+    fp: Optional[FixedPointConfig] = None  # default-request fixed point
     max_batch: int = 256
     schedule: Optional[KernelSchedule] = None   # default-request schedule
     ragged: str = "bucket"                # bucket | mask (one padded batch)
     pad_batches: bool = True              # pad flushes to max_batch
     device: Union[str, torch.device] = "cuda"
     _infer_cache: Dict[str, Callable] = field(default_factory=dict, repr=False)
-    _key_specs: Dict[str, Tuple[KernelSchedule, None]] \
+    _key_specs: Dict[str, Tuple[KernelSchedule, Optional[FixedPointConfig]]] \
         = field(default_factory=dict, repr=False)
     _traces: Dict[str, int] = field(default_factory=dict, repr=False)
     # batch-1 fast path: its own executors + counters
@@ -83,7 +84,6 @@ class RNNServingEngine:
     def __post_init__(self):
         if self.ragged not in RAGGED_POLICIES:
             raise ValueError(f"ragged {self.ragged!r} not in {RAGGED_POLICIES}")
-        require_float(self.fp)
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -113,21 +113,23 @@ class RNNServingEngine:
         return self.resolved_schedule.mode
 
     def resolve(self, schedule: Optional[KernelSchedule] = None,
-                fp=None) -> Tuple[KernelSchedule, None]:
+                fp: Optional[FixedPointConfig] = None
+                ) -> Tuple[KernelSchedule, Optional[FixedPointConfig]]:
         """(schedule, fp) a request with these overrides actually executes."""
-        require_float(fp)
         return (schedule if schedule is not None else self.resolved_schedule,
-                None)
+                fp if fp is not None else self.fp)
 
-    def _ensure_key(self, sched: KernelSchedule, fp=None) -> str:
+    def _ensure_key(self, sched: KernelSchedule,
+                    fp: Optional[FixedPointConfig]) -> str:
         key = schedule_key(sched, fp)
         if key not in self._infer_cache:
             self._key_specs[key] = (sched, fp)
-            self._infer_cache[key] = self._make_infer(key, sched, "_traces")
+            self._infer_cache[key] = self._make_infer(key, sched, fp,
+                                                      "_traces")
         return key
 
     def _make_infer(self, key: str, sched: KernelSchedule,
-                    counter: str) -> Callable:
+                    fp: Optional[FixedPointConfig], counter: str) -> Callable:
         """The executor of one schedule key; building it is counted in
         ``counter`` (one build per key)."""
         traces = getattr(self, counter)
@@ -142,7 +144,8 @@ class RNNServingEngine:
                 lengths = torch.from_numpy(
                     np.asarray(lengths, np.int64)).to(self.device)
             with torch.inference_mode():
-                out = model(xt, impl=impl, schedule=sched, lengths=lengths)
+                out = model(xt, fp=fp, impl=impl, schedule=sched,
+                            lengths=lengths)
             return out.cpu().numpy()
 
         return infer
@@ -165,8 +168,9 @@ class RNNServingEngine:
 
     def predict(self, x: np.ndarray,
                 schedule: Optional[KernelSchedule] = None,
-                fp=None) -> np.ndarray:
-        """[b, T, in] -> [b, n_outputs] under the request's schedule."""
+                fp: Optional[FixedPointConfig] = None) -> np.ndarray:
+        """[b, T, in] -> [b, n_outputs] under the request's schedule and
+        fixed-point config."""
         self._check_open()
         key = self._ensure_key(*self.resolve(schedule, fp))
         return self._predict_key(key, x)
@@ -211,7 +215,7 @@ class RNNServingEngine:
         fn = self._one_cache.get(key)
         first = fn is None
         if first:
-            fn = self._one_cache[key] = self._make_infer(key, sched,
+            fn = self._one_cache[key] = self._make_infer(key, sched, fpr,
                                                          "_one_traces")
         t0 = time.perf_counter()
         out = fn(np.asarray(x)[None])[0]

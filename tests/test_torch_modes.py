@@ -191,8 +191,18 @@ def test_reuse_matmul_entry_point(reuse, dtype):
     assert_close(fn(tx, tw, schedule=s.replace(backend="xla")),
                  jops.SCHEDULED_KERNELS["reuse_matmul"][1](x, w), dtype)
     assert_close(ref(tx, tw), want, dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(tx, tw, schedule=s, fp=object())
+    # the native int8 route (quant_matmul) equals repro's bit for bit: an
+    # exact integer product, requantized once
+    from repro.config import FixedPointConfig as JFixedPoint
+    from repro_torch.config import FixedPointConfig
+
+    got = fn(tx, tw, schedule=s, fp=FixedPointConfig(8, 3))
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(jops.reuse_matmul(
+            x, w, schedule=JSchedule(reuse_factor=reuse,
+                                     backend="pallas_interpret"),
+            fp=JFixedPoint(8, 3)), np.float32))
 
 
 # -- the engine ------------------------------------------------------------

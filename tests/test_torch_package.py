@@ -6,8 +6,7 @@
   * Entry points run on ``"cuda"`` unless told otherwise, and raise where
     there is no CUDA device instead of carrying on on the CPU.
   * The kernel backends run every float schedule (static, non-static,
-    pipeline, ``hoist_reuse`` > 1) and refuse the fixed-point datapaths,
-    which are not ported yet, with ``NotImplementedError``;
+    pipeline, ``hoist_reuse`` > 1) and the fixed-point datapaths;
     ``backend="xla"`` runs every mode.
 """
 
@@ -35,7 +34,9 @@ import repro_torch  # noqa: E402
 from repro_torch.config import FixedPointConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import cuda, ops  # noqa: E402
+from repro_torch.kernels import fixed_point as tfxp  # noqa: E402
 from repro_torch.kernels import lstm_scan as tlstm  # noqa: E402
+from repro_torch.kernels import quantized as tquant  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
 from repro_torch.models.init import ParamSpec, init_param  # noqa: E402
 from repro_torch.models.rnn_tagger import (RNNTagger, param_specs,  # noqa: E402
@@ -105,12 +106,22 @@ def test_kernel_wrapper_never_falls_back():
     version without touching CUDA; a device with no kernel raises."""
     xs, W, U, b = (torch.from_numpy(np.array(a)) for a in
                    make_kernel_inputs("lstm", B=2, T=3, H=8))
+    xi = torch.ones(4, 6, dtype=torch.int8)
+    wi = torch.ones(6, 8, dtype=torch.int8)
+    fp = FixedPointConfig(8, 3)
     before = dict(cuda.LAUNCHES)
     out = tlstm.lstm_scan_kernel(xs, W, U, b)
     assert out.shape == (2, 8) and cuda.LAUNCHES == before
+    assert tquant.quant_matmul_kernel(xi, wi).eq(6).all()
+    assert tfxp.fixed_point_kernel(xs, fp).shape == xs.shape
+    assert cuda.LAUNCHES == before
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tlstm.lstm_scan_kernel(xs.to("meta"), W.to("meta"), U.to("meta"),
                                b.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tquant.quant_matmul_kernel(xi.to("meta"), wi.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfxp.fixed_point_kernel(xs.to("meta"), fp)
 
 
 @pytest.mark.parametrize("sched", (
@@ -156,18 +167,30 @@ def test_xla_backend_runs_every_mode(cell, mode):
     assert err <= CONFORMANCE_TOL["float32"]
 
 
-def test_fixed_point_is_not_ported_yet():
-    cfg, params = _tagger()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RNNServingEngine(cfg, params, device="cpu", fp=FixedPointConfig())
-    eng = RNNServingEngine(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.predict(np.zeros((1, 20, 6), np.float32), fp=FixedPointConfig())
-    # the key a request would carry is still repro's
+def test_fixed_point_serves_and_keys_match_repro():
+    """``fp`` serves on the engine (as its default and per request), each
+    (schedule, fp) pair under repro's key."""
     from repro.kernels.schedule import schedule_key as jkey
     from repro_torch.kernels.schedule import schedule_key as tkey
-    assert tkey(KernelSchedule(), FixedPointConfig()) \
-        == jkey(KernelSchedule(), JFixedPoint())
+
+    cfg, params = _tagger()
+    x = np.random.RandomState(0).randn(2, 20, 6).astype(np.float32)
+    fp = FixedPointConfig(8, 3)
+    eng = RNNServingEngine(cfg, params, device="cpu", fp=fp)
+    out = eng.predict(x)
+    assert out.shape == (2, 1) and np.isfinite(out).all()
+    np.testing.assert_array_equal(
+        out, RNNServingEngine(cfg, params, device="cpu").predict(x, fp=fp))
+    wide = RNNServingEngine(cfg, params, device="cpu").predict(
+        x, fp=FixedPointConfig())
+    assert np.abs(wide - out).max() > 0      # another datapath, another key
+    for sched in (KernelSchedule(), KernelSchedule(mode="pipeline")):
+        for f, jf in ((FixedPointConfig(), JFixedPoint()),
+                      (fp, JFixedPoint(8, 3)),
+                      (FixedPointConfig(8, 4, saturation="wrap"),
+                       JFixedPoint(8, 4, saturation="wrap"))):
+            assert tkey(sched, f) == jkey(sched, jf)
+    assert list(eng._infer_cache) == [tkey(eng.resolved_schedule, fp)]
 
 
 def test_closed_engine_refuses_work():
@@ -235,12 +258,21 @@ def test_launch_arguments_are_checked_before_any_launch():
         cuda.require("k", torch.float32, W=w.t())
     with pytest.raises(ValueError, match="expected"):
         cuda.require("k", torch.float32, W=w, U=w.to("meta"))
+    # the integer kernels' check
+    xi = torch.zeros(4, 8, dtype=torch.int8)
+    assert cuda.require_int8("k", x=xi, w=xi.t().contiguous()) == xi.device
+    with pytest.raises(TypeError, match="w must be torch.int8"):
+        cuda.require_int8("k", x=xi, w=xi.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.require_int8("k", x=xi, w=xi.t())
+    with pytest.raises(ValueError, match="expected"):
+        cuda.require_int8("k", x=xi, w=xi.to("meta"))
 
 
 def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
                                                         tmp_path):
     monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
-    assert set(cuda.SIGNATURES) == {"rnn_scan", "reuse_matmul"}
+    assert set(cuda.SIGNATURES) == {"rnn_scan", "reuse_matmul", "quantized"}
     paths = {n: cuda.library_path(n) for n in cuda.SIGNATURES}
     for name, path in paths.items():
         assert path == cuda.library_path(name)
@@ -250,10 +282,10 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
         # every library reports its own errors, and every kernel it exports
         # has a launch counter
         assert "kernel_error_string" in cuda.SIGNATURES[name]
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 3
     kernels = {fn for sigs in cuda.SIGNATURES.values() for fn in sigs
                if fn not in ("kernel_error_string", "scan_rows_per_block")}
-    assert kernels == set(cuda.LAUNCHES) and len(kernels) == 8
+    assert kernels == set(cuda.LAUNCHES) and len(kernels) == 10
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     if Path("/usr/local/cuda/bin/nvcc").exists():
