@@ -7,8 +7,8 @@ In order, it
   1. prints the card's name and power limit and builds every CUDA kernel
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel;
      timed);
-  2. holds each of the ten kernels against its plain PyTorch version on
-     the card, at the main path's shapes of all six taggers (B = 256,
+  2. holds each of the eleven kernels against its plain PyTorch version
+     on the card, at the main path's shapes of all six taggers (B = 256,
      R in {1, 4}, float32 and bfloat16): the static, hoisted and pipeline
      scans; ``col_matmul`` at each step's x-side and h-side product and at
      the hoist stage's [256*T, in] product (R = 2); ``reuse_matmul`` at
@@ -16,6 +16,9 @@ In order, it
      native gate product, int8 and int4-range operands; ``fixed_point``
      (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
      steps, float32 and bfloat16, for seven ap_fixed configs;
+     ``decode_matmul`` at gemma-2b's four per-token products (bf16, M = 4,
+     and q|k|v at M = 3) and at the taggers' decode-step products (f32,
+     M = 1 and 256), R = 4 bit for bit equal to R = 1;
   3. drives the port's main paths, each with the launch counts set to 0
      just before it and read just after, and checks every answer against
      the same model on ``backend="xla"``:
@@ -35,6 +38,18 @@ In order, it
                 equal to the same engine on ``backend="xla"``; then
                 ``fp=ap_fixed<16,6>`` on the emulation cells (no kernel);
        ops_fixed_point  ``ops.fixed_point`` on a CUDA tensor;
+       lm_decode  gemma-2b at its published width and depth (18 layers,
+                d_model 2048, bf16, seeded weights drawn on the card)
+                served through ``LMServingEngine(device="cuda")``: 4
+                requests of 8 prompt + 8 new tokens on keys R = 1, R = 4
+                (every projection on ``decode_matmul``, 72 launches a
+                tick) and the default key (einsum); R = 1 and R = 4 give
+                the same tokens and first-step logits bit for bit, the
+                einsum logits agree within 2e-2; one executor per key;
+       rnn_decode  the six taggers at B = 256 as T chained
+                ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
+                xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
+                equal to the emulation, ``ap_fixed<16,6>`` vs xla;
      and checks that every kernel of each path was launched;
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace) beside its
@@ -43,9 +58,11 @@ In order, it
      products, ``torch._int_mm`` for ``quant_matmul`` where it takes the
      shape and an f32 ``torch.matmul`` of the same integers elsewhere,
      ``fake_quantize_per_tensor_affine`` for ``fixed_point``) and
-     its bound on the card, and whole QuickDraw LSTM scans end to end per
-     mode (the native int8 scan too) with their launch counts and the
-     device's idle share;
+     its bound on the card (``decode_matmul`` at gemma-2b's products also
+     with the L2 flushed before each call, as a tick finds it), whole
+     QuickDraw LSTM scans end to end per mode (the native int8 scan too)
+     with their launch counts and the device's idle share, and the
+     engine's tick latency and tokens/s per key with a trace of one tick;
   5. ends with the JSON result line.
 
 Any failed check raises, so the script exits non-zero; it exits non-zero
@@ -87,6 +104,15 @@ MATMUL_SHAPE = (BATCH, 128, 512)
 SCAN_SRC = "src/repro_torch/csrc/rnn_scan.cu"
 MATMUL_SRC = "src/repro_torch/csrc/reuse_matmul.cu"
 QUANT_SRC = "src/repro_torch/csrc/quantized.cu"
+DECODE_SRC = "src/repro_torch/csrc/decode_matmul.cu"
+#: the LM served on the decode path, at its published width and depth
+LM = "gemma-2b"
+LM_BATCH = 4                     # LMServingEngine max_batch: a tick's rows
+LM_SEQ = 64                      # max_seq of the KV cache
+LM_PROMPT = 8                    # prompt tokens per request
+LM_NEW = 8                       # max_new tokens per request
+#: the ragged row count decode_matmul is checked at (one shape)
+RAGGED_M = 3
 #: (total, integer, rounding, saturation): the paper's ap_fixed<16,6>, the
 #: native int8 / int4 configs, and the trn / wrap corners
 FP_GRID = ((16, 6, "rnd", "sat"), (8, 3, "rnd", "sat"), (4, 2, "rnd", "sat"),
@@ -109,6 +135,7 @@ KERNELS = {
     "reuse_matmul": ("src/repro/kernels/reuse_matmul.py:42", MATMUL_SRC),
     "quant_matmul": ("src/repro/kernels/quantized.py:114", QUANT_SRC),
     "fixed_point": ("src/repro/kernels/fixed_point.py:26", QUANT_SRC),
+    "decode_matmul": ("src/repro/kernels/decode_step.py:69", DECODE_SRC),
 }
 
 
@@ -360,6 +387,57 @@ def quant_calls(device, timing=False):
                     and spec == FP_GRID[0])
 
 
+def lm_products(cfg) -> dict:
+    """The four per-token products of one decoder layer: (K, N)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {"q|k|v": (d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+            "o": (cfg.n_heads * hd, d),
+            "gate|up": (d, 2 * cfg.d_ff),
+            "down": (cfg.d_ff, d)}
+
+
+def decode_calls(device, timing=False):
+    """(tagger or model, R, call) for ``decode_matmul`` at gemma-2b's four
+    per-token products (bf16, M = ``LM_BATCH``; in checks also the q|k|v
+    product at a ragged M) and at the six taggers' decode-step products
+    (f32, x-side and h-side, M = 1 and ``BATCH``), each at R = 1 and 4
+    on the same inputs.  Inputs are drawn on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_step as ds
+
+    gen = torch.Generator(device=device).manual_seed(600 if timing else 500)
+    cases = []
+    for prod, (K, N) in lm_products(get_config(LM)).items():
+        cases.append((f"{LM} {prod}", LM_BATCH, K, N, torch.bfloat16,
+                      prod == "gate|up"))
+        if prod == "q|k|v" and not timing:
+            cases.append((f"{LM} {prod}", RAGGED_M, K, N, torch.bfloat16,
+                          False))
+    for tag in TAGGERS:
+        r = get_config(tag).rnn
+        g = 4 if r.cell == "lstm" else 3
+        for side, K in (("x-side", r.input_size), ("h-side", r.hidden)):
+            for M in (1, BATCH):
+                cases.append((f"{tag} {side}", M, K, g * r.hidden,
+                              torch.float32, False))
+    for what, M, K, N, dt, head in cases:
+        x = torch.randn(M, K, generator=gen, device=device).to(dt)
+        w = (torch.randn(K, N, generator=gen, device=device)
+             / np.sqrt(K)).to(dt)
+        for reuse in REUSES:
+            yield what, reuse, call(
+                "decode_matmul", f"{what} ({M},{K})@({K},{N}) R={reuse}",
+                lambda x=x, w=w, R=reuse: ds.decode_matmul_kernel(
+                    x, w, reuse=R),
+                lambda x=x, w=w, R=reuse: ds.decode_matmul_plain(
+                    x, w, reuse=R),
+                (x, w), 2.0 * M * K * N,
+                (lambda x=x, w=w: torch.matmul(x, w)) if timing else None,
+                head and reuse == 1)
+
+
 def same_bits(got, want) -> bool:
     """Equal bit for bit (int32 products; float32 / bfloat16 as raw bits,
     so the sign of a zero counts)."""
@@ -434,7 +512,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 #: device kernel name fragment -> what launched it, for the trace readings
-KERNEL_GROUPS = (("col_matmul_kernel", "col_matmul"),
+KERNEL_GROUPS = (("decode_matmul_kernel", "decode_matmul"),
+                 ("col_matmul_kernel", "col_matmul"),
                  ("reuse_matmul_kernel", "reuse_matmul"),
                  ("quant_matmul_kernel", "quant_matmul"),
                  ("fixed_point_kernel", "fixed_point"),
@@ -525,6 +604,26 @@ def phase_kernels(device) -> dict:
         check(same, f"{c['name']} {c['shape']}: differs from its plain "
               f"version (err {err})")
         errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
+    first_tile: dict = {}
+    for what, reuse, c in decode_calls(device):
+        with torch.inference_mode():
+            got = c["kern"]()
+            torch.cuda.synchronize()
+            want = c["plain"]()
+        dt = str(got.dtype).split(".")[1]
+        tol = TOL[dt]
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"decode_matmul {c['shape']}: {got.dtype} {tuple(got.shape)}")
+        err, scale = max_err(got, want)
+        # every R sums each column in one order: R = 4 gives R = 1's bits
+        key = c["shape"].rsplit(" R=", 1)[0]
+        same = same_bits(got, first_tile.setdefault(key, got))
+        print(f"check {c['name']:18s} {c['shape']:44s} {dt:8s}: max_abs_err "
+              f"{err:.3e} (tol {tol * scale:.1e}); bits equal to R=1: {same}")
+        check(bool(np.isfinite(err)) and err <= tol * scale,
+              f"decode_matmul {c['shape']}: err {err}")
+        check(same, f"decode_matmul {c['shape']}: R={reuse} differs from R=1")
+        errs["decode_matmul"] = max(errs.get("decode_matmul", 0.0), err)
     check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
 
@@ -772,6 +871,205 @@ def phase_fixed_point(device) -> dict:
     return launches
 
 
+def phase_lm_decode(device) -> tuple:
+    """gemma-2b at its published width and depth, seeded weights drawn on
+    the card, served through ``LMServingEngine(device="cuda")``: 4 requests
+    of ``LM_PROMPT`` prompt tokens and ``LM_NEW`` new tokens on each of
+    three keys (R = 1, R = 4, and the default key's einsum path), driven
+    with the counts set to 0.  R = 1 and R = 4 decode the same tokens and
+    their first-step logits are the same bits; the default key's logits
+    agree with them within the bf16 tolerance; one executor per key; 72
+    ``decode_matmul`` launches per scheduled tick.  Returns (launches, a
+    report of the path)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.schedule import KernelSchedule
+    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.serving import LMServingEngine
+
+    cfg = get_config(LM)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scheds = {"R1": KernelSchedule(reuse_factor=1),
+              "R4": KernelSchedule(reuse_factor=4)}
+    t0 = time.perf_counter()
+    eng = LMServingEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_SEQ,
+                          device=device)
+    for s in scheds.values():
+        eng._decoder_for(s)                   # packs its weight layout
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    prompts = np.random.RandomState(0).randint(
+        2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).tolist()
+    ids = {k: [] for k in ("default", *scheds)}
+
+    def serve():
+        for k in ids:
+            for p in prompts:
+                ids[k].append(eng.add_request(p, max_new=LM_NEW,
+                                              schedule=scheds.get(k)))
+        return eng.run_to_completion()
+
+    t0 = time.perf_counter()
+    launches, out = drive("lm_decode", serve, ("decode_matmul",))
+    serve_s = time.perf_counter() - t0
+    toks = {k: [out[i] for i in v] for k, v in ids.items()}
+    for k, v in toks.items():
+        check(len(v) == LM_BATCH and all(
+            len(t) == LM_PROMPT + LM_NEW and t[:LM_PROMPT] == p
+            and all(0 <= x < cfg.vocab_size for x in t)
+            for t, p in zip(v, prompts)), f"{LM} key {k}: tokens {v}")
+    check(toks["R1"] == toks["R4"], f"{LM}: R=1 and R=4 decoded different "
+          f"tokens: {toks['R1']} vs {toks['R4']}")
+    decs = {k: eng._decoder_for(scheds.get(k)) for k in ids}
+    sched_ticks = decs["R1"].ticks + decs["R4"].ticks
+    per_tick = 4 * cfg.n_layers
+    check(launches["decode_matmul"] == per_tick * sched_ticks,
+          f"{LM}: {launches['decode_matmul']} decode_matmul launches for "
+          f"{sched_ticks} scheduled ticks, expected {per_tick} each")
+    check(len(eng.keys()) == 3 and all(eng.trace_count(k) == 1
+                                       for k in eng.keys()),
+          f"{LM}: executors {[(k, eng.trace_count(k)) for k in eng.keys()]}")
+
+    # the first step of every request, key by key, on a fresh cache
+    tok0 = torch.tensor([p[:1] for p in prompts], device=device)
+    pos0 = torch.zeros(LM_BATCH, dtype=torch.int64, device=device)
+    logits = {}
+    with torch.inference_mode():
+        for k, dec in decs.items():
+            cache = init_cache(cfg, LM_BATCH, LM_SEQ, "float32", device)
+            logits[k] = decode_step(cfg, eng.params, cache, tok0, pos0,
+                                    schedule=dec.schedule,
+                                    packed=dec.packed)[0]
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v).all()) and v.shape == (
+        LM_BATCH, 1, padded_vocab(cfg)) for v in logits.values()),
+        f"{LM}: first-step logits not finite or misshaped")
+    check(same_bits(logits["R1"], logits["R4"]),
+          f"{LM}: R=1 and R=4 first-step logits differ")
+    err, scale = max_err(logits["default"], logits["R1"])
+    check(err <= TOL["bfloat16"] * scale, f"{LM}: the einsum path's logits "
+          f"differ from the scheduled path's by {err} (scale {scale})")
+    same_tokens = sum(a == b for a, b in zip(toks["default"], toks["R1"]))
+
+    rep = eng.serve_report()
+    keys = {k: dec.key for k, dec in decs.items()}
+    report = {"model": LM, "params": cfg.param_count(),
+              "param_gb": sum(t.numel() * t.element_size()
+                              for t in params.values()) / 1e9,
+              "init_s": init_s, "engine_and_pack_s": pack_s,
+              "serve_s": serve_s, "first_step_logits_max_abs_err": err,
+              "default_key_requests_same_tokens": same_tokens,
+              "keys": {k: {"key": keys[k], "ticks": decs[k].ticks,
+                           **{m: rep[keys[k]]["measured"][m] for m in (
+                               "tokens", "tokens_per_s",
+                               "tick_latency_p50_s", "tick_latency_p99_s")}}
+                       for k in decs}}
+    print(f"served {LM} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{report['param_gb']:.2f} GB of bf16 params drawn on the card in "
+          f"{init_s:.2f} s): {len(out)} requests of {LM_PROMPT}+{LM_NEW} "
+          f"tokens in {serve_s:.2f} s; R=1 == R=4 tokens and first-step "
+          f"logits bit for bit; einsum logits within {err:.3e} "
+          f"(tol {TOL['bfloat16'] * scale:.2e}); default-key tokens equal "
+          f"on {same_tokens}/{LM_BATCH} requests")
+    for k, row in report["keys"].items():
+        print(f"  key {row['key']:32s}: {row['ticks']} ticks, tick p50 "
+              f"{row['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
+              f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
+              f"{row['tokens_per_s']:.1f} tokens/s")
+
+    # one scheduled tick (R = 1) and one einsum tick in a device trace
+    cache = init_cache(cfg, LM_BATCH, LM_SEQ, "float32", device)
+    for k in ("R1", "default"):
+        trace = device_trace(lambda k=k: decode_step(
+            cfg, eng.params, cache, tok0, pos0, schedule=decs[k].schedule,
+            packed=decs[k].packed))
+        report["keys"][k]["trace"] = trace
+        print(f"  trace of one {k} step: {json.dumps(trace)}")
+    del eng, params, decs
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_rnn_decode(device) -> dict:
+    """The six taggers at their published widths, B = ``BATCH``, as T
+    chained ``rnn_decode_step`` calls on a kernel schedule, driven with the
+    counts set to 0: float (``decode_matmul``) held to the ``backend="xla"``
+    scan within 3e-5; ``fp=ap_fixed<8,3>`` on PTQ'd weights (the native
+    route, ``quant_matmul``) bit for bit equal to the same steps on
+    ``backend="xla"`` (the emulation); ``fp=ap_fixed<16,6>`` (the quantized
+    cells with the ``decode_matmul`` hook) within 3e-5 of them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.fixed_point import quantize
+    from repro_torch.core.rnn.cells import initial_state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_step import rnn_decode_step
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    sched = KernelSchedule()
+    xla = sched.replace(backend="xla")
+    fps = {"ap8_3": fixed_point_config(FP_NATIVE["int8"]),
+           "ap16_6": fixed_point_config(FP_EMULATED)}
+    cases = []
+    for i, tag in enumerate(TAGGERS):
+        r = get_config(tag).rnn
+        xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                                  torch.float32, 700 + i, device)
+        weights = {"float": (W, U, b),
+                   **{k: tuple(quantize(t, fp) for t in (W, U, b))
+                      for k, fp in fps.items()}}
+        cases.append((tag, r.cell, xs, weights))
+
+    def chain(cell, xs, weights, s, fp=None):
+        state = initial_state(cell, xs.shape[0], weights[1].shape[0],
+                              torch.float32, xs.device)
+        with torch.inference_mode():
+            for t in range(xs.shape[1]):
+                h, state = rnn_decode_step(cell, xs[:, t], state, *weights,
+                                           schedule=s, fp=fp)
+        return h
+
+    def run():
+        return {tag: {k: chain(cell, xs, w, sched, fps.get(k))
+                      for k, w in weights.items()}
+                for tag, cell, xs, weights in cases}
+
+    launches, got = drive("rnn_decode", run, ("decode_matmul",
+                                              "quant_matmul"))
+    steps = sum(xs.shape[1] for _, _, xs, _ in cases)
+    check(launches["decode_matmul"] == 2 * 2 * steps
+          and launches["quant_matmul"] == 2 * steps,
+          f"rnn_decode launches {launches} for {steps} steps")
+    for tag, cell, xs, weights in cases:
+        scan = ops.lstm_scan if cell == "lstm" else ops.gru_scan
+        with torch.inference_mode():
+            want = {"float": scan(xs, *weights["float"], schedule=xla),
+                    **{k: chain(cell, xs, weights[k], xla, fp)
+                       for k, fp in fps.items()}}
+        g = got[tag]
+        err, scale = max_err(g["float"], want["float"])
+        check(err <= TOL["float32"] * scale,
+              f"{tag}: decode steps vs the xla scan: err {err}")
+        check(same_bits(g["ap8_3"], want["ap8_3"]),
+              f"{tag}: native int8 steps differ from the emulation")
+        err16, scale16 = max_err(g["ap16_6"], want["ap16_6"])
+        check(err16 <= TOL["float32"] * scale16,
+              f"{tag}: ap_fixed<16,6> steps vs xla: err {err16}")
+        print(f"served {tag:20s} {xs.shape[1]} chained rnn_decode_steps "
+              f"B={BATCH}: float max_abs_err {err:.3e} vs the xla scan; "
+              f"ap8_3 native bit for bit equal to the emulation; ap16_6 "
+              f"max_abs_err {err16:.3e} vs xla")
+    return launches
+
+
 def phase_timing(device) -> tuple:
     """Kernel, plain and library times and the bound at B = 256, and whole
     scans end to end."""
@@ -781,9 +1079,10 @@ def phase_timing(device) -> tuple:
 
     rows = []
     small_kernels = ("col_matmul", "reuse_matmul", "quant_matmul",
-                     "fixed_point")
+                     "fixed_point", "decode_matmul")
     calls_all = [*all_calls(torch.float32, device, timing=True),
-                 *quant_calls(device, timing=True)]
+                 *quant_calls(device, timing=True),
+                 *decode_calls(device, timing=True)]
     for tag, reuse, c in calls_all:
         lib = c["library"]
         with torch.inference_mode():
@@ -809,14 +1108,43 @@ def phase_timing(device) -> tuple:
                                     else None)
         if not small:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
+        if tag.startswith(LM):
+            # a tick reads each weight once, with 4 GB between two reads:
+            # time each call after an L2 flush, as a tick finds it
+            row["cold_ms"] = time_cold_ms(c["kern"], 50)
+            row["library_cold_ms"] = time_cold_ms(lib, 50)
         rows.append(row)
         lib_txt = ("n/a" if lib is None else
                    f"{library_ms:.4f} ms (device "
                    f"{row['library_device_ms']:.4f}), err {lib_err:.1e}")
+        cold = ("" if "cold_ms" not in row else
+                f"; L2 cold: kernel {row['cold_ms']:.4f} ms, library "
+                f"{row['library_cold_ms']:.4f} ms")
         print(f"time {c['name']:18s} {c['shape']:44s}: kernel {ms:.4f} ms "
               f"(device {row['device_ms']:.4f}), plain {plain_ms:.4f} ms, "
-              f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by})")
+              f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by}){cold}")
     return rows, time_nonstatic_scans(device) + [time_quantized_scan(device)]
+
+
+def time_cold_ms(fn, iters: int) -> float:
+    """Mean device time of one call of ``fn`` that finds the 50 MB L2
+    cold: CUDA events around each call, each after a 256 MB write."""
+    import torch
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    pairs = []
+    with torch.inference_mode():
+        fn()
+        for _ in range(iters):
+            flush.fill_(1.0)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            pairs.append((start, stop))
+        torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def per_call(fn, group: str, calls: int) -> float:
@@ -941,13 +1269,16 @@ def main() -> int:
     errs = phase_kernels(device)
     launches = phase_serving(device)
     launches.update(phase_fixed_point(device))
+    launches["lm_decode"], lm = phase_lm_decode(device)
+    launches["rnn_decode"] = phase_rnn_decode(device)
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "timings": rows, "nonstatic_scans": scans,
-         "launches": launches, "max_abs_err": errs}, indent=1))
+         "lm_decode": lm, "launches": launches, "max_abs_err": errs},
+        indent=1))
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():

@@ -1,8 +1,8 @@
-"""Configuration dataclasses of the paper's taggers.
+"""Configuration dataclasses of the paper's taggers and the dense LMs.
 
 The port's copy of the parts of ``repro.config`` that the LSTM/GRU taggers
-use.  Configs are frozen (hashable) so they can key caches and embed
-schedules.
+and the dense decoder's single-step decode use.  Configs are frozen
+(hashable) so they can key caches and embed schedules.
 """
 
 from __future__ import annotations
@@ -42,22 +42,65 @@ class RNNConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One tagger architecture (``family="rnn"``)."""
+    """One architecture: a tagger (``family="rnn"``) or a dense decoder LM
+    (``family="dense"``).
+
+    The transformer fields and their defaults are ``repro.config``'s dense
+    subset.  Two defaults differ from ``repro``'s: ``family`` ("rnn", not
+    "dense") and ``compute_dtype`` ("float32", not "bfloat16"); every LM
+    config of the port sets both explicitly (``configs/gemma_2b.py``,
+    ``configs/stablelm_3b.py``).
+    """
 
     name: str = "unnamed"
     family: str = "rnn"
     rnn: Optional[RNNConfig] = None
+
+    # transformer backbone (dense decoder)
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0                  # 0 -> d_model // n_heads
+    d_ff: int = 512
+    vocab_size: int = 1000
+    mlp_type: str = "swiglu"           # swiglu | geglu | relu2 | gelu
+    norm_type: str = "rmsnorm"         # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    logits_softcap: float = 0.0        # gemma-style soft capping (0 = off)
+    attn_window: int = 0               # 0 = full attention; >0 = local window
+
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def qkv_dims(self) -> Tuple[int, int]:
+        return self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytical parameter count of the tagger (Keras layout)."""
+        """Analytical parameter count: the tagger's (Keras layout) or the
+        dense decoder's (embeddings, layers, final norm)."""
+        if self.family == "dense":
+            d, V = self.d_model, self.vocab_size
+            q_dim, kv_dim = self.qkv_dims
+            attn = d * q_dim + 2 * d * kv_dim + q_dim * d
+            mlp = (3 if self.mlp_type in ("swiglu", "geglu") else 2) \
+                * d * self.d_ff
+            emb = V * d * (1 if self.tie_embeddings else 2)
+            return emb + self.n_layers * (attn + mlp + 2 * d) + d
         if self.family != "rnn" or self.rnn is None:
             raise NotImplementedError(
-                f"param_count covers the rnn family only, not {self.family!r}")
+                f"param_count covers the rnn and dense families, not "
+                f"{self.family!r}")
         r = self.rnn
         g = 4 if r.cell == "lstm" else 3
         n = g * (r.input_size * r.hidden + r.hidden * r.hidden + r.hidden)

@@ -26,12 +26,17 @@ hls4ml point).  Quantized scans never hoist.  ``fixed_point`` runs the
 
 The kernel path dispatches on the tensor's device: a CUDA tensor launches
 the CUDA kernels (or raises), a CPU tensor runs their plain versions.
+
+``WeightResidency`` / ``resident`` cache packed weight layouts (dtype cast,
+gate fusion) per (source identity and version, schedule key): the decode
+kernels of kernels/decode_step.py and models/decode.py pack through it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +77,103 @@ def _resolve(schedule: Optional[KernelSchedule],
     if block_batch is not None:
         return schedule.replace(block_batch=block_batch)
     return schedule
+
+
+# ---------------------------------------------------------------------------
+# Weight residency: pack each weight ONCE per (source version, schedule key)
+# ---------------------------------------------------------------------------
+
+
+def _tensors(tree):
+    """Every tensor of a nested dict / list / tuple."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class WeightResidency:
+    """Host-side cache of packed weight layouts.
+
+    ``get`` runs a pack function (dtype cast, gate fusion) ONCE per (source
+    tensors, key) and returns the same packed result on every later call.
+
+    Safety: ``repro``'s cache rests on jax arrays being immutable.  Torch
+    tensors are not, so an entry is keyed on each source's identity AND its
+    version counter (``tensor._version``, which every in-place operation
+    bumps): an in-place update of a source misses the cache and repacks.
+    An entry keeps a strong reference to every source, so CPython cannot
+    recycle an ``id`` while the entry lives, and a hit also checks each
+    source ``is`` the remembered one.  Sources that cannot be keyed this
+    way (numpy arrays, inference-mode tensors, which carry no version
+    counter) pack uncached.  Eviction is LRU, bounded by the entry count
+    and by the packed tensors' total bytes, so a pack larger than
+    ``max_bytes`` (a full-width LM's decode layout) is evicted as soon as
+    it is stored: its caller must keep its own reference.
+    """
+
+    def __init__(self, max_entries: int = 128,
+                 max_bytes: int = 512 * 1024 * 1024):
+        self.max_entries = max_entries
+        self.max_bytes = max_bytes
+        self.hits = 0
+        self.misses = 0
+        self.bytes = 0
+        self._entries: "OrderedDict[Tuple, Tuple[Tuple, object, int]]" = \
+            OrderedDict()
+
+    @staticmethod
+    def _nbytes(packed) -> int:
+        return sum(t.numel() * t.element_size() for t in _tensors(packed))
+
+    @staticmethod
+    def _cacheable(srcs: Tuple) -> bool:
+        return all(isinstance(a, torch.Tensor) and not a.is_inference()
+                   for a in srcs)
+
+    def get(self, srcs, key: str, pack: Callable[[], object]):
+        """Packed layout for ``srcs`` (one tensor or a tuple) under ``key``."""
+        if not isinstance(srcs, tuple):
+            srcs = (srcs,)
+        if not self._cacheable(srcs):
+            return pack()
+        ck = (key,) + tuple((id(a), a._version) for a in srcs)
+        ent = self._entries.get(ck)
+        if ent is not None and all(a is b for a, b in zip(ent[0], srcs)):
+            self.hits += 1
+            self._entries.move_to_end(ck)
+            return ent[1]
+        self.misses += 1
+        packed = pack()
+        nb = self._nbytes(packed)
+        self._entries[ck] = (srcs, packed, nb)
+        self.bytes += nb
+        while self._entries and (len(self._entries) > self.max_entries
+                                 or self.bytes > self.max_bytes):
+            _, (_, _, old_nb) = self._entries.popitem(last=False)
+            self.bytes -= old_nb
+        return packed
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self.bytes = 0
+
+
+#: module-level residency cache (kernels/decode_step.py and
+#: models/decode.py pack through it)
+RESIDENT_WEIGHTS = WeightResidency()
+
+
+def resident(srcs, key: str, pack: Callable[[], object]):
+    """Module-level convenience over :data:`RESIDENT_WEIGHTS`."""
+    return RESIDENT_WEIGHTS.get(srcs, key, pack)
 
 
 def _gate_mm(x: torch.Tensor, w: torch.Tensor, reuse: int) -> torch.Tensor:

@@ -43,9 +43,11 @@ from repro_torch.config import FixedPointConfig
 from repro_torch.core.quant.fixed_point import (grid_constants,
                                                 is_native_int, native_bits,
                                                 quantize, to_ints)
-from repro_torch.core.rnn.cells import quantized_cell_scan
+from repro_torch.core.rnn.cells import (gru_cell_quantized,
+                                        lstm_cell_quantized,
+                                        quantized_cell_scan)
 from repro_torch.kernels import cuda, ref
-from repro_torch.kernels.schedule import KernelSchedule
+from repro_torch.kernels.schedule import KernelSchedule, schedule_key
 
 #: shared memory a block may use; quant_matmul stages the whole weight
 MAX_SMEM_BYTES = 227 * 1024
@@ -201,6 +203,29 @@ def quantized_scan(cell: str, xs, W, U, b, *, fp: FixedPointConfig,
     return quantized_cell_scan(
         cell, xs, Wq, Uq, b, fp,
         matmul=lambda a, w: native_int_matmul(a, w, fp, schedule))
+
+
+def quantized_decode_step(cell: str, x_t, state, W, U, b, *,
+                          fp: FixedPointConfig,
+                          schedule: Optional[KernelSchedule] = None):
+    """One native single-event state update (``rnn_decode_step``'s route
+    for integral configs on a kernel schedule): the quantized cell of
+    ``core/rnn/cells.py`` with the int32-accumulated gate product
+    (``quant_matmul``, 2 launches) as its ``matmul``.  W and U pack to
+    int8 grid indices once per (tensor and version, fp) through the
+    residency cache, not once per step."""
+    from repro_torch.kernels.ops import resident   # ops imports this module
+
+    if not is_native_int(fp):
+        raise ValueError(f"quantized_decode_step: {fp} is not a native int "
+                         f"config")
+    key = f"native-int/{schedule_key(None, fp)}"
+    Wq, Uq = (resident(w, key, lambda w=w: unpack_ints(pack_ints(w, fp), fp,
+                                                       w.shape[0]))
+              for w in (W, U))
+    step = lstm_cell_quantized if cell == "lstm" else gru_cell_quantized
+    return step(x_t, state, Wq, Uq, b, fp,
+                matmul=lambda a, w: native_int_matmul(a, w, fp, schedule))
 
 
 def quantized_reuse_matmul(x, w, *, fp: FixedPointConfig,

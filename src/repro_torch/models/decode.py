@@ -1,0 +1,282 @@
+"""Single-token decode of the dense decoder: the paper's "static mode"
+state update at LM scale (the KV cache is resident, one step processes
+each new token).
+
+The port of the dense path of ``repro/models/decode.py``:
+
+  * ``schedule=None`` is the einsum path (plain tensor ops, a Python loop
+    over the stacked layer weights in place of ``lax.scan``);
+  * with a schedule, every per-token projection (fused q|k|v, o, fused
+    gate|up or up, down) runs through ``kernels.decode_step.decode_matmul``
+    over the weight-resident layout of :func:`pack_decode_params`; on a
+    kernel backend that is the ``decode_matmul`` CUDA kernel, 4 launches per
+    layer and token step.  Norms, rotary embeddings, attention over the
+    cache and the unembedding stay plain tensor ops, as ``repro`` leaves
+    them to XLA outside any kernel.
+
+Only the dense family runs: MoE, SSM, hybrid, enc-dec and vlm decode raise
+``NotImplementedError`` (``ROADMAP.md`` module item 10).  ``decode_steps``
+and ``kv_trim`` (the speculative verify pass) come with the speculative
+slice.  ``lm_params_from_jax`` carries ``repro``'s flat LM parameters
+over, dtypes kept.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.decode_step import decode_matmul
+from repro_torch.kernels.ops import resident
+from repro_torch.kernels.schedule import KernelSchedule
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import decode_attention
+from repro_torch.models.init import ParamSpec, ParamSpecs
+from repro_torch.models.layers import ACTIVATIONS, apply_rope, embed, norm
+from repro_torch.models.mlp import glu_activation, mlp
+
+Device = Union[str, torch.device]
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                cache_dtype: str = "bfloat16") -> ParamSpecs:
+    """The dense decoder's KV cache: ``cache/k`` and ``cache/v``, each
+    [L, batch, max_len, kv_heads, head_dim]."""
+    tf.require_dense(cfg, "cache_specs")
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"cache/k": ParamSpec(shape, "zeros", cache_dtype),
+            "cache/v": ParamSpec(shape, "zeros", cache_dtype)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               cache_dtype: str = "bfloat16",
+               device: Device = "cuda") -> Dict[str, torch.Tensor]:
+    """An all-zeros cache of :func:`cache_specs` on ``device``."""
+    return {k: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
+                           device=device)
+            for k, s in cache_specs(cfg, batch, max_len, cache_dtype).items()}
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+
+def _weak_scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` with the Python float first rounded to x's dtype, as jnp
+    treats a weakly typed scalar (rounded on the host: no device copy)."""
+    return x * float(torch.tensor(c, dtype=x.dtype))
+
+
+def _update_cache(cache_l: torch.Tensor, new: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """cache_l: [b, S, hk, hd]; new: [b, 1, hk, hd]; pos: [b].  A masked
+    write (``repro``'s one-hot select); the cache is not updated in
+    place."""
+    S = cache_l.shape[1]
+    sel = torch.arange(S, device=cache_l.device)[None, :] == pos[:, None]
+    return torch.where(sel[..., None, None], new.to(cache_l.dtype), cache_l)
+
+
+def _qkv(cfg: ModelConfig, x, p, pre, pos, rope=True):
+    q = torch.einsum("bsd,dhk->bshk", x, p[f"{pre}/wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p[f"{pre}/wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p[f"{pre}/wv"].to(x.dtype))
+    if rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_decode(cfg: ModelConfig, x, p, pre, ck, cv, pos, window=0,
+                 rope=True):
+    """x: [b,1,d] pre-normed.  Returns (out [b,1,d], new_ck, new_cv)."""
+    q, k, v = _qkv(cfg, x, p, pre, pos, rope)
+    ck = _update_cache(ck, k, pos)
+    cv = _update_cache(cv, v, pos)
+    o = decode_attention(q, ck.to(x.dtype), cv.to(x.dtype), pos + 1,
+                         window=window)
+    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
+                       p[f"{pre}/wo"].to(x.dtype))
+    return out, ck, cv
+
+
+# ---------------------------------------------------------------------------
+# Schedule-driven decode: fused, weight-resident dense-decoder step
+# ---------------------------------------------------------------------------
+
+
+def pack_decode_params(cfg: ModelConfig, params: Dict) -> Dict:
+    """The weight-resident decode layout, packed ONCE per (params tensors
+    and versions, compute dtype) through the kernels' residency cache.  The
+    layout does not depend on the schedule: every scheduled key shares one
+    pack.
+
+    Per decoder layer: q|k|v gate-fused into ``__wqkv`` [d, (hq+2*hk)*hd],
+    the MLP gate|up projections into ``__wgu`` (``__wup`` without a GLU),
+    the output / down projections as 2D ``__wo`` / ``__wdown`` (views of
+    the stacked params where no cast is needed), everything in the compute
+    dtype, and the layer's norm params sliced out of their stacked [L, ...]
+    arrays.  A full-width pack is larger than the residency cache's byte
+    bound and is evicted as soon as it is stored: callers keep their own
+    reference (``LMServingEngine`` holds one for all its keys)."""
+    stacked = tf.slice_layer(params, "decoder/")
+    srcs = tuple(stacked[k] for k in sorted(stacked))
+    cdt = getattr(torch, cfg.compute_dtype)
+    glu = cfg.mlp_type in ("swiglu", "geglu")
+    d = cfg.d_model
+
+    def flat(t: torch.Tensor, rows: int) -> torch.Tensor:
+        return t.reshape(rows, -1).to(cdt).contiguous()
+
+    def pack() -> Dict:
+        layers: List[Dict] = []
+        for l in range(cfg.n_layers):
+            p_l = {k: v[l] for k, v in stacked.items()}
+            entry = {k: v for k, v in p_l.items()
+                     if "/attn/w" not in k and "/mlp/w" not in k}
+            entry["__wqkv"] = torch.cat(
+                [flat(p_l[f"decoder/attn/{n}"], d)
+                 for n in ("wq", "wk", "wv")], dim=-1)
+            entry["__wo"] = flat(p_l["decoder/attn/wo"],
+                                 cfg.n_heads * cfg.head_dim)
+            if glu:
+                entry["__wgu"] = torch.cat(
+                    [flat(p_l["decoder/mlp/w_gate"], d),
+                     flat(p_l["decoder/mlp/w_up"], d)], dim=-1)
+            else:
+                entry["__wup"] = flat(p_l["decoder/mlp/w_up"], d)
+            entry["__wdown"] = flat(p_l["decoder/mlp/w_down"], cfg.d_ff)
+            layers.append(entry)
+        return {"layers": layers}
+
+    return resident(srcs, f"lm-decode/{cfg.compute_dtype}", pack)
+
+
+def _dense_steps(cfg: ModelConfig, params: Dict, packed: Dict, cache: Dict,
+                 x: torch.Tensor, pos: torch.Tensor,
+                 schedule: Optional[KernelSchedule]
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One fused dense-decoder step under ``schedule`` (x: [B, 1, d]): the
+    einsum branch's math with every projection on ``decode_matmul`` over
+    the resident packed weights."""
+    B = x.shape[0]
+    d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    glu = cfg.mlp_type in ("swiglu", "geglu")
+
+    def mm(a, w):
+        return decode_matmul(a, w, schedule=schedule)
+
+    ck_all, cv_all = cache["cache/k"], cache["cache/v"]
+    cks, cvs = [], []
+    h = x
+    for l, p_l in enumerate(packed["layers"]):
+        hn = norm(cfg, h, p_l, "decoder/norm1")
+        z = mm(hn.reshape(B, d), p_l["__wqkv"])
+        q = z[:, :hq * hd].reshape(B, 1, hq, hd)
+        k = z[:, hq * hd:(hq + hk) * hd].reshape(B, 1, hk, hd)
+        v = z[:, (hq + hk) * hd:].reshape(B, 1, hk, hd)
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        ck = _update_cache(ck_all[l], k, pos)
+        cv = _update_cache(cv_all[l], v, pos)
+        o = decode_attention(q, ck.to(h.dtype), cv.to(h.dtype), pos + 1,
+                             window=cfg.attn_window)
+        h = h + mm(o.to(h.dtype).reshape(B, hq * hd),
+                   p_l["__wo"]).reshape(B, 1, d)
+        h2 = norm(cfg, h, p_l, "decoder/norm2")
+        if glu:
+            zgu = mm(h2.reshape(B, d), p_l["__wgu"])
+            f = zgu.shape[-1] // 2
+            mid = glu_activation(cfg)(zgu[:, :f]) * zgu[:, f:]
+        else:
+            act = ACTIVATIONS["relu2" if cfg.mlp_type == "relu2" else "gelu"]
+            mid = act(mm(h2.reshape(B, d), p_l["__wup"]))
+        h = h + mm(mid, p_l["__wdown"]).reshape(B, 1, d)
+        cks.append(ck)
+        cvs.append(cv)
+    new_cache = dict(cache)
+    new_cache["cache/k"] = torch.stack(cks)
+    new_cache["cache/v"] = torch.stack(cvs)
+    h = norm(cfg, h, params, "final_norm")
+    return tf.logits_fn(cfg, params, h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor, pos: torch.Tensor, *,
+                schedule: Optional[KernelSchedule] = None,
+                packed: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens: [b, 1] int; pos: [b] current positions.  Returns
+    (logits [b, 1, V], new cache).
+
+    ``schedule`` routes the projections through the weight-resident decode
+    kernel (module docstring); ``packed`` is the layout of
+    :func:`pack_decode_params` (derived, and cached, from ``params`` when
+    omitted).  ``schedule=None`` is the einsum path."""
+    tf.require_dense(cfg, "decode_step")
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = _weak_scale(embed(tokens, params["embed/table"], cdt),
+                    math.sqrt(cfg.d_model))
+    if schedule is not None:
+        if packed is None:
+            packed = pack_decode_params(cfg, params)
+        return _dense_steps(cfg, params, packed, cache, x, pos, schedule)
+
+    stacked = tf.slice_layer(params, "decoder/")
+    cks, cvs = [], []
+    for l in range(cfg.n_layers):
+        p_l = {k: v[l] for k, v in stacked.items()}
+        hn = norm(cfg, x, p_l, "decoder/norm1")
+        out, ck, cv = _attn_decode(cfg, hn, p_l, "decoder/attn",
+                                   cache["cache/k"][l], cache["cache/v"][l],
+                                   pos, window=cfg.attn_window)
+        cks.append(ck)
+        cvs.append(cv)
+        x = x + out
+        h2 = norm(cfg, x, p_l, "decoder/norm2")
+        x = x + mlp(cfg, h2, p_l, "decoder/mlp")
+    new_cache = dict(cache)
+    new_cache["cache/k"] = torch.stack(cks)
+    new_cache["cache/v"] = torch.stack(cvs)
+    x = norm(cfg, x, params, "final_norm")
+    return tf.logits_fn(cfg, params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Parameters from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def lm_params_from_jax(params: Mapping[str, object],
+                       device: Device = "cuda") -> Dict[str, torch.Tensor]:
+    """``repro``'s flat LM parameters (numpy or JAX arrays, layout of
+    ``transformer.param_specs``) as tensors on ``device``, each in its own
+    dtype.  bfloat16 (``ml_dtypes``, which ``torch.from_numpy`` rejects)
+    crosses through float32, which holds every bfloat16 value exactly."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        out[k] = t.to(device)
+    if "embed/table" not in out or not any(k.startswith("decoder/")
+                                           for k in out):
+        raise KeyError(f"not dense LM parameters: {sorted(out)}")
+    return out

@@ -1,0 +1,44 @@
+"""Unified model facade: one object per architecture with its parameter
+specs and seeded initialisation, dispatched by config family.
+
+The port of ``repro/models/model.py`` for the families the port runs: the
+taggers (``rnn``) and the dense decoder.  Any other family raises
+``NotImplementedError`` naming ``ROADMAP.md`` module item 10; nothing else
+runs in its place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import rnn_tagger, transformer
+from repro_torch.models.init import ParamSpecs, init_params
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def param_specs(self) -> ParamSpecs:
+        if self.cfg.family == "rnn":
+            return rnn_tagger.param_specs(self.cfg)
+        return transformer.param_specs(self.cfg)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: Union[str, torch.device] = "cuda") -> Dict:
+        """Seeded parameters on ``device``, drawn from ``generator`` (seed 0
+        on ``device`` when none is given: a full-width LM is drawn on the
+        card, not copied there)."""
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        return init_params(self.param_specs(), generator, device)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family != "rnn":
+        transformer.require_dense(cfg, "build_model")
+    return Model(cfg)

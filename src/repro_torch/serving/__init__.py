@@ -9,3 +9,4 @@ from repro_torch.serving.engine import (  # noqa: F401
     EngineClosedError,
     RNNServingEngine,
 )
+from repro_torch.serving.lm_engine import LMServingEngine  # noqa: F401

@@ -24,8 +24,8 @@ runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
 float32 weights there from construction on.
 
 Not in this slice of the port: design targets and auto-scheduling, HLS
-pricing (the ``analytical`` column of ``serve_report``), the persistent
-compile cache and weight residency (ROADMAP.md, modules to port).
+pricing (the ``analytical`` column of ``serve_report``) and the persistent
+compile cache (ROADMAP.md, modules to port).
 """
 
 from __future__ import annotations

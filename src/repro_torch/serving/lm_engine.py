@@ -1,0 +1,292 @@
+"""LM serving engine: token-by-token decode with slot-based continuous
+batching, keyed by schedule like the RNN engine.
+
+The port of ``repro/serving/lm_engine.py`` for the dense decoder.  The
+decode step is the paper's static-mode schedule at LM scale (state
+resident, one token per step); the slot manager does continuous batching:
+a finished sequence frees its slot and a new request joins mid-flight.
+Prompts are fed token by token through the same decode step (teacher
+forcing), then tokens are sampled greedily.
+
+Requests may carry a ``KernelSchedule``; they are routed by the stable
+``schedule_key`` into per-key decoders.  Each key owns its slot pool, its
+KV cache, ONE executor of the decode step (built once, counted by
+``trace_count``) and its counters.  Requests of different keys never share
+a decode batch; requests with no schedule ride ``DEFAULT_SCHEDULE_KEY``,
+the einsum path.  A scheduled key runs every projection on the
+``decode_matmul`` kernel (4 launches per layer and tick) over the packed
+weight layout, which the engine derives once and holds for all its
+scheduled keys (the layout does not depend on the schedule, and a
+full-width pack is larger than the residency cache keeps).
+
+The engine runs on ``device`` ("cuda" unless the caller asks for "cpu")
+and raises without a CUDA device.  Greedy sampling takes the FIRST maximum
+of each row's logits on the host (``np.argmax``), as ``jnp.argmax`` does.
+``serve_report`` gives per key the measured columns: request latency,
+decoded tokens over decode wall-clock (tokens/s) and the tick latency.
+The first tick of a key builds and loads its kernels and is left out of
+tokens/s and tick latency, as ``repro`` leaves out the tick that traced.
+
+Not in this slice (``ROADMAP.md``): speculative decode (``SpecConfig``,
+``decode_steps`` / ``kv_trim``), the persistent compile cache and
+``prewarm``, the ``analytical`` column (``estimate_lm_decode``), and every
+family but the dense decoder.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
+                                          KernelSchedule, schedule_key)
+from repro_torch.models.decode import (decode_step, init_cache,
+                                       pack_decode_params)
+from repro_torch.models.transformer import require_dense
+from repro_torch.serving.batcher import KeyStats, _now
+from repro_torch.serving.engine import EngineClosedError
+
+
+@dataclass
+class Slot:
+    active: bool = False
+    req_id: int = -1
+    pos: int = 0
+    tokens: List[int] = field(default_factory=list)
+    max_new: int = 16
+    arrival_s: float = 0.0
+    prompt_len: int = 0
+
+
+class _KeyedDecoder:
+    """One schedule key's continuous-batching state: slot pool, KV cache,
+    the key's single executor of the decode step, serving counters.  A
+    scheduled key runs over the engine's packed weight layout."""
+
+    def __init__(self, cfg: ModelConfig, key: str,
+                 schedule: Optional[KernelSchedule], *, max_batch: int,
+                 max_seq: int, cache_dtype: str, params: Dict,
+                 packed: Optional[Dict], device: torch.device):
+        self.key = key
+        self.schedule = schedule
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.device = device
+        self.slots = [Slot() for _ in range(max_batch)]
+        self.cache = init_cache(cfg, max_batch, max_seq, cache_dtype, device)
+        self.stats = KeyStats()          # request latency
+        self.tick_stats = KeyStats()     # steady-state tick latency
+        self.traces = 0                  # executors built (one per key)
+        self.ticks = 0
+        self.tokens = 0                  # decoded tokens (per-key tokens/s)
+        self.decode_s = 0.0              # wall-clock spent in decode steps
+        self.packed = packed
+        self._step = self._build(cfg, params)
+
+    def _build(self, cfg: ModelConfig, params: Dict) -> Callable:
+        self.traces += 1
+        schedule, packed = self.schedule, self.packed
+
+        def step(cache, tokens, pos):
+            with torch.inference_mode():
+                return decode_step(cfg, params, cache, tokens, pos,
+                                   schedule=schedule, packed=packed)
+        return step
+
+    @property
+    def any_active(self) -> bool:
+        return any(s.active for s in self.slots)
+
+    def free_slot(self) -> Optional[Slot]:
+        for s in self.slots:
+            if not s.active:
+                return s
+        return None
+
+
+class LMServingEngine:
+    def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor],
+                 *, max_batch: int = 4, max_seq: int = 256,
+                 cache_dtype: str = "float32",
+                 schedule: Optional[KernelSchedule] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        require_dense(cfg, "LMServingEngine")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LMServingEngine(device='cuda'): no CUDA device is "
+                "available; pass device='cpu' to serve on the CPU")
+        self.cfg = cfg
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.cache_dtype = cache_dtype
+        self.schedule = schedule            # default-request schedule
+        self._decoders: Dict[str, _KeyedDecoder] = {}
+        self._packed: Optional[Dict] = None  # shared by the scheduled keys
+        self._next_req = 0
+        self._closed = False
+        self._decoder_for(self.schedule)
+
+    # -- keyed decoders ------------------------------------------------------
+
+    def _decoder_for(self, schedule: Optional[KernelSchedule]
+                     ) -> _KeyedDecoder:
+        sched = schedule if schedule is not None else self.schedule
+        key = DEFAULT_SCHEDULE_KEY if sched is None else schedule_key(sched)
+        dec = self._decoders.get(key)
+        if dec is None:
+            if sched is not None and self._packed is None:
+                self._packed = pack_decode_params(self.cfg, self.params)
+            dec = self._decoders[key] = _KeyedDecoder(
+                self.cfg, key, sched, max_batch=self.max_batch,
+                max_seq=self.max_seq, cache_dtype=self.cache_dtype,
+                params=self.params,
+                packed=None if sched is None else self._packed,
+                device=self.device)
+        return dec
+
+    def keys(self) -> List[str]:
+        return list(self._decoders)
+
+    def trace_count(self, key: str) -> int:
+        dec = self._decoders.get(key)
+        return 0 if dec is None else dec.traces
+
+    @property
+    def slots(self) -> List[Slot]:
+        """The engine-default key's slot pool."""
+        return self._decoder_for(None).slots
+
+    # -- request management --------------------------------------------------
+
+    def add_request(self, prompt: List[int], max_new: int = 16,
+                    now: Optional[float] = None,
+                    schedule: Optional[KernelSchedule] = None
+                    ) -> Optional[int]:
+        """Claim a slot on the request's schedule-key decoder; None when that
+        key's pool is full (keys never borrow each other's slots)."""
+        if self._closed:
+            raise EngineClosedError("LMServingEngine")
+        dec = self._decoder_for(schedule)
+        s = dec.free_slot()
+        if s is None:
+            return None
+        s.active = True
+        s.req_id = self._next_req
+        self._next_req += 1
+        s.pos = 0
+        s.tokens = list(prompt)
+        s.max_new = max_new
+        s.arrival_s = _now() if now is None else now
+        s.prompt_len = len(prompt)
+        return s.req_id
+
+    # -- one engine tick: every active slot decodes one token ----------------
+
+    def _tick_decoder(self, dec: _KeyedDecoder,
+                      now: Optional[float]) -> Dict[int, List[int]]:
+        tokens = np.zeros((dec.max_batch, 1), np.int64)
+        pos = np.zeros((dec.max_batch,), np.int64)
+        n_active = 0
+        for i, s in enumerate(dec.slots):
+            if s.active:
+                tokens[i, 0] = s.tokens[s.pos]
+                pos[i] = s.pos
+                n_active += 1
+        t0 = time.perf_counter()
+        logits, dec.cache = dec._step(
+            dec.cache, torch.from_numpy(tokens).to(dec.device),
+            torch.from_numpy(pos).to(dec.device))
+        rows = logits[:, 0].float().cpu().numpy()   # waits for the step
+        dt = time.perf_counter() - t0
+        dec.ticks += 1
+        if dec.ticks > 1:               # steady state: kernels built
+            dec.decode_s += dt
+            dec.tokens += n_active
+            dec.tick_stats.record_one(dt)
+
+        finished: Dict[int, List[int]] = {}
+        for i, s in enumerate(dec.slots):
+            if not s.active:
+                continue
+            if s.pos + 1 < s.prompt_len:              # teacher-force
+                nxt = s.tokens[s.pos + 1]
+            else:                                     # greedy: first max
+                nxt = int(np.argmax(rows[i]))
+                s.tokens.append(nxt)
+            s.pos += 1
+            if (len(s.tokens) - s.prompt_len >= s.max_new
+                    or s.pos >= dec.max_seq - 1):
+                finished[s.req_id] = list(s.tokens)
+                s.active = False
+                t = _now() if now is None else now
+                dec.stats.record_one(t - s.arrival_s)
+        if finished:
+            dec.stats.batches += 1
+        return finished
+
+    def tick(self, now: Optional[float] = None) -> Dict[int, List[int]]:
+        """One decode step on every key with active slots; returns every
+        request finished this tick."""
+        finished: Dict[int, List[int]] = {}
+        for dec in self._decoders.values():
+            if dec.any_active:
+                finished.update(self._tick_decoder(dec, now))
+        return finished
+
+    def run_to_completion(self, max_ticks: int = 512,
+                          now: Optional[float] = None) -> Dict[int, List[int]]:
+        out: Dict[int, List[int]] = {}
+        for _ in range(max_ticks):
+            out.update(self.tick(now=now))
+            if not any(d.any_active for d in self._decoders.values()):
+                break
+        return out
+
+    def serve_report(self) -> Dict[str, Dict]:
+        """Measured serving stats per schedule key: request latency, decoded
+        tokens over decode wall-clock (tokens/s) and steady-state tick
+        latency (host clock around a step that ends in its logits on the
+        host)."""
+        report: Dict[str, Dict] = {}
+        for key, dec in self._decoders.items():
+            measured = dec.stats.summary()
+            ticks = dec.tick_stats.summary()
+            measured.update({
+                "tokens": float(dec.tokens),
+                "decode_s": dec.decode_s,
+                "tokens_per_s": (dec.tokens / dec.decode_s
+                                 if dec.decode_s > 0 else 0.0),
+                "ticks": float(dec.ticks),
+                "tick_latency_p50_s": ticks["latency_p50_s"],
+                "tick_latency_p99_s": ticks["latency_p99_s"]})
+            report[key] = {"schedule": dec.schedule, "fp": None,
+                           "traces": dec.traces, "measured": measured}
+        return report
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def drain(self, max_ticks: int = 512,
+              now: Optional[float] = None) -> Dict[int, List[int]]:
+        """Decode every active slot on every key to completion; the engine
+        stays open."""
+        return self.run_to_completion(max_ticks=max_ticks, now=now)
+
+    def close(self, max_ticks: int = 512,
+              now: Optional[float] = None) -> Dict[int, List[int]]:
+        """Drain, then refuse new requests (idempotent)."""
+        if self._closed:
+            return {}
+        finished = self.drain(max_ticks=max_ticks, now=now)
+        self._closed = True
+        return finished
