@@ -7,7 +7,7 @@ In order, it
   1. prints the card's name and power limit and builds every CUDA kernel
      from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel;
      timed);
-  2. holds each of the eleven kernels against its plain PyTorch version
+  2. holds each of the thirteen kernels against its plain PyTorch version
      on the card, at the main path's shapes of all six taggers (B = 256,
      R in {1, 4}, float32 and bfloat16): the static, hoisted and pipeline
      scans; ``col_matmul`` at each step's x-side and h-side product and at
@@ -18,7 +18,13 @@ In order, it
      steps, float32 and bfloat16, for seven ap_fixed configs;
      ``decode_matmul`` at gemma-2b's four per-token products (bf16, M = 4,
      and q|k|v at M = 3) and at the taggers' decode-step products (f32,
-     M = 1 and 256), R = 4 bit for bit equal to R = 1;
+     M = 1 and 256), R = 4 bit for bit equal to R = 1; ``rglru_scan`` (bit
+     for bit, R = 2 and 4 equal to R = 1) at (4, 12, 20), the ragged
+     (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
+     {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
+     bit, and equal to ``torch.mul``) at (1500, 200) and (16384, 4096),
+     float32 and bfloat16, and at (1500, 200) with operands off 16-byte
+     alignment (the scalar path);
   3. drives the port's main paths, each with the launch counts set to 0
      just before it and read just after, and checks every answer against
      the same model on ``backend="xla"``:
@@ -50,6 +56,13 @@ In order, it
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
                 equal to the emulation, ``ap_fixed<16,6>`` vs xla;
+       rglru    ``SCHEDULED_KERNELS["rglru"]`` at recurrentgemma-9b's width
+                (a, bx [8, 2048, 4096] f32): static R = 1 and R = 4 (one
+                ``rglru_scan`` launch each), non-static and pipeline (no
+                launch), all bit for bit equal to ``backend="xla"``; native
+                ``ap_fixed<8,3>`` equal in value to the emulation; then
+                ``ops.hadamard`` at (16384, 4096) bf16 (one ``hadamard``
+                launch, bit for bit equal to ``torch.mul``);
      and checks that every kernel of each path was launched;
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace) beside its
@@ -57,11 +70,14 @@ In order, it
      (cuDNN's ``LSTM`` / ``GRU`` for the scans, ``torch.matmul`` for the
      products, ``torch._int_mm`` for ``quant_matmul`` where it takes the
      shape and an f32 ``torch.matmul`` of the same integers elsewhere,
-     ``fake_quantize_per_tensor_affine`` for ``fixed_point``) and
-     its bound on the card (``decode_matmul`` at gemma-2b's products also
-     with the L2 flushed before each call, as a tick finds it), whole
+     ``fake_quantize_per_tensor_affine`` for ``fixed_point``,
+     ``torch.mul`` for ``hadamard``; none for ``rglru_scan``: no single
+     PyTorch call computes a linear recurrence) and its bound on the card
+     (``decode_matmul`` at gemma-2b's products, ``rglru_scan`` and
+     ``hadamard`` also with the L2 flushed before each call), whole
      QuickDraw LSTM scans end to end per mode (the native int8 scan too)
-     with their launch counts and the device's idle share, and the
+     with their launch counts and the device's idle share, whole RG-LRU
+     scans at the full width per schedule, and the
      engine's tick latency and tokens/s per key with a trace of one tick;
   5. ends with the JSON result line.
 
@@ -123,6 +139,16 @@ FP_NATIVE = {"int8": FP_GRID[1], "int4": FP_GRID[2]}
 FP_EMULATED = FP_GRID[0]
 #: fixed_point's shapes: QuickDraw LSTM's gate block, one step and all T
 FXP_SHAPES = ((BATCH, 512), (BATCH * 100, 512))
+RGLRU_SRC = "src/repro_torch/csrc/rglru_scan.cu"
+HADAMARD_SRC = "src/repro_torch/csrc/hadamard.cu"
+#: the RG-LRU path at recurrentgemma-9b's width (src/repro/configs/
+#: recurrentgemma_9b.py: lru_width 4096, local-attention window 2048) for 8
+#: sequences: a, bx [RG_B, RG_T, RG_W]
+RG_B, RG_T, RG_W = 8, 2048, 4096
+#: rglru_scan's checked shapes (B, T, W): small, a ragged width, full width
+RGLRU_SHAPES = ((4, 12, 20), (9, 12, 200), (RG_B, RG_T, RG_W))
+#: hadamard's shapes: a ragged row count, and the RG-LRU path's (B*T, W)
+HADAMARD_SHAPES = ((1500, 200), (RG_B * RG_T, RG_W))
 #: kernel -> (TPU kernel it replaces, source of the CUDA kernel)
 KERNELS = {
     "lstm_scan": ("src/repro/kernels/lstm_scan.py:120", SCAN_SRC),
@@ -136,6 +162,8 @@ KERNELS = {
     "quant_matmul": ("src/repro/kernels/quantized.py:114", QUANT_SRC),
     "fixed_point": ("src/repro/kernels/fixed_point.py:26", QUANT_SRC),
     "decode_matmul": ("src/repro/kernels/decode_step.py:69", DECODE_SRC),
+    "rglru_scan": ("src/repro/kernels/rglru_scan.py:47", RGLRU_SRC),
+    "hadamard": ("src/repro/kernels/hadamard.py:17", HADAMARD_SRC),
 }
 
 
@@ -438,6 +466,75 @@ def decode_calls(device, timing=False):
                 head and reuse == 1)
 
 
+def rglru_inputs(B, T, W, dtype, gen, device, bx_dtype=None):
+    """Seeded RG-LRU inputs drawn on the card, as ``repro.testing``'s: the
+    decay a = exp(-|n|) in (0, 1], the gated input bx ~ N(0, 1)."""
+    import torch
+
+    a = torch.exp(-torch.randn(B, T, W, generator=gen, device=device).abs())
+    bx = torch.randn(B, T, W, generator=gen, device=device)
+    return a.to(dtype), bx.to(bx_dtype or dtype)
+
+
+def elementwise_calls(device, timing=False):
+    """(shape, R, call) for ``rglru_scan`` at ``RGLRU_SHAPES`` and R in {1, 2,
+    4} (tiles as ``ops.rglru_scan`` picks them for a static schedule; in
+    checks also both mixes of bf16 and f32 at the ragged shape) and
+    ``hadamard`` at ``HADAMARD_SHAPES``; f32 and bf16.  No single PyTorch
+    call computes a linear recurrence, so ``rglru_scan`` has no library
+    call; ``hadamard``'s is ``torch.mul``."""
+    import torch
+
+    from repro_torch.kernels import hadamard as hd
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels.ops import rglru_tiles
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    gen = torch.Generator(device=device).manual_seed(900 if timing else 800)
+    pairs = [(dt, dt) for dt in (torch.float32, torch.bfloat16)]
+    if not timing:
+        pairs += [(torch.bfloat16, torch.float32),
+                  (torch.float32, torch.bfloat16)]
+    for B, T, W in RGLRU_SHAPES:
+        for dt, bdt in pairs:
+            if bdt != dt and (B, T, W) != RGLRU_SHAPES[1]:
+                continue
+            a, bx = rglru_inputs(B, T, W, dt, gen, device, bdt)
+            mix = "" if bdt == dt else f"/{str(bdt)[6:]}"
+            for reuse in (1, 2, 4):
+                bb, bw, serial = rglru_tiles(
+                    KernelSchedule(reuse_factor=reuse), B, W)
+                kw = {"block_batch": bb, "block_width": bw,
+                      "serial_width": serial}
+                yield (B, T, W), reuse, call(
+                    "rglru_scan", f"({B},{T},{W}) {str(dt)[6:]}{mix} "
+                    f"bw={bw} R={reuse}",
+                    lambda a=a, bx=bx, kw=kw: rg.rglru_scan_kernel(a, bx,
+                                                                   **kw),
+                    lambda a=a, bx=bx: rg.rglru_scan_plain(a, bx),
+                    (a, bx), 2.0 * B * T * W, None,
+                    W == RG_W and reuse == 1 and dt == torch.float32)
+    for shape in HADAMARD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, generator=gen, device=device).to(dt)
+            y = torch.randn(*shape, generator=gen, device=device).to(dt)
+            yield shape, 1, call(
+                "hadamard", f"{shape} {str(dt)[6:]}",
+                lambda x=x, y=y: hd.hadamard_kernel(x, y),
+                lambda x=x, y=y: hd.hadamard_plain(x, y),
+                (x, y), float(x.numel()), lambda x=x, y=y: torch.mul(x, y),
+                shape == HADAMARD_SHAPES[-1] and dt == torch.float32)
+    if not timing:
+        # operands 4 bytes off 16-byte alignment take the scalar path
+        rows, cols = HADAMARD_SHAPES[0]
+        base = torch.randn(2, rows * cols + 1, generator=gen, device=device)
+        x, y = (v[1:].view(rows, cols) for v in base)
+        yield (rows, cols), 1, call(
+            "hadamard", f"({rows}, {cols}) float32 unaligned",
+            lambda: hd.hadamard_kernel(x, y), lambda: hd.hadamard_plain(x, y),
+            (x, y), float(x.numel()), lambda: torch.mul(x, y))
+
+
 def same_bits(got, want) -> bool:
     """Equal bit for bit (int32 products; float32 / bfloat16 as raw bits,
     so the sign of a zero counts)."""
@@ -512,7 +609,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 #: device kernel name fragment -> what launched it, for the trace readings
-KERNEL_GROUPS = (("decode_matmul_kernel", "decode_matmul"),
+KERNEL_GROUPS = (("rglru_scan_kernel", "rglru_scan"),
+                 ("hadamard_kernel", "hadamard"),
+                 ("decode_matmul_kernel", "decode_matmul"),
                  ("col_matmul_kernel", "col_matmul"),
                  ("reuse_matmul_kernel", "reuse_matmul"),
                  ("quant_matmul_kernel", "quant_matmul"),
@@ -624,8 +723,39 @@ def phase_kernels(device) -> dict:
               f"decode_matmul {c['shape']}: err {err}")
         check(same, f"decode_matmul {c['shape']}: R={reuse} differs from R=1")
         errs["decode_matmul"] = max(errs.get("decode_matmul", 0.0), err)
+    check_elementwise(device, errs)
     check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
+
+
+def check_elementwise(device, errs: dict) -> None:
+    """``rglru_scan`` and ``hadamard`` bit for bit against their plain
+    versions, R = 2 and 4 against R = 1, ``hadamard`` against
+    ``torch.mul``; the largest error per kernel goes into ``errs``."""
+    import torch
+
+    first_tile: dict = {}
+    for shape, reuse, c in elementwise_calls(device):
+        with torch.inference_mode():
+            got = c["kern"]()
+            torch.cuda.synchronize()
+            want = c["plain"]()
+            lib = c["library"]() if c["library"] else None
+        same = same_bits(got, want)
+        err = max_err(got, want)[0] if got.shape == want.shape else np.inf
+        # the tiles change no value: R = 2 and 4 give R = 1's bits
+        key = c["shape"].split(" bw=")[0]
+        same_r1 = same_bits(got, first_tile.setdefault(key, got))
+        same_lib = lib is None or same_bits(got, lib)
+        print(f"check {c['name']:18s} {c['shape']:44s}: max_abs_err "
+              f"{err:.3e}, bit for bit {same} (tol 0); equal to R=1: "
+              f"{same_r1}; to torch.mul: "
+              f"{'n/a' if lib is None else same_lib}")
+        check(same, f"{c['name']} {c['shape']}: differs from its plain "
+              f"version (err {err})")
+        check(same_r1, f"{c['name']} {c['shape']}: differs from R=1")
+        check(same_lib, f"{c['name']} {c['shape']}: differs from torch.mul")
+        errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
 
 
 def drive(path: str, run, kernels) -> tuple:
@@ -1070,6 +1200,74 @@ def phase_rnn_decode(device) -> dict:
     return launches
 
 
+def phase_rglru(device) -> dict:
+    """The scheduled RG-LRU entry point ``SCHEDULED_KERNELS["rglru"]`` at
+    recurrentgemma-9b's width (a, bx [8, 2048, 4096] f32 on the card) and
+    ``ops.hadamard`` at (8 * 2048, 4096) bf16, each driven with the counts
+    set to 0: static R = 1 and R = 4 launch ``rglru_scan`` once each and
+    give the reference's bits (R = 4 equal to R = 1); non-static and
+    pipeline launch no kernel and give the same bits; the native
+    ``ap_fixed<8,3>`` route (torch integer ops) equals the emulation in
+    value; ``ops.hadamard`` launches ``hadamard`` once and equals
+    ``torch.mul`` bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    scan, golden = ops.SCHEDULED_KERNELS["rglru"]
+    gen = torch.Generator(device=device).manual_seed(1000)
+    a, bx = rglru_inputs(RG_B, RG_T, RG_W, torch.float32, gen, device)
+    scheds = {"static_r1": KernelSchedule(),
+              "static_r4": KernelSchedule(reuse_factor=4),
+              "nonstatic": KernelSchedule(mode="nonstatic"),
+              "pipeline": KernelSchedule(mode="pipeline", reuse_factor=4)}
+    fp = fixed_point_config(FP_NATIVE["int8"])
+    with torch.inference_mode():
+        want = golden(a, bx)
+        emulated = scan(a, bx, schedule=KernelSchedule(backend="xla"), fp=fp)
+    launches, got = {}, {}
+    for what, sched in scheds.items():
+        with torch.inference_mode():
+            launches[f"rglru_{what}"], got[what] = drive(
+                f"rglru_{what}", lambda s=sched: scan(a, bx, schedule=s),
+                ("rglru_scan",) if what.startswith("static") else ())
+        n = launches[f"rglru_{what}"]
+        expect = {"rglru_scan": 1} if what.startswith("static") else {}
+        check({k: v for k, v in n.items() if v} == expect,
+              f"rglru {what}: launches {n}, expected {expect}")
+        check(same_bits(got[what], want),
+              f"rglru {what}: differs from backend xla by "
+              f"{max_err(got[what], want)[0]}")
+    with torch.inference_mode():
+        launches["rglru_fixed_point"], native = drive(
+            "rglru_fixed_point", lambda: scan(a, bx, schedule=KernelSchedule(),
+                                              fp=fp), ())
+    check(sum(launches["rglru_fixed_point"].values()) == 0,
+          "the native RG-LRU route launched a kernel")
+    check(native.dtype == emulated.dtype and torch.equal(native, emulated),
+          f"rglru ap8_3: native differs from the emulation by "
+          f"{max_err(native, emulated)[0]}")
+    neg = int((torch.signbit(emulated) & (emulated == 0)).sum())
+    print(f"served SCHEDULED_KERNELS['rglru'] ({RG_B},{RG_T},{RG_W}) f32: "
+          f"static R=1 / R=4, nonstatic, pipeline bit for bit equal to "
+          f"backend xla; ap8_3 native equal in value to the emulation "
+          f"({neg} of its zeros are -0.0)")
+
+    x = torch.randn(RG_B * RG_T, RG_W, generator=gen, device=device).bfloat16()
+    y = torch.randn(RG_B * RG_T, RG_W, generator=gen, device=device).bfloat16()
+    with torch.inference_mode():
+        launches["hadamard"], out = drive(
+            "hadamard", lambda: ops.hadamard(x, y), ("hadamard",))
+    check(launches["hadamard"]["hadamard"] == 1,
+          f"ops.hadamard: {launches['hadamard']['hadamard']} launches")
+    check(same_bits(out, torch.mul(x, y)), "ops.hadamard differs from "
+          "torch.mul")
+    print(f"served ops.hadamard {tuple(x.shape)} bf16: bit for bit equal to "
+          f"torch.mul")
+    return launches
+
+
 def phase_timing(device) -> tuple:
     """Kernel, plain and library times and the bound at B = 256, and whole
     scans end to end."""
@@ -1079,10 +1277,11 @@ def phase_timing(device) -> tuple:
 
     rows = []
     small_kernels = ("col_matmul", "reuse_matmul", "quant_matmul",
-                     "fixed_point", "decode_matmul")
+                     "fixed_point", "decode_matmul", "hadamard")
     calls_all = [*all_calls(torch.float32, device, timing=True),
                  *quant_calls(device, timing=True),
-                 *decode_calls(device, timing=True)]
+                 *decode_calls(device, timing=True),
+                 *elementwise_calls(device, timing=True)]
     for tag, reuse, c in calls_all:
         lib = c["library"]
         with torch.inference_mode():
@@ -1102,28 +1301,33 @@ def phase_timing(device) -> tuple:
         # events around back-to-back calls of a small kernel time the host's
         # launch rate; the trace reads the device's own time per call
         calls = 50 if small else 10
+        own = small or c["name"] == "rglru_scan"
         row["device_ms"] = per_call(
-            c["kern"], c["name"] if small else "scan kernels", calls)
+            c["kern"], c["name"] if own else "scan kernels", calls)
         row["library_device_ms"] = (per_call(lib, "other", calls) if lib
                                     else None)
-        if not small:
+        if not own:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
-        if tag.startswith(LM):
-            # a tick reads each weight once, with 4 GB between two reads:
-            # time each call after an L2 flush, as a tick finds it
-            row["cold_ms"] = time_cold_ms(c["kern"], 50)
-            row["library_cold_ms"] = time_cold_ms(lib, 50)
+        if str(tag).startswith(LM) or c["name"] in ("rglru_scan", "hadamard"):
+            # a tick reads each weight once, with 4 GB between two reads, and
+            # the RG-LRU path's operands are each 268 MB: time each call
+            # after an L2 flush, as the path finds it
+            row["cold_ms"] = time_cold_ms(c["kern"], 10 if own else 50)
+            row["library_cold_ms"] = (time_cold_ms(lib, 10 if own else 50)
+                                      if lib else None)
         rows.append(row)
         lib_txt = ("n/a" if lib is None else
                    f"{library_ms:.4f} ms (device "
                    f"{row['library_device_ms']:.4f}), err {lib_err:.1e}")
         cold = ("" if "cold_ms" not in row else
                 f"; L2 cold: kernel {row['cold_ms']:.4f} ms, library "
-                f"{row['library_cold_ms']:.4f} ms")
+                f"{'n/a' if lib is None else round(row['library_cold_ms'], 4)}"
+                f" ms")
         print(f"time {c['name']:18s} {c['shape']:44s}: kernel {ms:.4f} ms "
               f"(device {row['device_ms']:.4f}), plain {plain_ms:.4f} ms, "
               f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by}){cold}")
-    return rows, time_nonstatic_scans(device) + [time_quantized_scan(device)]
+    return rows, (time_nonstatic_scans(device) + [time_quantized_scan(device)]
+                  + time_rglru_modes(device))
 
 
 def time_cold_ms(fn, iters: int) -> float:
@@ -1232,6 +1436,45 @@ def time_quantized_scan(device) -> dict:
     return out
 
 
+def time_rglru_modes(device) -> list:
+    """One whole RG-LRU scan at the full width through ``ops.rglru_scan`` per
+    schedule (static R = 1 and 4 on the kernel, the non-static chain of
+    torch ops, the native ap_fixed<8,3> route), as
+    :func:`time_nonstatic_scans`."""
+    import torch
+
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    gen = torch.Generator(device=device).manual_seed(1100)
+    a, bx = rglru_inputs(RG_B, RG_T, RG_W, torch.float32, gen, device)
+    fp = fixed_point_config(FP_NATIVE["int8"])
+    runs = {"static": (KernelSchedule(), None),
+            "static_r4": (KernelSchedule(reuse_factor=4), None),
+            "nonstatic": (KernelSchedule(mode="nonstatic"), None),
+            "native_ap8_3": (KernelSchedule(), fp)}
+    out = []
+    for what, (sched, f) in runs.items():
+        fn = lambda s=sched, f=f: ops.rglru_scan(a, bx, schedule=s, fp=f)  # noqa
+        cuda.reset_launches()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        ms = time_ms(fn, 3, warmup=1)
+        trace = device_trace(fn)
+        out.append({"rglru": what, "schedule": sched.key(), "ms": ms,
+                    "launches": launches, "trace": {
+                        k: v for k, v in trace.items() if k != "kernels"},
+                    "trace_kernels": {k: v["launches"] for k, v in
+                                      trace.get("kernels", {}).items()}})
+        print(f"scan rglru ({RG_B},{RG_T},{RG_W}) f32 {what:13s}: {ms:.3f} ms "
+              f"device span, launches {launches}; trace of one call: "
+              f"{json.dumps(out[-1]['trace'])}, device kernels "
+              f"{out[-1]['trace_kernels']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1271,6 +1514,7 @@ def main() -> int:
     launches.update(phase_fixed_point(device))
     launches["lm_decode"], lm = phase_lm_decode(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
+    launches.update(phase_rglru(device))
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"

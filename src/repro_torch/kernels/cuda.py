@@ -62,6 +62,15 @@ SIGNATURES = {
         "decode_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
+    "rglru_scan": {
+        "rglru_scan": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                            _P]),
+        "kernel_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "hadamard": {
+        "hadamard": (_I, [_P, _P, _I, _P, ctypes.c_longlong, _P]),
+        "kernel_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
@@ -69,7 +78,7 @@ LAUNCHES: Dict[str, int] = {
     "lstm_scan": 0, "lstm_scan_hoisted": 0, "lstm_scan_pipeline": 0,
     "gru_scan": 0, "gru_scan_hoisted": 0, "gru_scan_pipeline": 0,
     "col_matmul": 0, "reuse_matmul": 0, "quant_matmul": 0, "fixed_point": 0,
-    "decode_matmul": 0}
+    "decode_matmul": 0, "rglru_scan": 0, "hadamard": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

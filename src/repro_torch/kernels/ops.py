@@ -1,5 +1,6 @@
-"""Public scheduled entry points: dispatch of the LSTM / GRU scans and the
-reuse-tiled matmul through one :class:`KernelSchedule`.
+"""Public scheduled entry points: dispatch of the LSTM / GRU scans, the
+RG-LRU recurrence and the reuse-tiled matmul through one
+:class:`KernelSchedule`, and the Hadamard product.
 
   backend "xla"     the golden reference (kernels/ref.py);
   any other backend the kernel path:
@@ -16,13 +17,23 @@ as one batched [B*T, fin] @ [fin, G*h] product in f32 (through
 ``col_matmul`` when ``hoist_reuse`` > 1) and only hU stays in the
 recurrence.
 
+``rglru_scan`` (a, bx [B, T, W] -> all states) is matmul-free and already
+in hoisted form (the caller's dense gates are the hoist stage), so
+``hoist_input`` is accepted and does nothing.  Static mode runs the
+``rglru_scan`` kernel in width tiles of ``min(block_width, ceil(W / R))``
+columns, independent at R = 1 and walked in order at R > 1; non-static and
+pipeline modes run the unrolled f32 chain, one step per timestep, with no
+kernel, as in ``repro``.  ``hadamard`` flattens any shape to [rows, last
+dim] and runs the ``hadamard`` kernel.
+
 ``fp`` selects a fixed-point datapath: an ``is_native_int`` config
 (signed, rnd, sat, <= 8 bits) on a kernel backend runs the native int8/int4
-scan of kernels/quantized.py, every gate product on ``quant_matmul``; any
-other config, and every config on ``backend="xla"``, runs the ap_fixed
-emulation (the quantized cells, f32 compute with ``quantize`` at every
-hls4ml point).  Quantized scans never hoist.  ``fixed_point`` runs the
-``fixed_point`` kernel.
+scan of kernels/quantized.py, every gate product on ``quant_matmul`` (the
+RG-LRU: the all-integer recurrence, torch int32 ops); any other config,
+and every config on ``backend="xla"``, runs the ap_fixed emulation (the
+quantized cells, f32 compute with ``quantize`` at every hls4ml point; the
+RG-LRU: ``h = q(q(a) h + q(bx))``).  Quantized scans never hoist.
+``fixed_point`` runs the ``fixed_point`` kernel.
 
 The kernel path dispatches on the tensor's device: a CUDA tensor launches
 the CUDA kernels (or raises), a CPU tensor runs their plain versions.
@@ -50,13 +61,16 @@ from repro_torch.kernels.fixed_point import fixed_point_kernel
 from repro_torch.kernels.gru_scan import (gru_scan_hoisted_kernel,
                                           gru_scan_kernel,
                                           gru_scan_pipeline_kernel)
+from repro_torch.kernels.hadamard import hadamard_kernel
 from repro_torch.kernels.lstm_scan import (lstm_scan_hoisted_kernel,
                                            lstm_scan_kernel,
                                            lstm_scan_pipeline_kernel)
 from repro_torch.kernels.quantized import (quantized_reuse_matmul,
+                                           quantized_rglru_scan,
                                            quantized_scan)
 from repro_torch.kernels.reuse_matmul import (col_matmul_kernel,
                                               reuse_matmul_kernel)
+from repro_torch.kernels.rglru_scan import rglru_scan_kernel
 from repro_torch.kernels.schedule import KernelSchedule
 
 
@@ -318,6 +332,17 @@ def gru_scan(xs, W, U, b, *, schedule: Optional[KernelSchedule] = None,
     return _kernel_scan("gru", xs, W, U, b, schedule)
 
 
+def hadamard(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b for a and b of one dtype (float32 or bfloat16) on the
+    ``hadamard`` kernel: any shape, flattened to [rows, last dim]; no row
+    padding (the kernel takes any row count)."""
+    shape = a.shape
+    rows = a.numel() // shape[-1]
+    a2 = a.reshape(rows, shape[-1]).contiguous()
+    b2 = b.reshape(rows, shape[-1]).contiguous()
+    return hadamard_kernel(a2, b2).reshape(shape)
+
+
 def fixed_point(x: torch.Tensor, fp: FixedPointConfig) -> torch.Tensor:
     """``x`` (any shape, f32 or bf16) quantized to the ap_fixed grid on the
     ``fixed_point`` kernel."""
@@ -354,9 +379,70 @@ def reuse_matmul(x, w, *, reuse: int = 1, block_m: int = 128,
     return reuse_matmul_kernel(x_p, w.contiguous(), reuse=reuse)[:M]
 
 
+def _rglru_emulated(a, bx, fp: FixedPointConfig) -> torch.Tensor:
+    """ap_fixed emulation of the RG-LRU recurrence: gates and state on the
+    grid, one requantization per step (h = q(q(a) h + q(bx))), f32 compute,
+    the states in a's dtype.  A state that rounds to zero from below is
+    -0.0 here and +0.0 on the native route: equal values, other bits, as in
+    ``repro``."""
+    B, T, W = a.shape
+    aq = quantize(a.float(), fp)
+    bq = quantize(bx.float(), fp)
+    h = torch.zeros(B, W, dtype=torch.float32, device=a.device)
+    hs = []
+    for t in range(T):
+        h = quantize(aq[:, t] * h + bq[:, t], fp)
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_scan(a, bx, *, schedule: Optional[KernelSchedule] = None,
+               block_batch: Optional[int] = None, block_width: int = 128,
+               fp: Optional[FixedPointConfig] = None) -> torch.Tensor:
+    """a, bx: [B, T, W] -> all recurrence states [B, T, W] in a's dtype.
+
+    The reuse factor R serializes the width tiles: static mode runs the
+    ``rglru_scan`` kernel in tiles of ``min(block_width, ceil(W / R))``
+    columns, walked in order by one block per batch tile at R > 1 (so W >=
+    512 gives 128-column tiles, all serial, at R = 2 and R = 4 alike).
+    ``hoist_input`` is a no-op (module docstring); non-static and pipeline
+    modes run the unrolled f32 chain, one step per timestep, and launch no
+    kernel.
+
+    ``fp``: an integral config on a kernel backend runs the all-integer
+    recurrence (kernels/quantized.py); any other config, and every config
+    on ``backend="xla"``, the f32 emulation.
+    """
+    schedule = _resolve(schedule, block_batch, default_bb=8)
+    if fp is not None:
+        if is_native_int(fp) and schedule.use_pallas:
+            return quantized_rglru_scan(a, bx, fp=fp, schedule=schedule)
+        return _rglru_emulated(a, bx, fp)
+    if not schedule.use_pallas or schedule.mode in ("nonstatic", "pipeline"):
+        # non-static / pipeline: one block per timestep, the unrolled f32
+        # chain of torch ops, which is the reference's own loop
+        return ref.rglru_scan_ref(a, bx)
+    B, _, W = a.shape
+    bb, bw, serial = rglru_tiles(schedule, B, W, block_width)
+    return rglru_scan_kernel(a.contiguous(), bx.contiguous(), block_batch=bb,
+                             block_width=bw, serial_width=serial)
+
+
+def rglru_tiles(schedule: KernelSchedule, B: int, W: int,
+                block_width: int = 128) -> Tuple[int, int, bool]:
+    """(batch tile, width tile, serial width) of the static RG-LRU kernel:
+    bb = min(block_batch, B), bw = min(block_width, ceil(W / R)), the
+    width tiles walked in order at R > 1."""
+    reuse = schedule.reuse_factor
+    bb = min(schedule.block_batch, max(1, B))
+    bw = min(block_width, -(-W // reuse))  # ceil: R sequential width tiles
+    return bb, bw, reuse > 1
+
+
 # kernel name -> (scheduled entry point, golden reference)
 SCHEDULED_KERNELS = {
     "lstm": (lstm_scan, ref.lstm_scan_ref),
     "gru": (gru_scan, ref.gru_scan_ref),
+    "rglru": (rglru_scan, ref.rglru_scan_ref),
     "reuse_matmul": (reuse_matmul, ref.reuse_matmul_ref),
 }

@@ -40,7 +40,7 @@ from typing import Iterable, Optional, Union
 import torch
 
 from repro_torch.config import FixedPointConfig
-from repro_torch.core.quant.fixed_point import (grid_constants,
+from repro_torch.core.quant.fixed_point import (from_ints, grid_constants,
                                                 is_native_int, native_bits,
                                                 quantize, to_ints)
 from repro_torch.core.rnn.cells import (gru_cell_quantized,
@@ -226,6 +226,36 @@ def quantized_decode_step(cell: str, x_t, state, W, U, b, *,
     step = lstm_cell_quantized if cell == "lstm" else gru_cell_quantized
     return step(x_t, state, Wq, Uq, b, fp,
                 matmul=lambda a, w: native_int_matmul(a, w, fp, schedule))
+
+
+def quantized_rglru_scan(a, bx, *, fp: FixedPointConfig,
+                         schedule: KernelSchedule) -> torch.Tensor:
+    """Native RG-LRU: a, bx [B, T, W] -> all states [B, T, W] in a's dtype.
+
+    The recurrence has no product of matrices, so it runs on int32 grid
+    indices with torch's integer ops, as the JAX package runs it on XLA's
+    (it has no Pallas kernel here): ``acc = a_i * h + (bx_i << F)`` lands on
+    the 2^2F grid, and ``h = clip(round(acc / 2^F), lo, hi)`` requantizes
+    it, round-half-even through an exact f32 round (|acc| <= 2^15, far
+    below 2^24).  Every step is exact, so the result equals the numpy
+    integer golden model bit for bit; a zero state comes out as +0.0
+    (``from_ints``).  The schedule changes nothing here."""
+    if not is_native_int(fp):
+        raise ValueError(f"quantized_rglru_scan: {fp} is not a native int "
+                         f"config")
+    B, T, W = a.shape
+    scale, lo, hi = grid_constants(fp)
+    F = fp.fractional_bits
+    ai = to_ints(a, fp).to(torch.int32)          # grid indices, scale 2^F
+    bi = to_ints(bx, fp).to(torch.int32)
+    h = torch.zeros(B, W, dtype=torch.int32, device=a.device)
+    hs = []
+    for t in range(T):
+        acc = ai[:, t] * h + (bi[:, t] << F)
+        h = torch.clamp(torch.round(acc.float() * (1.0 / scale)), lo,
+                        hi).to(torch.int32)
+        hs.append(h)
+    return from_ints(torch.stack(hs, dim=1), fp, a.dtype)
 
 
 def quantized_reuse_matmul(x, w, *, fp: FixedPointConfig,

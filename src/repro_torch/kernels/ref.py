@@ -52,6 +52,24 @@ def gru_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
     return hp.to(xs.dtype)
 
 
+def hadamard_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``a * b`` in the promoted type of the two."""
+    return a * b
+
+
+def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + bx_t over axis 1 -> all states [B, T, W] in a's
+    dtype; the state is float32 and starts at zero, and each step rounds
+    the product and then the sum (no fused multiply-add)."""
+    B, T, W = a.shape
+    h = torch.zeros(B, W, dtype=torch.float32, device=a.device)
+    hs = []
+    for t in range(T):
+        h = a[:, t].float() * h + bx[:, t].float()
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
+
+
 def reuse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated in float32, result in x's dtype."""
     return (x.float() @ w.float()).to(x.dtype)

@@ -273,7 +273,7 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
                                                         tmp_path):
     monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
     assert set(cuda.SIGNATURES) == {"rnn_scan", "reuse_matmul", "quantized",
-                                    "decode_matmul"}
+                                    "decode_matmul", "rglru_scan", "hadamard"}
     paths = {n: cuda.library_path(n) for n in cuda.SIGNATURES}
     for name, path in paths.items():
         assert path == cuda.library_path(name)
@@ -283,10 +283,10 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
         # every library reports its own errors, and every kernel it exports
         # has a launch counter
         assert "kernel_error_string" in cuda.SIGNATURES[name]
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 6
     kernels = {fn for sigs in cuda.SIGNATURES.values() for fn in sigs
                if fn not in ("kernel_error_string", "scan_rows_per_block")}
-    assert kernels == set(cuda.LAUNCHES) and len(kernels) == 11
+    assert kernels == set(cuda.LAUNCHES) and len(kernels) == 13
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     if Path("/usr/local/cuda/bin/nvcc").exists():
