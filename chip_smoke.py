@@ -10,8 +10,12 @@ In order, it
   2. holds each of the thirteen kernels against its plain PyTorch version
      on the card, at the main path's shapes of all six taggers (B = 256,
      R in {1, 4}, float32 and bfloat16): the static, hoisted and pipeline
-     scans; ``col_matmul`` at each step's x-side and h-side product and at
-     the hoist stage's [256*T, in] product (R = 2); ``reuse_matmul`` at
+     scans, the static in-loop scans (the thread-block-cluster kernels
+     ``lstm_scan`` / ``gru_scan``) also at predict_one's B = 8 and a
+     ragged B = 9, and checks that their C entry points refuse a bad
+     cluster layout (``cudaErrorInvalidValue``, no launch); ``col_matmul``
+     at each step's x-side and h-side product and at the hoist stage's
+     [256*T, in] product (R = 2); ``reuse_matmul`` at
      QuickDraw's h-side shape; ``quant_matmul`` (tolerance 0) at every
      native gate product, int8 and int4-range operands; ``fixed_point``
      (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
@@ -65,8 +69,9 @@ In order, it
                 launch, bit for bit equal to ``torch.mul``);
      and checks that every kernel of each path was launched;
   4. times each kernel (CUDA events around back-to-back calls, and the
-     device's own time per call from a ``torch.profiler`` trace) beside its
-     plain version, one PyTorch library call for the same function
+     device's own time per call from a ``torch.profiler`` trace; the
+     cluster scans at B = 256 and B = 8, with their cluster layout) beside
+     its plain version, one PyTorch library call for the same function
      (cuDNN's ``LSTM`` / ``GRU`` for the scans, ``torch.matmul`` for the
      products, ``torch._int_mm`` for ``quant_matmul`` where it takes the
      shape and an f32 ``torch.matmul`` of the same integers elsewhere,
@@ -84,6 +89,15 @@ In order, it
 Any failed check raises, so the script exits non-zero; it exits non-zero
 and prints no result when no CUDA device is available.  The full timing
 table is also written to ``build/chip_smoke.json``.
+
+    python3 chip_smoke.py --time-scans [--src DIR]
+
+only times the in-loop static scans at B = 8 and 256 beside cuDNN and the
+six engines' ``predict_one`` and flush latency, importing ``repro_torch``
+from ``DIR`` (default: this checkout's ``src``).  Run it for an unpacked
+parent commit and for this tree in turns (parent, change, change, parent)
+within one call to the card to compare the two; it prints a JSON line of
+its own and no result line.
 """
 
 from __future__ import annotations
@@ -104,6 +118,10 @@ sys.path.insert(0, str(ROOT / "src"))
 #: outputs round at 2^-8
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 BATCH = 256                      # the engine's max_batch: every flush's rows
+#: the in-loop scans' other batches: predict_one's 8 rows and a ragged 9
+SMALL_BATCHES = (8, 9)
+#: the in-loop static scans: the thread-block-cluster kernels
+CLUSTER_SCANS = ("lstm_scan", "gru_scan")
 REUSES = (1, 4)
 HOIST_REUSE = 2                  # the hoist stage's column tiles
 ONE_CALLS = 12                   # predict_one calls per tagger (first builds)
@@ -191,14 +209,14 @@ def max_err(got, want) -> tuple:
     return err, scale
 
 
-def scan_inputs(cell, T, fin, H, dtype, seed, device):
+def scan_inputs(cell, T, fin, H, dtype, seed, device, batch=BATCH):
     """Seeded inputs at a tagger's shapes: weights scaled like the taggers'
     initialisation (lecun kernel, unit-scale recurrent, small bias)."""
     import torch
 
     rng = np.random.RandomState(seed)
     g = 4 if cell == "lstm" else 3
-    xs = rng.randn(BATCH, T, fin)
+    xs = rng.randn(batch, T, fin)
     W = rng.randn(fin, g * H) / np.sqrt(fin)
     U = rng.randn(H, g * H) / np.sqrt(H)
     b = rng.randn(*((g * H,) if cell == "lstm" else (2, g * H))) * 0.1
@@ -312,6 +330,32 @@ def hoist_call(tag, xs, W) -> dict:
                 lambda: torch.matmul(x, W))
 
 
+def small_batch_calls(tag, r, dtype, seed, device, timing=False) -> list:
+    """The in-loop static scan (``lstm_scan`` / ``gru_scan``) called
+    directly at the trigger's batch (B = 8: ``predict_one``'s padded row
+    count) and a ragged B = 9 (timing: B = 8 only), R in ``REUSES``."""
+    from repro_torch.kernels import gru_scan as gs
+    from repro_torch.kernels import lstm_scan as ls
+
+    name = f"{r.cell}_scan"
+    mod = ls if r.cell == "lstm" else gs
+    kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
+    out = []
+    for B in SMALL_BATCHES[:1] if timing else SMALL_BATCHES:
+        xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                                  dtype, seed + B, device, batch=B)
+        g = 4 if r.cell == "lstm" else 3
+        flops = 2.0 * B * r.seq_len * (r.input_size + r.hidden) * g * r.hidden
+        args = (xs, W, U, b)
+        for reuse in REUSES:
+            out.append((reuse, call(
+                name, f"{tag} B={B} R={reuse}",
+                lambda R=reuse: kern(*args, reuse=R),
+                lambda R=reuse: plain(*args, reuse=R), args, flops,
+                library_call(name, args) if timing else None)))
+    return out
+
+
 def all_calls(dtype, device, timing=False):
     """(tagger, R, call) for every kernel call of phases 2 and 4."""
     from repro_torch.configs import get_config
@@ -325,6 +369,9 @@ def all_calls(dtype, device, timing=False):
             for c in (scan_calls(tag, r, xs, W, U, b, reuse, timing)
                       + matmul_calls(tag, r, xs, U, reuse, 300 + i)):
                 yield tag, reuse, c
+        for reuse, c in small_batch_calls(tag, r, dtype, 600 + 20 * i,
+                                          device, timing):
+            yield tag, reuse, c
         yield tag, HOIST_REUSE, hoist_call(tag, xs, W)
 
 
@@ -609,7 +656,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 #: device kernel name fragment -> what launched it, for the trace readings
-KERNEL_GROUPS = (("rglru_scan_kernel", "rglru_scan"),
+KERNEL_GROUPS = (("cluster_scan_kernel", "cluster scan kernels"),
+                 ("rglru_scan_kernel", "rglru_scan"),
                  ("hadamard_kernel", "hadamard"),
                  ("decode_matmul_kernel", "decode_matmul"),
                  ("col_matmul_kernel", "col_matmul"),
@@ -724,8 +772,56 @@ def phase_kernels(device) -> dict:
         check(same, f"decode_matmul {c['shape']}: R={reuse} differs from R=1")
         errs["decode_matmul"] = max(errs.get("decode_matmul", 0.0), err)
     check_elementwise(device, errs)
+    check_bad_layouts(device)
     check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
+
+
+#: cudaErrorInvalidValue: the C launcher's answer to a layout it refuses
+INVALID_VALUE = 1
+
+
+def check_bad_layouts(device) -> None:
+    """The C entry points ``lstm_scan`` / ``gru_scan`` refuse a layout that
+    breaks the kernel's rules with cudaErrorInvalidValue, and launch
+    nothing (called directly: no launch is counted)."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import scan_layout as sl
+
+    lib = cuda.library("rnn_scan")
+    B, T, fin, H = 9, 5, 6, 20
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for cell in ("lstm", "gru"):
+        xs, W, U, b = scan_inputs(cell, T, fin, H, torch.float32, 5, device,
+                                  batch=B)
+        out = torch.full((B, H), 7.0, device=device)
+        good = sl.card_layout(B, H, fin, cell, 1, False, device.index)
+        bad = {
+            "cluster 3": good._replace(cluster=3),
+            "a CTA without units": good._replace(
+                cluster=8, smem_bytes=sl.smem_bytes(cell, H, fin, 8,
+                                                    good.k_split, good.rows)),
+            "rows 16": good._replace(rows=16),
+            "k_split 1": good._replace(k_split=1),
+            "k_split 4": good._replace(k_split=4),
+            "threads 0": good._replace(threads=0),
+            "threads 288": good._replace(threads=288),
+            "smem 4 bytes short": good._replace(
+                smem_bytes=good.smem_bytes - 4),
+        }
+        for what, lay in bad.items():
+            rc = getattr(lib, f"{cell}_scan")(
+                xs.data_ptr(), 0, W.data_ptr(), U.data_ptr(), b.data_ptr(),
+                out.data_ptr(), B, T, fin, H, 1, *lay[:5], stream)
+            print(f"check {cell}_scan refuses layout {tuple(lay[:5])} "
+                  f"({what}): error {rc}")
+            check(rc == INVALID_VALUE, f"{cell}_scan took a bad layout "
+                  f"({what}): returned {rc}")
+        torch.cuda.synchronize()
+        check(bool((out == 7.0).all()), f"{cell}_scan wrote out on a refused "
+              f"launch")
 
 
 def check_elementwise(device, errs: dict) -> None:
@@ -1274,6 +1370,8 @@ def phase_timing(device) -> tuple:
     import torch
 
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.scan_layout import (card_layout, card_resident,
+                                                 model_resident)
 
     rows = []
     small_kernels = ("col_matmul", "reuse_matmul", "quant_matmul",
@@ -1302,11 +1400,24 @@ def phase_timing(device) -> tuple:
         # launch rate; the trace reads the device's own time per call
         calls = 50 if small else 10
         own = small or c["name"] == "rglru_scan"
-        row["device_ms"] = per_call(
-            c["kern"], c["name"] if own else "scan kernels", calls)
+        cluster = c["name"] in CLUSTER_SCANS
+        group = (c["name"] if own else
+                 "cluster scan kernels" if cluster else "scan kernels")
+        row["device_ms"] = per_call(c["kern"], group, calls)
         row["library_device_ms"] = (per_call(lib, "other", calls) if lib
                                     else None)
-        if not own:
+        if cluster:
+            xs, U = c["inputs"][0], c["inputs"][2]
+            cell, bf16 = c["name"][:-5], xs.dtype == torch.bfloat16
+            lay = card_layout(xs.shape[0], U.shape[0], xs.shape[-1], cell,
+                              reuse, bf16, xs.device.index)
+            # clusters the card holds at once (its occupancy query) beside
+            # the CPU tests' model of it
+            row["layout"] = {**lay._asdict(),
+                             "resident": card_resident(cell, bf16, reuse,
+                                                       lay),
+                             "model_resident": model_resident(lay)}
+        elif not own:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
         if str(tag).startswith(LM) or c["name"] in ("rglru_scan", "hadamard"):
             # a tick reads each weight once, with 4 GB between two reads, and
@@ -1323,9 +1434,11 @@ def phase_timing(device) -> tuple:
                 f"; L2 cold: kernel {row['cold_ms']:.4f} ms, library "
                 f"{'n/a' if lib is None else round(row['library_cold_ms'], 4)}"
                 f" ms")
+        lay = ("" if "layout" not in row else
+               f"; layout {tuple(row['layout'].values())}")
         print(f"time {c['name']:18s} {c['shape']:44s}: kernel {ms:.4f} ms "
               f"(device {row['device_ms']:.4f}), plain {plain_ms:.4f} ms, "
-              f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by}){cold}")
+              f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by}){cold}{lay}")
     return rows, (time_nonstatic_scans(device) + [time_quantized_scan(device)]
                   + time_rglru_modes(device))
 
@@ -1351,11 +1464,18 @@ def time_cold_ms(fn, iters: int) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def per_call(fn, group: str, calls: int) -> float:
-    """Device time of ``group``'s kernels per call of ``fn``, over
-    ``calls`` calls from the trace (nan where it holds none)."""
-    k = device_trace(fn, calls).get("kernels", {}).get(group)
-    return k["device_ms"] / calls if k else float("nan")
+def per_call(fn, group, calls: int) -> float:
+    """Device time of the kernels of ``group`` (a name, or a tuple of names
+    whose times add up) per call of ``fn``, over ``calls`` calls from the
+    trace (nan where it holds none).  A trace now and then comes back
+    without the group's kernels: up to 3 tries."""
+    groups = (group,) if isinstance(group, str) else group
+    for _ in range(3):
+        kernels = device_trace(fn, calls).get("kernels", {})
+        found = [kernels[g]["device_ms"] for g in groups if g in kernels]
+        if found:
+            return sum(found) / calls
+    return float("nan")
 
 
 def time_nonstatic_scans(device) -> list:
@@ -1475,7 +1595,114 @@ def time_rglru_modes(device) -> list:
     return out
 
 
+#: predict_one calls and flushes of BATCH requests timed per engine by
+#: ``--time-scans``
+SCAN_ONE_CALLS, SCAN_FLUSHES = 100, 10
+
+
+def time_scans(device) -> dict:
+    """``--time-scans``: the in-loop static scans (``lstm_scan`` /
+    ``gru_scan``) of every tagger, float32, at B = 8 (R = 1) and B = 256
+    (R = 1 and 4): device time per call from a trace and CUDA events,
+    with cuDNN's for the same function beside them; and the engines'
+    ``predict_one`` p50 / p99 and flush-of-256 p50 (host clock).  It times
+    whichever tree's ``repro_torch`` was imported: with
+    ``--src`` an older tree (an unpacked parent commit) is timed the same
+    way, so two trees are compared in one call by running the script
+    twice on one card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gru_scan as gs
+    from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    out = {"kernels": [], "engines": []}
+    for i, tag in enumerate(TAGGERS):
+        cfg = get_config(tag)
+        r = cfg.rnn
+        kern = (ls.lstm_scan_kernel if r.cell == "lstm"
+                else gs.gru_scan_kernel)
+        for B, reuse in ((SMALL_BATCHES[0], 1), (BATCH, 1), (BATCH, 4)):
+            args = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                               torch.float32, 700 + i, device, batch=B)
+            fn = lambda a=args, R=reuse: kern(*a, reuse=R)  # noqa: E731
+            lib = library_call(f"{r.cell}_scan", args)
+            with torch.inference_mode():
+                err = max_err(fn(), lib())[0]
+            # an older tree's in-loop scans are "scan kernels"
+            dev_ms = per_call(fn, ("cluster scan kernels", "scan kernels"),
+                              20)
+            row = {"tagger": tag, "kernel": f"{r.cell}_scan", "B": B,
+                   "R": reuse, "device_ms": dev_ms,
+                   "ms": time_ms(fn, 50),
+                   "cudnn_device_ms": per_call(lib, "other", 20),
+                   "cudnn_ms": time_ms(lib, 50), "cudnn_max_abs_err": err}
+            out["kernels"].append(row)
+            print(f"scan {tag:20s} B={B:3d} R={reuse}: device "
+                  f"{row['device_ms']:.4f} "
+                  f"ms, events {row['ms']:.4f} ms; cuDNN device "
+                  f"{row['cudnn_device_ms']:.4f}, events "
+                  f"{row['cudnn_ms']:.4f} ms (err {err:.1e})")
+        params = init_params(param_specs(cfg),
+                             torch.Generator().manual_seed(i), "cpu")
+        eng = RNNServingEngine(cfg, params, impl="pallas", device=device)
+        x = np.random.RandomState(750 + i).randn(
+            BATCH, r.seq_len, r.input_size).astype(np.float32)
+        for j in range(5):
+            eng.predict_one(x[j])
+        one = []
+        for j in range(SCAN_ONE_CALLS):
+            t0 = time.perf_counter()
+            eng.predict_one(x[j % BATCH])
+            one.append(time.perf_counter() - t0)
+        eng.serve(list(x))
+        flush = []
+        for _ in range(SCAN_FLUSHES):
+            t0 = time.perf_counter()
+            reqs = eng.serve(list(x))
+            flush.append(time.perf_counter() - t0)
+            for q in reqs:
+                check(q.status == "answered", f"{tag}: request {q.req_id} "
+                      f"{q.status}: {q.error!r}")
+        row = {"engine": tag,
+               "predict_one_p50_ms": float(np.percentile(one, 50)) * 1e3,
+               "predict_one_p99_ms": float(np.percentile(one, 99)) * 1e3,
+               "flush_p50_ms": float(np.percentile(flush, 50)) * 1e3}
+        out["engines"].append(row)
+        print(f"engine {tag:20s}: predict_one p50 "
+              f"{row['predict_one_p50_ms']:.3f} ms (p99 "
+              f"{row['predict_one_p99_ms']:.3f}), flush of {BATCH} p50 "
+              f"{row['flush_p50_ms']:.3f} ms")
+    return out
+
+
+def no_nan(obj):
+    """``obj`` with every NaN (a reading the trace did not give) as None,
+    so that the line is strict JSON."""
+    if isinstance(obj, dict):
+        return {k: no_nan(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [no_nan(v) for v in obj]
+    return None if isinstance(obj, float) and obj != obj else obj
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-scans", action="store_true",
+                    help="only time the in-loop scans and the engines "
+                    "(see time_scans)")
+    ap.add_argument("--src", help="with --time-scans: import repro_torch "
+                    "from this directory (default: this checkout's src)")
+    opts = ap.parse_args()
+    if opts.src:
+        if not opts.time_scans:
+            ap.error("--src goes with --time-scans")
+        sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -1493,6 +1720,16 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+
+    if opts.time_scans:
+        import repro_torch
+
+        src = Path(repro_torch.__file__).resolve().parents[1]
+        print(f"time_scans: repro_torch from {src}")
+        res = time_scans(device)
+        print(json.dumps({"time_scans": {"src": str(src), "card": card,
+                                         **res}}))
+        return 0
 
     t0 = time.perf_counter()
     paths = cuda.build()
@@ -1537,7 +1774,15 @@ def main() -> int:
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": row["shape"], "card": card})
-    print(json.dumps({"kernels": kernels}))
+        if name in CLUSTER_SCANS:
+            b8 = next(r for r in rows if r["name"] == name and r["reuse"] == 1
+                      and r["tagger"].startswith(HEADLINE)
+                      and r["shape"].endswith(f" B={SMALL_BATCHES[0]} R=1"))
+            kernels[-1]["layout"] = row["layout"]
+            kernels[-1]["b8"] = {k: b8[k] for k in (
+                "ms", "device_ms", "library_ms", "library_device_ms",
+                "bound_ms", "layout")}
+    print(json.dumps({"kernels": no_nan(kernels)}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

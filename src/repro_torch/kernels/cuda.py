@@ -34,17 +34,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _HOISTED = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+#: xs, xs_bf16, W, U, b, out, B, T, in, H, R, then the cluster layout
+#: (cluster, rows, k_split, threads, smem_bytes), stream
+_CLUSTER_SCAN = (_I, [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P])
 #: C signature of every exported function, per library (``csrc/<name>.cu``);
 #: each library exports ``kernel_error_string`` for its error codes
 SIGNATURES = {
     "rnn_scan": {
-        "lstm_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "gru_scan": (_I, [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "lstm_scan": _CLUSTER_SCAN,
+        "gru_scan": _CLUSTER_SCAN,
         "lstm_scan_hoisted": _HOISTED,
         "gru_scan_hoisted": _HOISTED,
         "lstm_scan_pipeline": _HOISTED,
         "gru_scan_pipeline": _HOISTED,
         "scan_rows_per_block": (_I, [_I]),
+        "cluster_scan_resident": (_I, [_I] * 8),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "reuse_matmul": {
@@ -207,5 +211,7 @@ def require_int8(kernel: str, **tensors: torch.Tensor) -> torch.device:
 
 
 def rows_per_block(batch: int) -> int:
-    """Batch rows each thread block of the scan kernels carries."""
+    """Batch rows each thread block of the hoisted and pipeline scan
+    kernels carries (the in-loop scans take a cluster layout instead:
+    ``kernels/scan_layout.py``)."""
     return library("rnn_scan").scan_rows_per_block(batch)

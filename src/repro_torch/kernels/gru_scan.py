@@ -2,9 +2,10 @@
 
 Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas``,
 ``gru_scan_hoisted_pallas`` and ``gru_scan_pipeline_pallas``.  The kernels
-live in ``csrc/rnn_scan.cu``; the pipeline kernel computes the hoisted
-kernel's function with its R column tiles issued together, so both share
-one plain version.
+live in ``csrc/rnn_scan.cu``: the in-loop one a thread-block-cluster
+kernel at a layout from ``kernels/scan_layout.py``.  The pipeline kernel
+computes the hoisted kernel's function with its R column tiles issued
+together, so both share one plain version.
 
 A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, which repeats the kernel's R-tiled arithmetic: per step, R column
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
+from repro_torch.kernels.scan_layout import launch_scan
 
 
 def _gate_update(zx: torch.Tensor, zh: torch.Tensor, h: torch.Tensor,
@@ -75,7 +77,11 @@ def _check_shapes(kernel, hidden, reuse, U, gates_in):
 def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
                     b: torch.Tensor, *, reuse: int = 1) -> torch.Tensor:
     """xs: [B, T, in] f32|bf16; W: [in, 3h], U: [h, 3h], b: [2, 3h] f32
-    -> final h [B, h] in xs's dtype.  ``reuse`` must divide 3h."""
+    -> final h [B, h] in xs's dtype.  ``reuse`` must divide 3h.  On the
+    card the cluster kernel runs at
+    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout; it takes
+    h <= 128 (U in registers) and raises ValueError on a larger h, which
+    ``repro``'s Pallas kernel takes."""
     hidden = U.shape[0]
     _check_shapes("gru_scan", hidden, reuse, U, W.shape[-1])
     if W.shape[0] != xs.shape[-1] or b.shape != (2, 3 * hidden):
@@ -85,15 +91,7 @@ def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
         return gru_scan_plain(xs, W, U, b, reuse=reuse)
     if xs.device.type != "cuda":
         raise ValueError(f"gru_scan: no kernel for device {xs.device}")
-    dev = cuda.require("gru_scan", xs.dtype, xs=xs, W=W, U=U, b=b)
-    B, T, fin = xs.shape
-    out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
-    if B:
-        cuda.launch("rnn_scan", "gru_scan", dev, xs.data_ptr(),
-                    int(xs.dtype == torch.bfloat16), W.data_ptr(),
-                    U.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, fin,
-                    hidden, reuse)
-    return out
+    return launch_scan("gru", xs, W, U, b, reuse)
 
 
 def _hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype) -> torch.Tensor:

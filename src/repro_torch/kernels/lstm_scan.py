@@ -3,9 +3,10 @@
 Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas``,
 ``lstm_scan_hoisted_pallas`` and ``lstm_scan_pipeline_pallas``.  The kernels
 live in ``csrc/rnn_scan.cu`` (its header says what bounds them on an H100
-and how the design answers).  The pipeline kernel computes the hoisted
-kernel's function with its R column tiles issued together, so both share
-one plain version.
+and how the design answers); the in-loop one is a thread-block-cluster
+kernel at a layout from ``kernels/scan_layout.py``.  The pipeline kernel
+computes the hoisted kernel's function with its R column tiles issued
+together, so both share one plain version.
 
 Each wrapper takes the tensor's device as the dispatch: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version beside
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
+from repro_torch.kernels.scan_layout import launch_scan
 
 
 def _gate_update(z: torch.Tensor, c: torch.Tensor, hidden: int):
@@ -78,7 +80,11 @@ def _check_shapes(kernel, hidden, reuse, U, b, gates_in=None):
 def lstm_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
                      b: torch.Tensor, *, reuse: int = 1) -> torch.Tensor:
     """xs: [B, T, in] f32|bf16; W: [in, 4h], U: [h, 4h], b: [4h] f32
-    -> final h [B, h] in xs's dtype.  ``reuse`` must divide 4h."""
+    -> final h [B, h] in xs's dtype.  ``reuse`` must divide 4h.  On the
+    card the cluster kernel runs at
+    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout; it takes
+    h <= 128 (U in registers) and raises ValueError on a larger h, which
+    ``repro``'s Pallas kernel takes."""
     hidden = U.shape[0]
     _check_shapes("lstm_scan", hidden, reuse, U, b, W.shape[-1])
     if W.shape[0] != xs.shape[-1]:
@@ -88,15 +94,7 @@ def lstm_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
         return lstm_scan_plain(xs, W, U, b, reuse=reuse)
     if xs.device.type != "cuda":
         raise ValueError(f"lstm_scan: no kernel for device {xs.device}")
-    dev = cuda.require("lstm_scan", xs.dtype, xs=xs, W=W, U=U, b=b)
-    B, T, fin = xs.shape
-    out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
-    if B:
-        cuda.launch("rnn_scan", "lstm_scan", dev, xs.data_ptr(),
-                    int(xs.dtype == torch.bfloat16), W.data_ptr(),
-                    U.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, fin,
-                    hidden, reuse)
-    return out
+    return launch_scan("lstm", xs, W, U, b, reuse)
 
 
 def _hoisted(kernel: str, zx, U, b, reuse, out_dtype) -> torch.Tensor:

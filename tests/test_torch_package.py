@@ -285,7 +285,8 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
         assert "kernel_error_string" in cuda.SIGNATURES[name]
     assert len(set(paths.values())) == 6
     kernels = {fn for sigs in cuda.SIGNATURES.values() for fn in sigs
-               if fn not in ("kernel_error_string", "scan_rows_per_block")}
+               if fn not in ("kernel_error_string", "scan_rows_per_block",
+                             "cluster_scan_resident")}
     assert kernels == set(cuda.LAUNCHES) and len(kernels) == 13
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
