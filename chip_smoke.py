@@ -14,10 +14,17 @@ In order, it
      ``lstm_scan`` / ``gru_scan``) also at predict_one's B = 8 and a
      ragged B = 9, and checks that their C entry points refuse a bad
      cluster layout (``cudaErrorInvalidValue``, no launch); ``col_matmul``
-     at each step's x-side and h-side product and at the hoist stage's
-     [256*T, in] product (R = 2); ``reuse_matmul`` at
-     QuickDraw's h-side shape; ``quant_matmul`` (tolerance 0) at every
-     native gate product, int8 and int4-range operands; ``fixed_point``
+     (the tiled f32 product: 16 TM x 8 TN outputs a CTA of 128 threads, TM
+     x TN in {2x4, 1x4, 1x2, 1x1} by shape, K in chunks of 64 through a
+     4-slot cp.async ring) at each step's x-side and h-side product, at the
+     hoist stage's [256*T, in] product (R = 2), at ragged shapes (M in {1,
+     9}, K in {3, 20}, N/R down to 15) and at a 128 x 1024 f32 weight (512
+     KiB, over a block's shared memory); ``reuse_matmul`` at
+     QuickDraw's h-side shape; ``quant_matmul`` (tolerance 0; 32 x 32
+     outputs a CTA of four warps on int8 ``mma.sync`` m16n8k32, K in chunks
+     of 128 through the same ring) at every native gate product, int8 and
+     int4-range operands, at the same ragged shapes and at a 512 x 1024
+     int8 weight; ``fixed_point``
      (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
      steps, float32 and bfloat16, for seven ap_fixed configs;
      ``decode_matmul`` at gemma-2b's four per-token products (bf16, M = 4,
@@ -41,6 +48,10 @@ In order, it
                 pipeline at R = 1 and R = 4, and the hoist stage at
                 ``hoist_reuse = 2``;
        matmul   the scheduled matmul entry point ``ops.reuse_matmul``;
+       static_wide  static ``ops.lstm_scan`` / ``ops.gru_scan`` at H = 256,
+                past the cluster kernel's H, at B = 8 and 256: one
+                ``col_matmul`` and one ``*_scan_hoisted`` a call, within
+                3e-5 of ``backend="xla"``;
        fixed_point  the six taggers with PTQ'd weights through
                 ``RNNServingEngine(..., fp=ap_fixed<8,3>)`` and
                 ``fp=ap_fixed<4,2>`` (the native int8 / int4 datapath, every
@@ -78,6 +89,9 @@ In order, it
      ``fake_quantize_per_tensor_affine`` for ``fixed_point``,
      ``torch.mul`` for ``hadamard``; none for ``rglru_scan``: no single
      PyTorch call computes a linear recurrence) and its bound on the card
+     (``col_matmul`` and ``quant_matmul`` with their launch layout, and in
+     the ``kernels`` line the registers and spill bytes of every compiled
+     instance from the ``-Xptxas -v`` log)
      (``decode_matmul`` at gemma-2b's products, ``rglru_scan`` and
      ``hadamard`` also with the L2 flushed before each call), whole
      QuickDraw LSTM scans end to end per mode (the native int8 scan too)
@@ -98,6 +112,15 @@ from ``DIR`` (default: this checkout's ``src``).  Run it for an unpacked
 parent commit and for this tree in turns (parent, change, change, parent)
 within one call to the card to compare the two; it prints a JSON line of
 its own and no result line.
+
+    python3 chip_smoke.py --time-products [--src DIR]
+
+likewise times only ``col_matmul`` and ``quant_matmul`` at every tagger's
+gate products (B = 256 and 8, R = 1 and 4; events and device ms beside
+``torch.matmul`` / ``torch._int_mm``), the host path of a call split into
+its parts, whole QuickDraw LSTM non-static and native ``ap_fixed<8,3>``
+scans, and the six engines' ``predict_one`` and flush of 256 in those two
+modes.
 """
 
 from __future__ import annotations
@@ -134,6 +157,17 @@ TAGGERS = ("top-tagging-lstm", "top-tagging-gru", "flavor-tagging-lstm",
 HEADLINE = "quickdraw"
 #: reuse_matmul's shape: QuickDraw LSTM's h-side product (M, K, N)
 MATMUL_SHAPE = (BATCH, 128, 512)
+#: col_matmul / quant_matmul at ragged shapes: (M, K, N, R), N/R down to 15
+RAGGED_PRODUCTS = tuple((M, K, 60, R) for M in (1, 9) for K in (3, 20)
+                        for R in (1, 4))
+#: weights over a block's 227 KiB of shared memory: (M, K, N), f32 for
+#: col_matmul (512 KiB), int8 for quant_matmul (512 KiB)
+LARGE_PRODUCTS = {"col_matmul": (BATCH, 128, 1024),
+                  "quant_matmul": (BATCH, 512, 1024)}
+#: the static in-loop scans past the cluster kernel's H: (T, in, H), at B in
+#: WIDE_BATCHES (served as col_matmul + the hoisted scan kernel)
+WIDE_SCAN = (100, 3, 256)
+WIDE_BATCHES = (8, BATCH)
 
 SCAN_SRC = "src/repro_torch/csrc/rnn_scan.cu"
 MATMUL_SRC = "src/repro_torch/csrc/reuse_matmul.cu"
@@ -356,9 +390,35 @@ def small_batch_calls(tag, r, dtype, seed, device, timing=False) -> list:
     return out
 
 
+def product_calls(dtype, device) -> list:
+    """(R, call) for ``col_matmul`` at ``RAGGED_PRODUCTS`` and at a weight
+    over a block's shared memory (``LARGE_PRODUCTS``), in x's ``dtype``."""
+    import torch
+
+    from repro_torch.kernels import reuse_matmul as rm
+
+    gen = torch.Generator(device=device).manual_seed(1400)
+    M, K, N = LARGE_PRODUCTS["col_matmul"]
+    shapes = list(RAGGED_PRODUCTS) + [(M, K, N, R) for R in REUSES]
+    out = []
+    for M, K, N, R in shapes:
+        x = torch.randn(M, K, generator=gen, device=device).to(dtype)
+        w = torch.randn(K, N, generator=gen, device=device) / np.sqrt(K)
+        out.append((R, call(
+            "col_matmul", f"({M},{K})@({K},{N}) R={R}",
+            lambda x=x, w=w, R=R: rm.col_matmul_kernel(x, w, reuse=R),
+            lambda x=x, w=w, R=R: rm.col_matmul_plain(x, w, reuse=R),
+            (x, w), 2.0 * M * K * N)))
+    return out
+
+
 def all_calls(dtype, device, timing=False):
     """(tagger, R, call) for every kernel call of phases 2 and 4."""
     from repro_torch.configs import get_config
+
+    if not timing:
+        for reuse, c in product_calls(dtype, device):
+            yield "products", reuse, c
 
     for i, tag in enumerate(TAGGERS):
         r = get_config(tag).rnn
@@ -434,6 +494,19 @@ def quant_calls(device, timing=False):
                         tag == "quickdraw-lstm" and side == "h-side"
                         and reuse == 1 and kind == "int8",
                         peak=INT8_PEAK)
+    if not timing:
+        M, K, N = LARGE_PRODUCTS["quant_matmul"]
+        for M, K, N, R in (list(RAGGED_PRODUCTS)
+                           + [(M, K, N, R) for R in REUSES]):
+            x = torch.randint(-128, 128, (M, K), generator=gen,
+                              dtype=torch.int8).to(device)
+            w = torch.randint(-128, 128, (K, N), generator=gen,
+                              dtype=torch.int8).to(device)
+            yield "products", R, call(
+                "quant_matmul", f"({M},{K})@({K},{N}) R={R}",
+                lambda x=x, w=w, R=R: qm.quant_matmul_kernel(x, w, reuse=R),
+                lambda x=x, w=w, R=R: qm.quant_matmul_plain(x, w, reuse=R),
+                (x, w), 2.0 * M * K * N, peak=INT8_PEAK)
     specs = (FP_GRID[0], FP_GRID[6]) if timing else FP_GRID
     for shape in FXP_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -967,6 +1040,7 @@ def phase_serving(device) -> dict:
                               "gru_scan_pipeline", "lstm_scan_hoisted",
                               "gru_scan_hoisted"))
     launches["matmul"], mm = drive("matmul", matmul_path, ("reuse_matmul",))
+    launches["static_wide"] = drive_wide_scans(device)
 
     rows = {"predict": slice(0, 8), "predict_r4": slice(0, 8),
             "predict_one": slice(0, ONE_CALLS), "flush": slice(0, 16),
@@ -996,6 +1070,52 @@ def phase_serving(device) -> dict:
     print(f"served ops.reuse_matmul {tuple(mx.shape)}@{tuple(mw.shape)} "
           f"{msched.key()}: max_abs_err {err:.3e} vs backend xla")
     check(err <= TOL["float32"] * scale, f"ops.reuse_matmul: err {err}")
+    return launches
+
+
+def drive_wide_scans(device) -> dict:
+    """Static ``ops.lstm_scan`` / ``ops.gru_scan`` at H = 256, past the
+    cluster kernel's H, at B in ``WIDE_BATCHES``, driven with the counts set
+    to 0: each call launches one ``col_matmul`` (the input side of every
+    step) and one ``*_scan_hoisted`` and no cluster scan, and answers within
+    the float32 tolerance of the same call on ``backend="xla"``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.scan_layout import scan_route
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    T, fin, H = WIDE_SCAN
+    check(scan_route(H) == "hoisted", f"H={H} routes to {scan_route(H)}")
+    sched = KernelSchedule()
+    cases = [(cell, scan_inputs(cell, T, fin, H, torch.float32, 1500 + B,
+                                device, batch=B))
+             for cell in ("lstm", "gru") for B in WIDE_BATCHES]
+
+    def run():
+        with torch.inference_mode():
+            return [(ops.lstm_scan if cell == "lstm" else ops.gru_scan)(
+                *args, schedule=sched) for cell, args in cases]
+
+    launches, got = drive("static_wide", run, (
+        "col_matmul", "lstm_scan_hoisted", "gru_scan_hoisted"))
+    n = len(WIDE_BATCHES)
+    want_launches = {"col_matmul": 2 * n, "lstm_scan_hoisted": n,
+                     "gru_scan_hoisted": n}
+    check({k: v for k, v in launches.items() if v} == want_launches,
+          f"static_wide launches {launches}, expected {want_launches}")
+    for (cell, args), g in zip(cases, got):
+        scan = ops.lstm_scan if cell == "lstm" else ops.gru_scan
+        with torch.inference_mode():
+            want = scan(*args, schedule=sched.replace(backend="xla"))
+        err, scale = max_err(g, want)
+        print(f"served ops.{cell}_scan static H={H} B={args[0].shape[0]} "
+              f"T={T}: max_abs_err {err:.3e} vs backend xla (tol "
+              f"{TOL['float32'] * scale:.1e}), through col_matmul + "
+              f"{cell}_scan_hoisted")
+        check(g.shape == want.shape and bool(torch.isfinite(g).all())
+              and err <= TOL["float32"] * scale,
+              f"{cell}_scan H={H} B={args[0].shape[0]}: err {err}")
     return launches
 
 
@@ -1417,6 +1537,9 @@ def phase_timing(device) -> tuple:
                              "resident": card_resident(cell, bf16, reuse,
                                                        lay),
                              "model_resident": model_resident(lay)}
+        elif c["name"] in PRODUCT_LIBS:
+            (M, K), N = c["inputs"][0].shape, c["inputs"][1].shape[1]
+            row["layout"] = product_layout(c["name"], M, K, N, reuse)
         elif not own:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
         if str(tag).startswith(LM) or c["name"] in ("rglru_scan", "hadamard"):
@@ -1441,6 +1564,62 @@ def phase_timing(device) -> tuple:
               f"library {lib_txt}, bound {b_ms:.5f} ms ({b_by}){cold}{lay}")
     return rows, (time_nonstatic_scans(device) + [time_quantized_scan(device)]
                   + time_rglru_modes(device))
+
+
+#: the entries of the two tiled products' C libraries (layout exports)
+PRODUCT_LIBS = {"col_matmul": "reuse_matmul", "quant_matmul": "quantized"}
+
+
+def product_layout(name: str, M: int, K: int, N: int, reuse: int) -> dict:
+    """The launch of ``col_matmul`` (f32 x) or ``quant_matmul`` at this
+    shape, as its C library's ``*_layout`` export gives it: the CTA tile,
+    the grid, the threads, the ring's stages and the shared bytes."""
+    import ctypes
+
+    from repro_torch.kernels import cuda
+
+    out = (ctypes.c_int * 7)()
+    rc = cuda.function(PRODUCT_LIBS[name], f"{name}_layout")(
+        M, K, N, reuse, ctypes.cast(out, ctypes.c_void_p))
+    check(rc == 0, f"{name}_layout({M}, {K}, {N}, {reuse}): error {rc}")
+    lay = dict(zip(("rows", "cols", "grid_x", "grid_y", "threads",
+                    "stages", "smem_bytes"), out))
+    lay["ctas"] = lay["grid_x"] * lay["grid_y"]
+    return lay
+
+
+def ptxas_report(paths) -> dict:
+    """Registers and spill bytes of every compiled kernel, from the
+    ``-Xptxas -v`` log the build keeps beside each library: mangled entry
+    name -> {"registers", "spill_bytes"}."""
+    import re
+
+    report: dict = {}
+    for path in paths.values():
+        log = path.with_suffix(".log")
+        if not log.exists():
+            continue
+        entry = None
+        for ln in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1)
+                report[entry] = {"registers": None, "spill_bytes": 0}
+            elif entry and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+                report[entry]["spill_bytes"] = int(m[1]) + int(m[2])
+            elif entry and (m := re.search(r"Used (\d+) registers", ln)):
+                report[entry]["registers"] = int(m[1])
+    return report
+
+
+def ptxas_summary(report: dict, name: str) -> dict:
+    """The compiled instances of kernel ``name`` (its template
+    instantiations): how many, their registers, their spill bytes."""
+    inst = [v for k, v in report.items() if f"{name}_kernel" in k]
+    return {"instances": len(inst),
+            "registers": sorted(v["registers"] for v in inst),
+            "spill_bytes": sum(v["spill_bytes"] for v in inst)}
 
 
 def time_cold_ms(fn, iters: int) -> float:
@@ -1600,6 +1779,35 @@ def time_rglru_modes(device) -> list:
 SCAN_ONE_CALLS, SCAN_FLUSHES = 100, 10
 
 
+def time_engine(tag, eng, x, one_calls: int, flushes: int) -> dict:
+    """An engine's ``predict_one`` p50 / p99 and flush-of-``BATCH`` p50 (host
+    clock, ms) over rows of ``x``, after 5 warm-up calls and one flush."""
+    for j in range(5):
+        eng.predict_one(x[j])
+    one = []
+    for j in range(one_calls):
+        t0 = time.perf_counter()
+        eng.predict_one(x[j % len(x)])
+        one.append(time.perf_counter() - t0)
+    eng.serve(list(x))
+    flush = []
+    for _ in range(flushes):
+        t0 = time.perf_counter()
+        reqs = eng.serve(list(x))
+        flush.append(time.perf_counter() - t0)
+        for q in reqs:
+            check(q.status == "answered", f"{tag}: request {q.req_id} "
+                  f"{q.status}: {q.error!r}")
+    row = {"predict_one_p50_ms": float(np.percentile(one, 50)) * 1e3,
+           "predict_one_p99_ms": float(np.percentile(one, 99)) * 1e3,
+           "flush_p50_ms": float(np.percentile(flush, 50)) * 1e3}
+    print(f"engine {tag:28s}: predict_one p50 "
+          f"{row['predict_one_p50_ms']:.3f} ms (p99 "
+          f"{row['predict_one_p99_ms']:.3f}), flush of {BATCH} p50 "
+          f"{row['flush_p50_ms']:.3f} ms")
+    return row
+
+
 def time_scans(device) -> dict:
     """``--time-scans``: the in-loop static scans (``lstm_scan`` /
     ``gru_scan``) of every tagger, float32, at B = 8 (R = 1) and B = 256
@@ -1651,31 +1859,210 @@ def time_scans(device) -> dict:
         eng = RNNServingEngine(cfg, params, impl="pallas", device=device)
         x = np.random.RandomState(750 + i).randn(
             BATCH, r.seq_len, r.input_size).astype(np.float32)
-        for j in range(5):
-            eng.predict_one(x[j])
-        one = []
-        for j in range(SCAN_ONE_CALLS):
-            t0 = time.perf_counter()
-            eng.predict_one(x[j % BATCH])
-            one.append(time.perf_counter() - t0)
-        eng.serve(list(x))
-        flush = []
-        for _ in range(SCAN_FLUSHES):
-            t0 = time.perf_counter()
-            reqs = eng.serve(list(x))
-            flush.append(time.perf_counter() - t0)
-            for q in reqs:
-                check(q.status == "answered", f"{tag}: request {q.req_id} "
-                      f"{q.status}: {q.error!r}")
-        row = {"engine": tag,
-               "predict_one_p50_ms": float(np.percentile(one, 50)) * 1e3,
-               "predict_one_p99_ms": float(np.percentile(one, 99)) * 1e3,
-               "flush_p50_ms": float(np.percentile(flush, 50)) * 1e3}
-        out["engines"].append(row)
-        print(f"engine {tag:20s}: predict_one p50 "
-              f"{row['predict_one_p50_ms']:.3f} ms (p99 "
-              f"{row['predict_one_p99_ms']:.3f}), flush of {BATCH} p50 "
-              f"{row['flush_p50_ms']:.3f} ms")
+        out["engines"].append({"engine": tag, **time_engine(
+            tag, eng, x, SCAN_ONE_CALLS, SCAN_FLUSHES)})
+    return out
+
+
+#: predict_one calls and flushes of BATCH requests timed per engine by
+#: ``--time-products`` (a non-static or fixed-point scan launches two
+#: products a step: 10-300x a static scan's time)
+PRODUCT_ONE_CALLS, PRODUCT_FLUSHES = 20, 3
+#: host calls per reading of the launch path's parts
+HOST_CALLS = 2000
+
+
+def product_shapes():
+    """(tagger, side, K, N) of every tagger's two gate products."""
+    from repro_torch.configs import get_config
+
+    for tag in TAGGERS:
+        r = get_config(tag).rnn
+        g = 4 if r.cell == "lstm" else 3
+        for side, K in (("x-side", r.input_size), ("h-side", r.hidden)):
+            yield tag, side, K, g * r.hidden
+
+
+def time_host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` back-to-back calls
+    (no synchronise inside: the launch path's own cost, the kernels running
+    meanwhile)."""
+    import torch
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
+def host_split(device) -> dict:
+    """Where a call's host microseconds go, for ``col_matmul`` and
+    ``quant_matmul`` at QuickDraw LSTM's h-side product (256 x 128 @ 128 x
+    512, R = 1): the whole wrapper, and apart its checks, the output's
+    ``torch.empty``, the stream fetch (``torch.cuda.current_stream`` and the
+    raw binding), the three ``data_ptr`` reads, and the ctypes call itself
+    (which launches the kernel)."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import quantized as qm
+    from repro_torch.kernels import reuse_matmul as rm
+
+    M, K, N = MATMUL_SHAPE
+    gen = torch.Generator(device=device).manual_seed(1300)
+    xf = torch.randn(M, K, generator=gen, device=device)
+    wf = torch.randn(K, N, generator=gen, device=device)
+    xi = torch.randint(-128, 128, (M, K), generator=gen, device=device,
+                       dtype=torch.int8)
+    wi = torch.randint(-128, 128, (K, N), generator=gen, device=device,
+                       dtype=torch.int8)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cases = {
+        "col_matmul": (
+            lambda: rm.col_matmul_kernel(xf, wf),
+            lambda: cuda.require("col_matmul", xf.dtype, io=("x",), x=xf,
+                                 w=wf),
+            torch.float32, "reuse_matmul", xf, wf,
+            lambda fn, o: fn(xf.data_ptr(), 0, wf.data_ptr(), o, M, K, N, 1,
+                             stream)),
+        "quant_matmul": (
+            lambda: qm.quant_matmul_kernel(xi, wi),
+            lambda: cuda.require_int8("quant_matmul", x=xi, w=wi),
+            torch.int32, "quantized", xi, wi,
+            lambda fn, o: fn(xi.data_ptr(), wi.data_ptr(), o, M, K, N, 1,
+                             stream)),
+    }
+    out = {}
+    for name, (wrapper, checks, odt, lib, x, w, c_call) in cases.items():
+        o = torch.empty(M, N, dtype=odt, device=device)
+        fn = getattr(cuda.library(lib), name)
+        ptr = o.data_ptr()
+        parts = {
+            "wrapper": time_host_us(wrapper),
+            "checks": time_host_us(checks),
+            "torch_empty": time_host_us(
+                lambda: torch.empty(M, N, dtype=odt, device=device)),
+            "current_stream": time_host_us(
+                lambda: torch.cuda.current_stream(device).cuda_stream),
+            "raw_stream": time_host_us(
+                lambda: torch._C._cuda_getCurrentRawStream(device.index)),
+            "data_ptrs": time_host_us(
+                lambda: (x.data_ptr(), w.data_ptr(), o.data_ptr())),
+            "ctypes_call": time_host_us(lambda: c_call(fn, ptr)),
+        }
+        out[name] = parts
+        print(f"host {name:12s} us a call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items()))
+    return out
+
+
+def time_products(device) -> dict:
+    """``--time-products``: ``col_matmul`` (f32) and ``quant_matmul`` (int8)
+    at every tagger's x-side and h-side gate product, at B = 256 and B = 8
+    and R in ``REUSES``: CUDA-event ms over back-to-back calls and device ms
+    from a trace, with ``torch.matmul`` / ``torch._int_mm`` (f32
+    ``torch.matmul`` on the same integers where ``_int_mm`` refuses the
+    shape) timed both ways beside them, and the bound; the host path's
+    split (:func:`host_split`); whole QuickDraw LSTM scans, non-static and
+    native ``ap_fixed<8,3>``, B = 256 (events ms, launches, the trace's busy
+    time and idle share); and the six engines' ``predict_one`` and flush of
+    256 in non-static mode and at ``fp=ap_fixed<8,3>`` (PTQ'd weights).  It
+    times whichever tree's ``repro_torch`` was imported (``--src``), so two
+    trees are compared in one call by running the script for each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.ptq import ptq_quantize_model
+    from repro_torch.kernels import quantized as qm
+    from repro_torch.kernels import reuse_matmul as rm
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    out = {"kernels": [], "host": host_split(device), "scans": [],
+           "engines": []}
+    gen = torch.Generator(device=device).manual_seed(1200)
+    for tag, side, K, N in product_shapes():
+        for B in (BATCH, SMALL_BATCHES[0]):
+            xf = torch.randn(B, K, generator=gen, device=device)
+            wf = torch.randn(K, N, generator=gen, device=device) / np.sqrt(K)
+            xi = torch.randint(-128, 128, (B, K), generator=gen,
+                               device=device, dtype=torch.int8)
+            wi = torch.randint(-128, 128, (K, N), generator=gen,
+                               device=device, dtype=torch.int8)
+            for R in REUSES:
+                for name, kern, lib, inputs, peak in (
+                        ("col_matmul",
+                         lambda R=R: rm.col_matmul_kernel(xf, wf, reuse=R),
+                         lambda: torch.matmul(xf, wf), (xf, wf), F32_PEAK),
+                        ("quant_matmul",
+                         lambda R=R: qm.quant_matmul_kernel(xi, wi, reuse=R),
+                         int_matmul_library(xi, wi), (xi, wi), INT8_PEAK)):
+                    with torch.inference_mode():
+                        o = kern()
+                    row = {"name": name, "tagger": tag, "side": side, "B": B,
+                           "K": K, "N": N, "R": R,
+                           "ms": time_ms(kern, 200),
+                           "device_ms": per_call(kern, name, 50),
+                           "library_ms": time_ms(lib, 200),
+                           "library_device_ms": per_call(lib, "other", 50),
+                           "bound_ms": bound(inputs, o, 2.0 * B * K * N,
+                                             peak)[0]}
+                    out["kernels"].append(row)
+                    print(f"product {name:12s} {tag:20s} {side} ({B},{K})@"
+                          f"({K},{N}) R={R}: device {row['device_ms']:.4f} "
+                          f"ms, events {row['ms']:.4f}; library device "
+                          f"{row['library_device_ms']:.4f}, events "
+                          f"{row['library_ms']:.4f}; bound "
+                          f"{row['bound_ms']:.5f}")
+
+    from repro_torch.core.quant.fixed_point import quantize
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    fp = fixed_point_config(FP_NATIVE["int8"])
+    r = get_config("quickdraw-lstm").rnn
+    xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                              torch.float32, 1201, device)
+    Wq, Uq, bq = (quantize(t, fp) for t in (W, U, b))
+    for what, fn in (
+            ("nonstatic", lambda: ops.lstm_scan(
+                xs, W, U, b, schedule=KernelSchedule(mode="nonstatic"))),
+            ("native_ap8_3", lambda: ops.lstm_scan(
+                xs, Wq, Uq, bq, schedule=KernelSchedule(), fp=fp))):
+        cuda.reset_launches()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        row = {"scan": what, "ms": time_ms(fn, 3, warmup=1),
+               "launches": launches, "trace": device_trace(fn)}
+        out["scans"].append(row)
+        print(f"scan quickdraw-lstm B={BATCH} {what}: {row['ms']:.3f} ms, "
+              f"launches {launches}; trace of one call: "
+              f"{json.dumps(row['trace'])}")
+
+    for i, tag in enumerate(TAGGERS):
+        cfg = get_config(tag)
+        params = init_params(param_specs(cfg),
+                             torch.Generator().manual_seed(i), "cpu")
+        x = np.random.RandomState(1250 + i).randn(
+            BATCH, cfg.rnn.seq_len, cfg.rnn.input_size).astype(np.float32)
+        for mode, eng in (
+                ("nonstatic", RNNServingEngine(cfg, params, mode="nonstatic",
+                                               impl="pallas",
+                                               device=device)),
+                ("ap8_3", RNNServingEngine(cfg, ptq_quantize_model(params, fp),
+                                           impl="pallas", device=device,
+                                           fp=fp))):
+            out["engines"].append({"engine": tag, "mode": mode, **time_engine(
+                f"{tag} {mode}", eng, x, PRODUCT_ONE_CALLS,
+                PRODUCT_FLUSHES)})
     return out
 
 
@@ -1693,15 +2080,23 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--time-scans", action="store_true",
-                    help="only time the in-loop scans and the engines "
-                    "(see time_scans)")
-    ap.add_argument("--src", help="with --time-scans: import repro_torch "
-                    "from this directory (default: this checkout's src)")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--time-scans", action="store_true",
+                      help="only time the in-loop scans and the engines "
+                      "(see time_scans)")
+    what.add_argument("--time-products", action="store_true",
+                      help="only time col_matmul and quant_matmul, the "
+                      "host path, the non-static and fixed-point scans and "
+                      "engines (see time_products)")
+    ap.add_argument("--src", help="with --time-scans or --time-products: "
+                    "import repro_torch from this directory (default: this "
+                    "checkout's src)")
     opts = ap.parse_args()
+    timing = {"time_scans": time_scans, "time_products": time_products}
+    only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
-        if not opts.time_scans:
-            ap.error("--src goes with --time-scans")
+        if not only:
+            ap.error("--src goes with --time-scans or --time-products")
         sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 
@@ -1721,20 +2116,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
-    if opts.time_scans:
+    if only:
         import repro_torch
 
         src = Path(repro_torch.__file__).resolve().parents[1]
-        print(f"time_scans: repro_torch from {src}")
-        res = time_scans(device)
-        print(json.dumps({"time_scans": {"src": str(src), "card": card,
-                                         **res}}))
+        print(f"{only}: repro_torch from {src}")
+        res = timing[only](device)
+        print(json.dumps({only: no_nan({"src": str(src), "card": card,
+                                        **res})}))
         return 0
 
     t0 = time.perf_counter()
     paths = cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[str(p.relative_to(ROOT)) for p in paths.values()]}")
+    ptxas = ptxas_report(paths)
     for p in paths.values():
         log = p.with_suffix(".log")
         if log.exists():
@@ -1745,6 +2141,8 @@ def main() -> int:
             print(f"ptxas {p.name}: {len(regs)} kernels, e.g. "
                   f"{regs[0] if regs else 'n/a'}; spilling: "
                   f"{spills or 'none'}")
+    for name in PRODUCT_LIBS:
+        print(f"ptxas {name}: {json.dumps(ptxas_summary(ptxas, name))}")
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
@@ -1774,6 +2172,9 @@ def main() -> int:
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": row["shape"], "card": card})
+        if name in PRODUCT_LIBS:
+            kernels[-1]["layout"] = row["layout"]
+            kernels[-1]["ptxas"] = ptxas_summary(ptxas, name)
         if name in CLUSTER_SCANS:
             b8 = next(r for r in rows if r["name"] == name and r["reuse"] == 1
                       and r["tagger"].startswith(HEADLINE)

@@ -24,8 +24,10 @@
 //      8, the fewest with KS*16 >= H): lane s holds U[k][unit's G columns]
 //      for k = s, s+KS, ... (at most 16 rows) in registers, loaded once
 //      before step 0.  So H <= 128 (16 lanes a unit would need more than
-//      256 threads a CTA past that; repro's Pallas kernel takes any H, and
-//      a larger H raises in the wrapper).  No step reads U from memory; W
+//      256 threads a CTA past that); repro's Pallas kernel takes any H, and
+//      so does the wrapper: a larger H runs as col_matmul of every step's
+//      input side and the hoisted kernel below (scan_layout.scan_route).
+//      No step reads U from memory; W
 //      and the biases of the CTA's units sit in its shared memory.  (U in
 //      shared memory, one 16-byte U load a k step and thread, left the
 //      loop bound by shared-memory load instructions, several times

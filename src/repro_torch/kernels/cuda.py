@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -53,11 +53,13 @@ SIGNATURES = {
     },
     "reuse_matmul": {
         "col_matmul": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
+        "col_matmul_layout": (_I, [_I, _I, _I, _I, _P]),
         "reuse_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "quantized": {
         "quant_matmul": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+        "quant_matmul_layout": (_I, [_I, _I, _I, _I, _P]),
         "fixed_point": (_I, [_P, _I, _P, ctypes.c_longlong, _F, _F, _F, _I,
                              _I, _F, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
@@ -86,6 +88,8 @@ LAUNCHES: Dict[str, int] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: (library, function) -> the resolved ctypes function
+_fns: Dict[Tuple[str, str], Callable] = {}
 
 
 def reset_launches() -> None:
@@ -106,8 +110,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library built from ``csrc/<name>.cu`` lives (its name
+    hashes the source, the headers beside it and the flags)."""
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu",
+                                           *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -156,16 +162,29 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def function(lib_name: str, name: str) -> Callable:
+    """The C function ``name`` of library ``lib_name``, resolved once (the
+    library's lock is taken only then)."""
+    fn = _fns.get((lib_name, name))
+    if fn is None:
+        fn = _fns[(lib_name, name)] = getattr(library(lib_name), name)
+    return fn
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on CUDA ``device`` as a raw pointer, without
+    building a ``torch.cuda.Stream`` object as ``current_stream`` does."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def launch(lib_name: str, kernel: str, device: torch.device, *args) -> None:
     """Call the C function ``kernel`` of library ``lib_name`` with ``args``
     on PyTorch's current stream of ``device``, raise if it returned a CUDA
     error (a refused launch never runs, and a later synchronise would not
     report it), and count the launch."""
-    lib = library(lib_name)
-    rc = getattr(lib, kernel)(*args,
-                              torch.cuda.current_stream(device).cuda_stream)
+    rc = function(lib_name, kernel)(*args, stream_ptr(device))
     if rc != 0:
-        msg = lib.kernel_error_string(rc).decode()
+        msg = library(lib_name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
     LAUNCHES[kernel] += 1
 

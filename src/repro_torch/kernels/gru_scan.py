@@ -3,7 +3,10 @@
 Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas``,
 ``gru_scan_hoisted_pallas`` and ``gru_scan_pipeline_pallas``.  The kernels
 live in ``csrc/rnn_scan.cu``: the in-loop one a thread-block-cluster
-kernel at a layout from ``kernels/scan_layout.py``.  The pipeline kernel
+kernel at a layout from ``kernels/scan_layout.py``, for h up to
+``MAX_CLUSTER_HIDDEN``; past it the in-loop function runs as
+``col_matmul`` and the hoisted kernel (:func:`gru_scan_composed`).  The
+pipeline kernel
 computes the hoisted kernel's function with its R column tiles issued
 together, so both share one plain version.
 
@@ -19,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.scan_layout import launch_scan
+from repro_torch.kernels.reuse_matmul import col_matmul_kernel
+from repro_torch.kernels.scan_layout import launch_scan, scan_route
 
 
 def _gate_update(zx: torch.Tensor, zh: torch.Tensor, h: torch.Tensor,
@@ -78,10 +82,11 @@ def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
                     b: torch.Tensor, *, reuse: int = 1) -> torch.Tensor:
     """xs: [B, T, in] f32|bf16; W: [in, 3h], U: [h, 3h], b: [2, 3h] f32
     -> final h [B, h] in xs's dtype.  ``reuse`` must divide 3h.  On the
-    card the cluster kernel runs at
-    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout; it takes
-    h <= 128 (U in registers) and raises ValueError on a larger h, which
-    ``repro``'s Pallas kernel takes."""
+    card :func:`~repro_torch.kernels.scan_layout.scan_route` picks the path:
+    the cluster kernel at
+    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout for h up
+    to ``MAX_CLUSTER_HIDDEN`` (U in registers), else
+    :func:`gru_scan_composed`."""
     hidden = U.shape[0]
     _check_shapes("gru_scan", hidden, reuse, U, W.shape[-1])
     if W.shape[0] != xs.shape[-1] or b.shape != (2, 3 * hidden):
@@ -91,7 +96,23 @@ def gru_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
         return gru_scan_plain(xs, W, U, b, reuse=reuse)
     if xs.device.type != "cuda":
         raise ValueError(f"gru_scan: no kernel for device {xs.device}")
-    return launch_scan("gru", xs, W, U, b, reuse)
+    if scan_route(hidden) == "cluster":
+        return launch_scan("gru", xs, W, U, b, reuse)
+    return gru_scan_composed(xs, W, U, b, reuse=reuse)
+
+
+def gru_scan_composed(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
+    """The in-loop function as two kernels, the route past the cluster
+    kernel's h: the input side of every step as one ``col_matmul`` of
+    ``xs`` [B*T, in] (widened to f32, exact) by W at the same R, plus b_in,
+    then ``gru_scan_hoisted`` on that zx with b_rec: the in-loop gates tile
+    by tile, with only x W summed in another order.  On CPU tensors both
+    wrappers run their plain versions."""
+    B, T, fin = xs.shape
+    zx = col_matmul_kernel(xs.float().reshape(B * T, fin), W, reuse=reuse)
+    return gru_scan_hoisted_kernel((zx + b[0]).reshape(B, T, -1), U,
+                                   b[1].contiguous(), reuse=reuse,
+                                   out_dtype=xs.dtype)
 
 
 def _hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype) -> torch.Tensor:

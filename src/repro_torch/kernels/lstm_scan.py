@@ -4,7 +4,10 @@ Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas``,
 ``lstm_scan_hoisted_pallas`` and ``lstm_scan_pipeline_pallas``.  The kernels
 live in ``csrc/rnn_scan.cu`` (its header says what bounds them on an H100
 and how the design answers); the in-loop one is a thread-block-cluster
-kernel at a layout from ``kernels/scan_layout.py``.  The pipeline kernel
+kernel at a layout from ``kernels/scan_layout.py``, for h up to
+``MAX_CLUSTER_HIDDEN``; past it the in-loop function runs as
+``col_matmul`` and the hoisted kernel (:func:`lstm_scan_composed`).  The
+pipeline kernel
 computes the hoisted kernel's function with its R column tiles issued
 together, so both share one plain version.
 
@@ -20,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.scan_layout import launch_scan
+from repro_torch.kernels.reuse_matmul import col_matmul_kernel
+from repro_torch.kernels.scan_layout import launch_scan, scan_route
 
 
 def _gate_update(z: torch.Tensor, c: torch.Tensor, hidden: int):
@@ -81,10 +85,11 @@ def lstm_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
                      b: torch.Tensor, *, reuse: int = 1) -> torch.Tensor:
     """xs: [B, T, in] f32|bf16; W: [in, 4h], U: [h, 4h], b: [4h] f32
     -> final h [B, h] in xs's dtype.  ``reuse`` must divide 4h.  On the
-    card the cluster kernel runs at
-    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout; it takes
-    h <= 128 (U in registers) and raises ValueError on a larger h, which
-    ``repro``'s Pallas kernel takes."""
+    card :func:`~repro_torch.kernels.scan_layout.scan_route` picks the path:
+    the cluster kernel at
+    :func:`~repro_torch.kernels.scan_layout.card_layout`'s layout for h up
+    to ``MAX_CLUSTER_HIDDEN`` (U in registers), else
+    :func:`lstm_scan_composed`."""
     hidden = U.shape[0]
     _check_shapes("lstm_scan", hidden, reuse, U, b, W.shape[-1])
     if W.shape[0] != xs.shape[-1]:
@@ -94,7 +99,22 @@ def lstm_scan_kernel(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
         return lstm_scan_plain(xs, W, U, b, reuse=reuse)
     if xs.device.type != "cuda":
         raise ValueError(f"lstm_scan: no kernel for device {xs.device}")
-    return launch_scan("lstm", xs, W, U, b, reuse)
+    if scan_route(hidden) == "cluster":
+        return launch_scan("lstm", xs, W, U, b, reuse)
+    return lstm_scan_composed(xs, W, U, b, reuse=reuse)
+
+
+def lstm_scan_composed(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
+    """The in-loop function as two kernels, the route past the cluster
+    kernel's h: the input side of every step as one ``col_matmul`` of
+    ``xs`` [B*T, in] (widened to f32, exact) by W at the same R, then
+    ``lstm_scan_hoisted`` on that zx: ``(x_t W + h U) + b`` tile by tile,
+    with only x W summed in another order.  On CPU tensors both wrappers
+    run their plain versions."""
+    B, T, fin = xs.shape
+    zx = col_matmul_kernel(xs.float().reshape(B * T, fin), W, reuse=reuse)
+    return lstm_scan_hoisted_kernel(zx.reshape(B, T, -1), U, b, reuse=reuse,
+                                    out_dtype=xs.dtype)
 
 
 def _hoisted(kernel: str, zx, U, b, reuse, out_dtype) -> torch.Tensor:

@@ -4,9 +4,10 @@ quantized cells and scan.
 
 Replaces ``repro/kernels/quantized.py``'s ``quant_matmul_pallas``
 (int8 [M, K] @ int8 [K, N] -> exact int32, the N columns in R sequential
-tiles in-block, the whole weight resident); the kernel lives in
-``csrc/quantized.cu``.  The integral configs (``is_native_int``: signed,
-rnd, sat, <= 8 total bits) run genuinely low-precision:
+tiles in-block); the kernel lives in ``csrc/quantized.cu``, tiled over
+rows, columns and K on the int8 tensor cores.  The integral configs
+(``is_native_int``: signed, rnd, sat, <= 8 total bits) run genuinely
+low-precision:
 
   * weights pack to int8 grid indices (int4 configs nibble-pack two
     weights per byte along K) once per scan call, ahead of the time loop,
@@ -48,10 +49,6 @@ from repro_torch.core.rnn.cells import (gru_cell_quantized,
                                         quantized_cell_scan)
 from repro_torch.kernels import cuda, ref
 from repro_torch.kernels.schedule import KernelSchedule, schedule_key
-
-#: shared memory a block may use; quant_matmul stages the whole weight
-MAX_SMEM_BYTES = 227 * 1024
-
 
 # ---------------------------------------------------------------------------
 # Packed integer weight layouts
@@ -112,18 +109,11 @@ def quant_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return torch.cat(tiles, dim=-1).to(torch.int32)
 
 
-def quant_matmul_smem_bytes(k: int, n: int) -> int:
-    """Shared memory the kernel stages for a [k, n] weight at its most rows
-    per block (8): the weight and x, K-interleaved in 4-byte words."""
-    k4 = -(-k // 4)
-    return 4 * (k4 * n + 8 * k4)
-
-
 def quant_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
                         reuse: int = 1) -> torch.Tensor:
     """x: [M, K] int8 @ w: [K, N] int8 -> [M, N] int32, exact, the N
-    columns in ``reuse`` sequential tiles over the resident weight
-    (``reuse`` must divide N)."""
+    columns in ``reuse`` sequential tiles (``reuse`` must divide N).  The
+    kernel stages only the tiles it multiplies, so any K x N weight runs."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"quant_matmul: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)} is not a matrix product")
@@ -135,9 +125,6 @@ def quant_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for device {x.device}")
     dev = cuda.require_int8("quant_matmul", x=x, w=w)
-    if quant_matmul_smem_bytes(K, N) > MAX_SMEM_BYTES:
-        raise ValueError(f"quant_matmul: a {K}x{N} int8 weight does not fit "
-                         f"the {MAX_SMEM_BYTES} bytes of a block")
     out = torch.empty(M, N, dtype=torch.int32, device=dev)
     if M:
         cuda.launch("quantized", "quant_matmul", dev, x.data_ptr(),

@@ -9,9 +9,9 @@ kernels live in ``csrc/reuse_matmul.cu``.
 A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, which repeats the kernel's R-tiled arithmetic with f32
 accumulation; any other device raises.  Shapes and types are checked before
-anything runs.  Rows per thread block are chosen for the card, so ``M``
-needs no padding here (``ops`` pads to the TPU kernels' row granule anyway,
-as ``repro`` does).
+anything runs.  The kernels pick their tiles for the shape and mask the
+ragged edges, so ``M`` needs no padding here (``ops`` pads to the TPU
+kernels' row granule anyway, as ``repro`` does).
 """
 
 from __future__ import annotations

@@ -7,9 +7,12 @@ u = ceil(H / C), with all G gate columns of each, and every CTA keeps the
 tile's full h, double-buffered.  Each unit's recurrent products are split
 over ``k_split`` neighbouring lanes: lane s holds the U rows k = s,
 s + k_split, ... of its unit's G columns in registers (at most 16), so no
-step reads U from memory.  So H is at most 128 (8 lanes x 16 rows; 16 lanes
-would need more than 256 threads a CTA at H > 128): a larger H raises
-where ``repro``'s Pallas kernel takes any H.
+step reads U from memory.  So the cluster kernel takes H up to
+:data:`MAX_CLUSTER_HIDDEN` = 128 (8 lanes x 16 rows; 16 lanes would need
+more than 256 threads a CTA past it), and :func:`scan_layout` refuses a
+larger H.  ``repro``'s Pallas kernel takes any H, and so does the port on
+the card: :func:`scan_route` sends a larger H to the input side as one
+``col_matmul`` and the recurrence to the hoisted scan kernel.
 
 :func:`scan_layout` picks the layout from the shapes and from how many
 clusters of each candidate the card holds at once: on the card the C
@@ -37,6 +40,9 @@ CLUSTERS = (1, 2, 4, 8)             # 8: the portable maximum
 ROWS = (1, 8)                       # batch rows a cluster carries
 MAX_K = 16                          # U rows a lane holds in registers
 K_SPLITS = (2, 8)
+#: the largest H the cluster kernel takes: MAX_K U rows on each of a unit's
+#: K_SPLITS[-1] lanes
+MAX_CLUSTER_HIDDEN = MAX_K * K_SPLITS[-1]
 #: x values each thread loads a step, at most
 X_PER_THREAD = 4
 GATE_SLOTS = 4                      # W / b padded to 4 gates a unit
@@ -105,6 +111,15 @@ def _candidate(B, hidden, fin, cell, cluster, rows):
     return ScanLayout(cluster, rows, ks, threads, smem, -(-B // rows))
 
 
+def scan_route(hidden: int) -> str:
+    """The path a static in-loop scan of ``hidden`` units takes on the card:
+    ``"cluster"`` (the cluster kernel, ``lstm_scan`` / ``gru_scan``) up to
+    :data:`MAX_CLUSTER_HIDDEN`, else ``"hoisted"``: the input side of every
+    step as one ``col_matmul``, then ``lstm_scan_hoisted`` /
+    ``gru_scan_hoisted`` over it."""
+    return "cluster" if hidden <= MAX_CLUSTER_HIDDEN else "hoisted"
+
+
 def model_resident(lay: ScanLayout, sms: int = SMS) -> int:
     """The clusters of ``lay`` an H100 holds at once, as a model for where
     no card answers (the CPU tests): every thread at the 255 registers
@@ -139,7 +154,7 @@ def scan_layout(B: int, hidden: int, fin: int, cell: str, reuse: int = 1,
     if not cands:
         raise ValueError(f"scan_layout: no cluster layout fits {cell} "
                          f"H={hidden} in={fin} (H <= "
-                         f"{MAX_K * K_SPLITS[-1]}, at most {MAX_THREADS} "
+                         f"{MAX_CLUSTER_HIDDEN}, at most {MAX_THREADS} "
                          f"threads and {SMEM_LIMIT} bytes a CTA)")
     resident = resident or model_resident
 

@@ -286,7 +286,8 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
     assert len(set(paths.values())) == 6
     kernels = {fn for sigs in cuda.SIGNATURES.values() for fn in sigs
                if fn not in ("kernel_error_string", "scan_rows_per_block",
-                             "cluster_scan_resident")}
+                             "cluster_scan_resident", "col_matmul_layout",
+                             "quant_matmul_layout")}
     assert kernels == set(cuda.LAUNCHES) and len(kernels) == 13
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
