@@ -27,9 +27,13 @@ In order, it
      int8 weight; ``fixed_point``
      (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
      steps, float32 and bfloat16, for seven ap_fixed configs;
-     ``decode_matmul`` at gemma-2b's four per-token products (bf16, M = 4,
-     and q|k|v at M = 3) and at the taggers' decode-step products (f32,
-     M = 1 and 256), R = 4 bit for bit equal to R = 1; ``rglru_scan`` (bit
+     ``decode_matmul`` (split-K: chunks folded in chunk order, in the
+     block or by a fold kernel) at gemma-2b's four per-token products
+     (bf16, M = 4, and q|k|v at M = 3) and at the taggers' decode-step
+     products (f32, M = 1 and 256), R = 4 and a second call bit for bit
+     equal to R = 1, and that its C entry point refuses a layout it cannot
+     run; ``gru_scan_hoisted`` (the cluster kernel's zx mode) also at
+     B = 8 and 9, on the cluster entry point; ``rglru_scan`` (bit
      for bit, R = 2 and 4 equal to R = 1) at (4, 12, 20), the ragged
      (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
      {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
@@ -63,10 +67,12 @@ In order, it
                 d_model 2048, bf16, seeded weights drawn on the card)
                 served through ``LMServingEngine(device="cuda")``: 4
                 requests of 8 prompt + 8 new tokens on keys R = 1, R = 4
-                (every projection on ``decode_matmul``, 72 launches a
-                tick) and the default key (einsum); R = 1 and R = 4 give
-                the same tokens and first-step logits bit for bit, the
-                einsum logits agree within 2e-2; one executor per key;
+                (every projection on ``decode_matmul``, 72 calls a tick,
+                and in a trace of one tick exactly the device kernels their
+                layouts launch) and the default key (einsum); R = 1 and
+                R = 4 give the same tokens and first-step logits bit for
+                bit, the einsum logits agree within 2e-2; one executor per
+                key;
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -78,7 +84,9 @@ In order, it
                 ``ap_fixed<8,3>`` equal in value to the emulation; then
                 ``ops.hadamard`` at (16384, 4096) bf16 (one ``hadamard``
                 launch, bit for bit equal to ``torch.mul``);
-     and checks that every kernel of each path was launched;
+     and checks that every kernel of each path was launched (``static``:
+     the hoisted GRU's 3 flushes on the cluster kernel; ``static_wide``:
+     on the block kernel);
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace; the
      cluster scans at B = 256 and B = 8, with their cluster layout) beside
@@ -121,6 +129,13 @@ gate products (B = 256 and 8, R = 1 and 4; events and device ms beside
 its parts, whole QuickDraw LSTM non-static and native ``ap_fixed<8,3>``
 scans, and the six engines' ``predict_one`` and flush of 256 in those two
 modes.
+
+    python3 chip_smoke.py --time-decode [--src DIR]
+
+likewise times only ``decode_matmul`` at gemma-2b's four products and the
+taggers' decode-step products (R = 1 and 4; events, device ms and, for
+gemma-2b, device ms after an L2 flush, beside ``torch.matmul``) and
+gemma-2b's decode tick per key (host-clock latency and a trace).
 """
 
 from __future__ import annotations
@@ -365,11 +380,15 @@ def hoist_call(tag, xs, W) -> dict:
 
 
 def small_batch_calls(tag, r, dtype, seed, device, timing=False) -> list:
-    """The in-loop static scan (``lstm_scan`` / ``gru_scan``) called
-    directly at the trigger's batch (B = 8: ``predict_one``'s padded row
-    count) and a ragged B = 9 (timing: B = 8 only), R in ``REUSES``."""
+    """The in-loop static scan (``lstm_scan`` / ``gru_scan``), and for a GRU
+    tagger the hoisted scan (``gru_scan_hoisted``, the cluster kernel's zx
+    mode) on zx from the port's hoist stage, called directly at the
+    trigger's batch (B = 8: ``predict_one``'s padded row count) and a
+    ragged B = 9 (timing: B = 8 only), R in ``REUSES``."""
     from repro_torch.kernels import gru_scan as gs
     from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels.ops import _hoist_stage
+    from repro_torch.kernels.schedule import KernelSchedule
 
     name = f"{r.cell}_scan"
     mod = ls if r.cell == "lstm" else gs
@@ -387,6 +406,20 @@ def small_batch_calls(tag, r, dtype, seed, device, timing=False) -> list:
                 lambda R=reuse: kern(*args, reuse=R),
                 lambda R=reuse: plain(*args, reuse=R), args, flops,
                 library_call(name, args) if timing else None)))
+        if r.cell != "gru":
+            continue
+        zx = _hoist_stage(xs, W, KernelSchedule())
+        hargs = ((zx + b[0]).contiguous(), U, b[1].contiguous())
+        hflops = 2.0 * B * r.seq_len * r.hidden * g * r.hidden
+        for reuse in REUSES:
+            kw = {"reuse": reuse, "out_dtype": dtype}
+            out.append((reuse, call(
+                "gru_scan_hoisted", f"{tag} B={B} R={reuse}",
+                lambda kw=kw: gs.gru_scan_hoisted_kernel(*hargs, **kw),
+                lambda kw=kw: gs.gru_scan_hoisted_plain(*hargs, **kw),
+                hargs, hflops,
+                library_call("gru_scan_hoisted", hargs) if timing
+                else None)))
     return out
 
 
@@ -732,7 +765,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 KERNEL_GROUPS = (("cluster_scan_kernel", "cluster scan kernels"),
                  ("rglru_scan_kernel", "rglru_scan"),
                  ("hadamard_kernel", "hadamard"),
-                 ("decode_matmul_kernel", "decode_matmul"),
+                 ("decode_matmul", "decode_matmul"),   # and its fold
                  ("col_matmul_kernel", "col_matmul"),
                  ("reuse_matmul_kernel", "reuse_matmul"),
                  ("quant_matmul_kernel", "quant_matmul"),
@@ -794,14 +827,26 @@ def phase_kernels(device) -> dict:
     """Every kernel against its plain version at every main-path shape."""
     import torch
 
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.scan_layout import scan_route
+
     errs: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for tag, reuse, c in all_calls(dtype, device):
+            cuda.reset_launches()
             with torch.inference_mode():
                 got = c["kern"]()
                 torch.cuda.synchronize()
                 want = c["plain"]()
+            if c["name"] == "gru_scan_hoisted":
+                # H <= 128: the cluster kernel's zx mode, never the block
+                hidden = c["inputs"][1].shape[0]
+                entry = ("gru_scan_hoisted" if scan_route(hidden) ==
+                         "cluster" else "gru_scan_hoisted_block")
+                check(cuda.ENTRIES == {entry: 1},
+                      f"gru_scan_hoisted {c['shape']}: entries "
+                      f"{cuda.ENTRIES}, expected one {entry}")
             check(got.dtype == want.dtype and got.shape == want.shape,
                   f"{c['name']} {c['shape']}: {got.dtype} "
                   f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
@@ -835,14 +880,19 @@ def phase_kernels(device) -> dict:
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"decode_matmul {c['shape']}: {got.dtype} {tuple(got.shape)}")
         err, scale = max_err(got, want)
-        # every R sums each column in one order: R = 4 gives R = 1's bits
+        # every R sums each column in one order: R = 4 gives R = 1's bits,
+        # and a second call the first one's
         key = c["shape"].rsplit(" R=", 1)[0]
         same = same_bits(got, first_tile.setdefault(key, got))
+        with torch.inference_mode():
+            again = same_bits(c["kern"](), got)
         print(f"check {c['name']:18s} {c['shape']:44s} {dt:8s}: max_abs_err "
-              f"{err:.3e} (tol {tol * scale:.1e}); bits equal to R=1: {same}")
+              f"{err:.3e} (tol {tol * scale:.1e}); bits equal to R=1: "
+              f"{same}, to a second call: {again}")
         check(bool(np.isfinite(err)) and err <= tol * scale,
               f"decode_matmul {c['shape']}: err {err}")
         check(same, f"decode_matmul {c['shape']}: R={reuse} differs from R=1")
+        check(again, f"decode_matmul {c['shape']}: a second call differs")
         errs["decode_matmul"] = max(errs.get("decode_matmul", 0.0), err)
     check_elementwise(device, errs)
     check_bad_layouts(device)
@@ -855,9 +905,10 @@ INVALID_VALUE = 1
 
 
 def check_bad_layouts(device) -> None:
-    """The C entry points ``lstm_scan`` / ``gru_scan`` refuse a layout that
-    breaks the kernel's rules with cudaErrorInvalidValue, and launch
-    nothing (called directly: no launch is counted)."""
+    """The C entry points ``lstm_scan`` / ``gru_scan`` / ``gru_scan_hoisted``
+    and ``decode_matmul`` refuse a layout that breaks the kernel's rules
+    with cudaErrorInvalidValue, and launch nothing (called directly: no
+    launch is counted)."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -866,16 +917,20 @@ def check_bad_layouts(device) -> None:
     lib = cuda.library("rnn_scan")
     B, T, fin, H = 9, 5, 6, 20
     stream = torch.cuda.current_stream(device).cuda_stream
-    for cell in ("lstm", "gru"):
+    for cell in ("lstm", "gru", "gru_hoisted"):
+        hoisted = cell == "gru_hoisted"
+        cell = cell[:-8] if hoisted else cell
         xs, W, U, b = scan_inputs(cell, T, fin, H, torch.float32, 5, device,
                                   batch=B)
         out = torch.full((B, H), 7.0, device=device)
-        good = sl.card_layout(B, H, fin, cell, 1, False, device.index)
+        good = sl.card_layout(B, H, 0 if hoisted else fin, cell, 1, False,
+                              device.index, hoisted)
         bad = {
             "cluster 3": good._replace(cluster=3),
             "a CTA without units": good._replace(
                 cluster=8, smem_bytes=sl.smem_bytes(cell, H, fin, 8,
-                                                    good.k_split, good.rows)),
+                                                    good.k_split, good.rows,
+                                                    hoisted)),
             "rows 16": good._replace(rows=16),
             "k_split 1": good._replace(k_split=1),
             "k_split 4": good._replace(k_split=4),
@@ -884,17 +939,73 @@ def check_bad_layouts(device) -> None:
             "smem 4 bytes short": good._replace(
                 smem_bytes=good.smem_bytes - 4),
         }
+        name = f"{cell}_scan_hoisted" if hoisted else f"{cell}_scan"
+        zx = torch.zeros(B, T, 3 * H, device=device)
         for what, lay in bad.items():
-            rc = getattr(lib, f"{cell}_scan")(
-                xs.data_ptr(), 0, W.data_ptr(), U.data_ptr(), b.data_ptr(),
-                out.data_ptr(), B, T, fin, H, 1, *lay[:5], stream)
-            print(f"check {cell}_scan refuses layout {tuple(lay[:5])} "
+            if hoisted:
+                rc = lib.gru_scan_hoisted(
+                    zx.data_ptr(), U.data_ptr(), b[1].data_ptr(),
+                    out.data_ptr(), 0, B, T, H, 1, *lay[:5], stream)
+            else:
+                rc = getattr(lib, name)(
+                    xs.data_ptr(), 0, W.data_ptr(), U.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), B, T, fin, H, 1, *lay[:5],
+                    stream)
+            print(f"check {name} refuses layout {tuple(lay[:5])} "
                   f"({what}): error {rc}")
-            check(rc == INVALID_VALUE, f"{cell}_scan took a bad layout "
+            check(rc == INVALID_VALUE, f"{name} took a bad layout "
                   f"({what}): returned {rc}")
         torch.cuda.synchronize()
-        check(bool((out == 7.0).all()), f"{cell}_scan wrote out on a refused "
+        check(bool((out == 7.0).all()), f"{name} wrote out on a refused "
               f"launch")
+    check_bad_decode_layouts(device)
+
+
+def check_bad_decode_layouts(device) -> None:
+    """``decode_matmul``'s C entry point refuses a layout it cannot run
+    (cudaErrorInvalidValue) and writes nothing."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import decode_step as ds
+
+    fn = cuda.function("decode_matmul", "decode_matmul")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    M, K, N = LM_BATCH, 2048, 512
+    gen = torch.Generator(device=device).manual_seed(77)
+    x = torch.randn(M, K, generator=gen, device=device).bfloat16()
+    wbig = torch.randn(K * N + 8, generator=gen, device=device).bfloat16()
+    w = wbig[:K * N].view(K, N)
+    good = ds.decode_layout(M, K, N, 1, True)
+    ws = torch.empty(good.chunks, M, N, device=device)
+    out = torch.full((M, N), 7.0, device=device).bfloat16()
+    vec, rows, chunk, cps, warps, k_warps = good.c_args()
+    check(good.splits > 1, f"decode_matmul at {(M, K, N)}: one split "
+          f"{good}; the workspace check needs more")
+    bad = {
+        "vec 3": (w, ws, (3, rows, chunk, cps, warps, k_warps)),
+        "w off 16-byte alignment": (wbig[1:K * N + 1].view(K, N), ws,
+                                    good.c_args()),
+        "rows 3": (w, ws, (vec, 3, chunk, cps, warps, k_warps)),
+        "warps 8": (w, ws, (vec, rows, chunk, cps, 8, k_warps)),
+        "k_warps 3": (w, ws, (vec, rows, chunk, cps, warps, 3)),
+        "512 threads": (w, ws, (vec, rows, chunk, cps, 4, 4)),
+        "chunk 0": (w, ws, (vec, rows, 0, cps, warps, k_warps)),
+        "cps 0": (w, ws, (vec, rows, chunk, 0, warps, k_warps)),
+        "x over 32 KiB": (w, ws, (vec, 8, chunk, K, warps, k_warps)),
+        "no workspace": (w, None, good.c_args()),
+    }
+    for what, (wt, wst, lay) in bad.items():
+        rc = fn(x.data_ptr(), wt.data_ptr(), 1, out.data_ptr(),
+                0 if wst is None else wst.data_ptr(), M, K, N, 1, *lay,
+                stream)
+        print(f"check decode_matmul refuses layout {lay} ({what}): error "
+              f"{rc}")
+        check(rc == INVALID_VALUE, f"decode_matmul took a bad layout "
+              f"({what}): returned {rc}")
+    torch.cuda.synchronize()
+    check(bool((out.float() == 7.0).all()),
+          "decode_matmul wrote out on a refused launch")
 
 
 def check_elementwise(device, errs: dict) -> None:
@@ -927,10 +1038,15 @@ def check_elementwise(device, errs: dict) -> None:
         errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
 
 
+#: path -> calls per C entry point in its drive (``cuda.ENTRIES``)
+ROUTES: dict = {}
+
+
 def drive(path: str, run, kernels) -> tuple:
     """Run one main path with every launch count set to 0 just before it;
     read the counts just after and check each kernel of the path ran.
-    Returns (launches, the path's result)."""
+    Returns (launches, the path's result); the calls per C entry point go
+    into ``ROUTES[path]``."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -939,7 +1055,9 @@ def drive(path: str, run, kernels) -> tuple:
     result = run()
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
-    print(f"launches on the {path} path: {launches}")
+    ROUTES[path] = dict(cuda.ENTRIES)
+    print(f"launches on the {path} path: {launches}; C entry points "
+          f"{ROUTES[path]}")
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {path} path")
@@ -1035,6 +1153,13 @@ def phase_serving(device) -> dict:
     launches["static"], static = drive(
         "static", static_path, ("lstm_scan", "lstm_scan_hoisted",
                                 "gru_scan", "gru_scan_hoisted"))
+    # one hoisted flush a tagger: each GRU tagger's on the cluster kernel
+    n_gru = sum(get_config(t).rnn.cell == "gru" for t in TAGGERS)
+    check(launches["static"]["gru_scan_hoisted"] == n_gru
+          and ROUTES["static"].get("gru_scan_hoisted") == n_gru
+          and "gru_scan_hoisted_block" not in ROUTES["static"],
+          f"static: gru_scan_hoisted launches {launches['static']} / "
+          f"{ROUTES['static']}, expected {n_gru} on the cluster kernel")
     launches["modes"], moded = drive(
         "modes", modes_path, ("col_matmul", "lstm_scan_pipeline",
                               "gru_scan_pipeline", "lstm_scan_hoisted",
@@ -1104,6 +1229,11 @@ def drive_wide_scans(device) -> dict:
                      "gru_scan_hoisted": n}
     check({k: v for k, v in launches.items() if v} == want_launches,
           f"static_wide launches {launches}, expected {want_launches}")
+    # past the cluster kernel's H the hoisted GRU runs on the block kernel
+    check(ROUTES["static_wide"].get("gru_scan_hoisted_block") == n
+          and "gru_scan_hoisted" not in ROUTES["static_wide"],
+          f"static_wide: entries {ROUTES['static_wide']}, expected {n} "
+          f"gru_scan_hoisted_block")
     for (cell, args), g in zip(cases, got):
         scan = ops.lstm_scan if cell == "lstm" else ops.gru_scan
         with torch.inference_mode():
@@ -1330,14 +1460,32 @@ def phase_lm_decode(device) -> tuple:
               f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
               f"{row['tokens_per_s']:.1f} tokens/s")
 
-    # one scheduled tick (R = 1) and one einsum tick in a device trace
+    # one scheduled tick (R = 1) and one einsum tick in a device trace; a
+    # scheduled tick launches each call's kernels: the product and, where
+    # K takes more than one chunk, the chunk fold
+    from repro_torch.kernels.decode_step import decode_layout
+
+    per_call = [decode_layout(LM_BATCH, K, N, 1, True).launches
+                for K, N in lm_products(cfg).values()]
+    device_per_tick = cfg.n_layers * sum(per_call)
     cache = init_cache(cfg, LM_BATCH, LM_SEQ, "float32", device)
     for k in ("R1", "default"):
-        trace = device_trace(lambda k=k: decode_step(
-            cfg, eng.params, cache, tok0, pos0, schedule=decs[k].schedule,
-            packed=decs[k].packed))
+        for _ in range(3):              # a trace now and then comes back empty
+            trace = device_trace(lambda k=k: decode_step(
+                cfg, eng.params, cache, tok0, pos0,
+                schedule=decs[k].schedule, packed=decs[k].packed))
+            if trace:
+                break
         report["keys"][k]["trace"] = trace
         print(f"  trace of one {k} step: {json.dumps(trace)}")
+    got = report["keys"]["R1"]["trace"].get("kernels", {}).get(
+        "decode_matmul", {}).get("launches")
+    print(f"  a scheduled tick: {per_tick} decode_matmul calls, "
+          f"{device_per_tick} device kernels (per call {per_call}); the "
+          f"trace shows {got}")
+    check(got == device_per_tick, f"{LM}: the R1 tick's trace shows {got} "
+          f"decode_matmul kernels, expected {device_per_tick}")
+    report["device_kernels_per_tick"] = device_per_tick
     del eng, params, decs
     torch.cuda.empty_cache()
     return launches, report
@@ -1491,7 +1639,7 @@ def phase_timing(device) -> tuple:
 
     from repro_torch.kernels import cuda
     from repro_torch.kernels.scan_layout import (card_layout, card_resident,
-                                                 model_resident)
+                                                 model_resident, scan_route)
 
     rows = []
     small_kernels = ("col_matmul", "reuse_matmul", "quant_matmul",
@@ -1520,23 +1668,32 @@ def phase_timing(device) -> tuple:
         # launch rate; the trace reads the device's own time per call
         calls = 50 if small else 10
         own = small or c["name"] == "rglru_scan"
-        cluster = c["name"] in CLUSTER_SCANS
-        group = (c["name"] if own else
-                 "cluster scan kernels" if cluster else "scan kernels")
+        # a scan runs on the cluster kernel or the block kernel by shape
+        group = c["name"] if own else ("cluster scan kernels",
+                                       "scan kernels")
         row["device_ms"] = per_call(c["kern"], group, calls)
         row["library_device_ms"] = (per_call(lib, "other", calls) if lib
                                     else None)
-        if cluster:
-            xs, U = c["inputs"][0], c["inputs"][2]
-            cell, bf16 = c["name"][:-5], xs.dtype == torch.bfloat16
-            lay = card_layout(xs.shape[0], U.shape[0], xs.shape[-1], cell,
-                              reuse, bf16, xs.device.index)
+        hoisted_cluster = (c["name"] == "gru_scan_hoisted"
+                           and scan_route(c["inputs"][1].shape[0])
+                           == "cluster")
+        if c["name"] in CLUSTER_SCANS or hoisted_cluster:
+            xs, U = c["inputs"][0], c["inputs"][1 if hoisted_cluster else 2]
+            cell = "gru" if hoisted_cluster else c["name"][:-5]
+            bf16 = out.dtype == torch.bfloat16
+            fin = 0 if hoisted_cluster else xs.shape[-1]
+            lay = card_layout(xs.shape[0], U.shape[0], fin, cell, reuse,
+                              bf16, xs.device.index, hoisted_cluster)
             # clusters the card holds at once (its occupancy query) beside
             # the CPU tests' model of it
             row["layout"] = {**lay._asdict(),
-                             "resident": card_resident(cell, bf16, reuse,
-                                                       lay),
+                             "resident": card_resident(
+                                 cell, bf16, reuse, lay,
+                                 **({"hoisted": True} if hoisted_cluster
+                                    else {})),
                              "model_resident": model_resident(lay)}
+        elif c["name"] == "decode_matmul":
+            row["layout"] = decode_layout_row(c["inputs"], reuse)
         elif c["name"] in PRODUCT_LIBS:
             (M, K), N = c["inputs"][0].shape, c["inputs"][1].shape[1]
             row["layout"] = product_layout(c["name"], M, K, N, reuse)
@@ -1568,6 +1725,19 @@ def phase_timing(device) -> tuple:
 
 #: the entries of the two tiled products' C libraries (layout exports)
 PRODUCT_LIBS = {"col_matmul": "reuse_matmul", "quant_matmul": "quantized"}
+
+
+def decode_layout_row(inputs, reuse) -> dict:
+    """``decode_matmul``'s launch layout for (x, w) at this R (the Python
+    layout the C entry point takes), with its blocks and launches."""
+    import torch
+
+    from repro_torch.kernels.decode_step import decode_layout
+
+    x, w = inputs
+    lay = decode_layout(x.shape[0], x.shape[1], w.shape[1], reuse,
+                        x.dtype == torch.bfloat16, w.data_ptr() % 16 == 0)
+    return {**lay._asdict(), "blocks": lay.blocks, "launches": lay.launches}
 
 
 def product_layout(name: str, M: int, K: int, N: int, reuse: int) -> dict:
@@ -1613,10 +1783,12 @@ def ptxas_report(paths) -> dict:
     return report
 
 
-def ptxas_summary(report: dict, name: str) -> dict:
+def ptxas_summary(report: dict, name: str, fragment: str = "") -> dict:
     """The compiled instances of kernel ``name`` (its template
-    instantiations): how many, their registers, their spill bytes."""
-    inst = [v for k, v in report.items() if f"{name}_kernel" in k]
+    instantiations; with ``fragment``, those whose mangled name holds it):
+    how many, their registers, their spill bytes."""
+    inst = [v for k, v in report.items()
+            if f"{name}_kernel" in k and fragment in k]
     return {"instances": len(inst),
             "registers": sorted(v["registers"] for v in inst),
             "spill_bytes": sum(v["spill_bytes"] for v in inst)}
@@ -1812,7 +1984,8 @@ def time_scans(device) -> dict:
     """``--time-scans``: the in-loop static scans (``lstm_scan`` /
     ``gru_scan``) of every tagger, float32, at B = 8 (R = 1) and B = 256
     (R = 1 and 4): device time per call from a trace and CUDA events,
-    with cuDNN's for the same function beside them; and the engines'
+    with cuDNN's for the same function beside them; the hoisted and
+    pipeline scans likewise (:func:`time_hoisted_scans`); and the engines'
     ``predict_one`` p50 / p99 and flush-of-256 p50 (host clock).  It times
     whichever tree's ``repro_torch`` was imported: with
     ``--src`` an older tree (an unpacked parent commit) is timed the same
@@ -1827,7 +2000,7 @@ def time_scans(device) -> dict:
     from repro_torch.models.rnn_tagger import param_specs
     from repro_torch.serving import RNNServingEngine
 
-    out = {"kernels": [], "engines": []}
+    out = {"kernels": [], "hoisted": [], "engines": []}
     for i, tag in enumerate(TAGGERS):
         cfg = get_config(tag)
         r = cfg.rnn
@@ -1854,6 +2027,7 @@ def time_scans(device) -> dict:
                   f"ms, events {row['ms']:.4f} ms; cuDNN device "
                   f"{row['cudnn_device_ms']:.4f}, events "
                   f"{row['cudnn_ms']:.4f} ms (err {err:.1e})")
+        out["hoisted"].extend(time_hoisted_scans(tag, r, device, 700 + i))
         params = init_params(param_specs(cfg),
                              torch.Generator().manual_seed(i), "cpu")
         eng = RNNServingEngine(cfg, params, impl="pallas", device=device)
@@ -2066,6 +2240,129 @@ def time_products(device) -> dict:
     return out
 
 
+def time_hoisted_scans(tag, r, device, seed) -> list:
+    """The hoisted and pipeline scans of one tagger on zx from the port's
+    hoist stage, float32, at B = 8 and 256 and R in ``REUSES``: device ms
+    per call (trace) and CUDA-event ms, with cuDNN's for the same function
+    beside them (``--time-scans``)."""
+    import torch
+
+    from repro_torch.kernels import gru_scan as gs
+    from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels.ops import _hoist_stage
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    mod = ls if r.cell == "lstm" else gs
+    rows = []
+    for B in (SMALL_BATCHES[0], BATCH):
+        xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
+                                  torch.float32, seed, device, batch=B)
+        zx = _hoist_stage(xs, W, KernelSchedule())
+        args = ((zx.contiguous(), U, b) if r.cell == "lstm" else
+                ((zx + b[0]).contiguous(), U, b[1].contiguous()))
+        lib = library_call(f"{r.cell}_scan_hoisted", args)
+        lib_dev = per_call(lib, "other", 20)
+        lib_ms = time_ms(lib, 50)
+        for kind in ("hoisted", "pipeline"):
+            kern = getattr(mod, f"{r.cell}_scan_{kind}_kernel")
+            for reuse in REUSES:
+                fn = lambda R=reuse: kern(*args, reuse=R)  # noqa: E731
+                with torch.inference_mode():
+                    err = max_err(fn(), lib())[0]
+                row = {"tagger": tag, "kernel": f"{r.cell}_scan_{kind}",
+                       "B": B, "R": reuse,
+                       "device_ms": per_call(fn, ("cluster scan kernels",
+                                                  "scan kernels"), 20),
+                       "ms": time_ms(fn, 50), "cudnn_device_ms": lib_dev,
+                       "cudnn_ms": lib_ms, "cudnn_max_abs_err": err}
+                rows.append(row)
+                print(f"scan {tag:20s} {kind:8s} B={B:3d} R={reuse}: device "
+                      f"{row['device_ms']:.4f} ms, events {row['ms']:.4f} "
+                      f"ms; cuDNN device {lib_dev:.4f}, events "
+                      f"{lib_ms:.4f} ms (err {err:.1e})")
+    return rows
+
+
+def time_decode(device) -> dict:
+    """``--time-decode``: ``decode_matmul`` at gemma-2b's four per-token
+    products (bf16, M = 4) and the taggers' decode-step products (f32, M =
+    1 and 256), R in ``REUSES``: CUDA-event ms over back-to-back calls,
+    device ms from a trace (the product and its fold), and device ms after
+    an L2 flush (the gemma-2b products), each beside ``torch.matmul``'s and
+    the bound; and gemma-2b's decode tick per key (R = 1, R = 4, einsum):
+    host-clock latency of a step that ends in its logits, and its trace
+    (busy ms, idle share, ``decode_matmul``'s kernels and device ms).  It
+    times whichever tree's ``repro_torch`` was imported (``--src``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.schedule import KernelSchedule
+    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import LMServingEngine
+
+    out = {"kernels": [], "ticks": {}}
+    for what, reuse, c in decode_calls(device, timing=True):
+        with torch.inference_mode():
+            o = c["kern"]()
+        lib = c["library"]
+        lm = what.startswith(LM)
+        row = {"shape": c["shape"], "R": reuse,
+               "ms": time_ms(c["kern"], 200),
+               "device_ms": per_call(c["kern"], "decode_matmul", 50),
+               "cold_ms": time_cold_ms(c["kern"], 50) if lm else None,
+               "library_ms": time_ms(lib, 200),
+               "library_device_ms": per_call(lib, "other", 50),
+               "library_cold_ms": time_cold_ms(lib, 50) if lm else None,
+               "bound_ms": bound(c["inputs"], o, c["flops"])[0]}
+        out["kernels"].append(row)
+        cold = ("" if not lm else f", L2 cold {row['cold_ms']:.4f} / "
+                f"{row['library_cold_ms']:.4f}")
+        print(f"decode {c['shape']:48s}: device {row['device_ms']:.4f} ms, "
+              f"events {row['ms']:.4f}; torch.matmul device "
+              f"{row['library_device_ms']:.4f}, events "
+              f"{row['library_ms']:.4f}{cold}; bound {row['bound_ms']:.5f}")
+
+    cfg = get_config(LM)
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    eng = LMServingEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_SEQ,
+                          device=device)
+    tok0 = torch.tensor(np.random.RandomState(0).randint(
+        2, cfg.vocab_size, (LM_BATCH, 1)), device=device)
+    pos0 = torch.zeros(LM_BATCH, dtype=torch.int64, device=device)
+    for key, sched in (("R1", KernelSchedule(reuse_factor=1)),
+                       ("R4", KernelSchedule(reuse_factor=4)),
+                       ("default", None)):
+        dec = eng._decoder_for(sched)
+        cache = init_cache(cfg, LM_BATCH, LM_SEQ, "float32", device)
+
+        def step(dec=dec, cache=cache):
+            with torch.inference_mode():
+                return decode_step(cfg, eng.params, cache, tok0, pos0,
+                                   schedule=dec.schedule, packed=dec.packed)
+
+        lat = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            step()[0].float().cpu()
+            if i >= 2:                      # the first two build and warm
+                lat.append(time.perf_counter() - t0)
+        trace = {}
+        for _ in range(3):
+            trace = device_trace(step)
+            if trace:
+                break
+        out["ticks"][key] = {"tick_p50_ms": float(np.percentile(lat, 50))
+                             * 1e3, "tick_min_ms": min(lat) * 1e3,
+                             "trace": trace}
+        print(f"tick {key:8s}: p50 {out['ticks'][key]['tick_p50_ms']:.3f} "
+              f"ms (min {min(lat) * 1e3:.3f}); trace {json.dumps(trace)}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def no_nan(obj):
     """``obj`` with every NaN (a reading the trace did not give) as None,
     so that the line is strict JSON."""
@@ -2088,15 +2385,20 @@ def main() -> int:
                       help="only time col_matmul and quant_matmul, the "
                       "host path, the non-static and fixed-point scans and "
                       "engines (see time_products)")
-    ap.add_argument("--src", help="with --time-scans or --time-products: "
-                    "import repro_torch from this directory (default: this "
-                    "checkout's src)")
+    what.add_argument("--time-decode", action="store_true",
+                      help="only time decode_matmul beside torch.matmul and "
+                      "the LM decode tick per key (see time_decode)")
+    ap.add_argument("--src", help="with --time-scans, --time-products or "
+                    "--time-decode: import repro_torch from this directory "
+                    "(default: this checkout's src)")
     opts = ap.parse_args()
-    timing = {"time_scans": time_scans, "time_products": time_products}
+    timing = {"time_scans": time_scans, "time_products": time_products,
+              "time_decode": time_decode}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
         if not only:
-            ap.error("--src goes with --time-scans or --time-products")
+            ap.error("--src goes with --time-scans, --time-products or "
+                     "--time-decode")
         sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 
@@ -2141,8 +2443,10 @@ def main() -> int:
             print(f"ptxas {p.name}: {len(regs)} kernels, e.g. "
                   f"{regs[0] if regs else 'n/a'}; spilling: "
                   f"{spills or 'none'}")
-    for name in PRODUCT_LIBS:
+    for name in (*PRODUCT_LIBS, "decode_matmul", "decode_matmul_fold"):
         print(f"ptxas {name}: {json.dumps(ptxas_summary(ptxas, name))}")
+    print(f"ptxas gru_scan_hoisted (cluster zx mode): "
+          f"{json.dumps(ptxas_summary(ptxas, 'cluster_scan', 'ILi1ELb1E'))}")
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
@@ -2172,9 +2476,17 @@ def main() -> int:
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": row["shape"], "card": card})
-        if name in PRODUCT_LIBS:
+        if name in PRODUCT_LIBS or name == "decode_matmul":
             kernels[-1]["layout"] = row["layout"]
             kernels[-1]["ptxas"] = ptxas_summary(ptxas, name)
+        if name == "decode_matmul":
+            kernels[-1]["ptxas_fold"] = ptxas_summary(ptxas,
+                                                      "decode_matmul_fold")
+        if name == "gru_scan_hoisted":
+            # the cluster kernel's zx-mode GRU instances: <1, true, ...>
+            kernels[-1]["layout"] = row["layout"]
+            kernels[-1]["ptxas"] = ptxas_summary(ptxas, "cluster_scan",
+                                                 "ILi1ELb1E")
         if name in CLUSTER_SCANS:
             b8 = next(r for r in rows if r["name"] == name and r["reuse"] == 1
                       and r["tagger"].startswith(HEADLINE)

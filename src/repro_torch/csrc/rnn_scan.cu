@@ -14,7 +14,8 @@
 //
 // Two designs live here.
 //
-// 1. The in-loop static scans (lstm_scan, gru_scan): cluster_scan_kernel, a
+// 1. The in-loop static scans (lstm_scan, gru_scan) and the GRU's hoisted
+//    scan (gru_scan_hoisted, H <= 128): cluster_scan_kernel, a
 //    weight-stationary thread-block-cluster kernel.
 //    - A cluster of C CTAs (C in {1, 2, 4, 8}) owns a tile of ROWS batch
 //      rows (1 or 8: a cluster a row where the batch is small enough for
@@ -70,6 +71,20 @@
 //      below cp.async's 4-byte granule); the x side of step t is computed
 //      before the wait for h_t, while h_t may still be in flight.  A
 //      __syncthreads() a step orders the x buffers.
+//    - The zx mode (template ZX, the hoisted scan): the same recurrence
+//      over precomputed zx = x W (+ b_in for the GRU).  Step t reads the
+//      pre-activations zx[b, t, .] of the CTA's units' G columns through
+//      the same 3-deep shared buffer, staged two steps ahead with 4-byte
+//      cp.async (a unit's gate columns are runs of f32; one commit group a
+//      step, a wait_group before the step's __syncthreads()), in place of
+//      the in-kernel x W; the rest of the step is unchanged.  Only the
+//      GRU's hoisted scan takes it in this build; the LSTM's hoisted scan
+//      is the instantiation <kLSTM, true, ...>, and a pipeline scan (R
+//      tiles issued together) the same with ONE_PASS at every R.  Its
+//      layout comes from kernels/scan_layout.py with hoisted=True (no x
+//      side; the shared memory is the zx buffers).  Past H = 128 the
+//      hoisted GRU runs on design 2 (gru_scan_hoisted_block): a route by
+//      shape, as scan_route routes the in-loop scans.
 //    - R keeps its meaning: at R > 1 a step runs R passes in order, pass p
 //      computing the gate columns [p*gw, (p+1)*gw) (gw = G*H/R) of the
 //      CTA's units (x side included), a __syncthreads() between passes, the
@@ -102,8 +117,8 @@
 //      the tensor cores save; plain TF32 does not hold the f32 tolerance
 //      over 100 steps.
 //
-// 2. The hoisted and pipeline scans: rnn_scan_kernel, one thread block per
-//    ROWS batch rows.
+// 2. The LSTM's hoisted scan, both pipeline scans and the GRU's hoisted scan
+//    past H = 128: rnn_scan_kernel, one thread block per ROWS batch rows.
 //    - Translation of the TPU grid.  The Pallas grid is (B/bt, T, R) with T
 //      and R sequential: the state lives in VMEM scratch across grid steps.
 //      Here one block keeps h (and c) in shared memory for the whole
@@ -122,8 +137,8 @@
 //      thread streams its U column from L2 at every step, so each step of
 //      every block re-reads all of U (G*h*h*4 bytes) from L2, a chain of
 //      T*R (pipeline: T) steps of 7-8 us at QuickDraw (NVIDIA H100 80GB
-//      HBM3, 700 W).  Moving these onto the cluster design over
-//      precomputed zx is queued.
+//      HBM3, 700 W).  The cluster kernel's zx mode above takes the GRU's
+//      hoisted scan off this design; the other three are queued for it.
 //    - Numerics as above: f32 FMA per column, (zx + dot_h) + b for the
 //      LSTM, zh = dot_h + b_rec for the GRU.
 //
@@ -137,6 +152,8 @@
 
 #include <cstddef>
 #include <mutex>
+
+#include "tile_stage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -259,16 +276,20 @@ __host__ __device__ inline int units_per_cta(int H, int C) {
 // regions: 2 mbarriers (4 floats) | W [in][u][4] | b [1 or 2][u][4] |
 // h [2][16*KS][h_stride(rows)] | x [3][rows][in].  h has a row for every
 // k the lanes walk (rows past H stay 0, so the k loop needs no bound
-// check).  kernels/scan_layout.py's smem_bytes is the same formula.
+// check).  The zx mode has no W (fin = 0), one bias row and zx buffers
+// [3][rows][G][u] in place of x.  kernels/scan_layout.py's smem_bytes is
+// the same formula.
 __host__ __device__ inline size_t cluster_smem_floats(int cell, int fin,
                                                       int H, int C,
                                                       int k_split,
-                                                      int rows) {
+                                                      int rows,
+                                                      bool zx = false) {
   const int u = units_per_cta(H, C);
-  const int nb = cell == kLSTM ? 1 : 2;
+  const int G = cell == kLSTM ? 4 : 3;
+  const int nb = zx || cell == kLSTM ? 1 : 2;
   return 4 + (size_t)(fin + nb) * u * kGateSlots +
          2 * (size_t)kMaxK * k_split * h_stride(rows) +
-         3 * (size_t)rows * fin;
+         3 * (size_t)rows * (zx ? G * u : fin);
 }
 
 // x_t of the cluster's rows -> an x buffer (rows past B: 0), whole CTA
@@ -300,6 +321,26 @@ __device__ __forceinline__ void load_x_regs(const XT* __restrict__ xs,
         v[q] = to_f32(xs[((size_t)row * T + t) * fin + i - r * fin]);
     }
   }
+}
+
+// zx mode: zx_t of the cluster's rows and the CTA's units, [rows][G][u]
+// (a unit's G gate columns are runs of f32 in zx), into a zx buffer with
+// 4-byte cp.async; zeros past B, T or the CTA's units.  One commit group a
+// call.
+__device__ __forceinline__ void stage_zx(const float* __restrict__ zx,
+                                         float* buf, int row0, int rows,
+                                         int B, int T, int t, int G, int H,
+                                         int u, int uc, int j0) {
+  const int gu = G * u;
+  for (int i = threadIdx.x; i < rows * gu; i += blockDim.x) {
+    const int r = i / gu, g = (i - r * gu) / u, j = i - r * gu - g * u;
+    const int row = row0 + r;
+    const bool ok = t < T && row < B && j < uc;
+    const float* src =
+        ok ? zx + ((size_t)row * T + t) * G * H + g * H + j0 + j : zx;
+    cp_async4(smem_addr(buf + i), src, ok ? 4 : 0);
+  }
+  cp_async_commit();
 }
 
 // x-side products zx[r][g] = x[row0 + r] . W[:, g, unit] for N rows from
@@ -375,14 +416,22 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[ROWS][kGateSlots],
 // along x.  Thread i of a CTA is lane s = i % KS of unit jj = i / KS; it
 // holds U[k][g*H + j0 + jj] for k = s, s + KS, ... in registers.
 // ONE_PASS: R = 1 (all gates each pass).
-template <int CELL, typename XT, int ROWS, int KS, bool ONE_PASS>
+// ZX (the hoisted scan): xs is zx [B,T,G*H] f32, precomputed x W (the GRU
+// with b_in folded in), W is unused and fin = 0; bias is the LSTM's b
+// [4H] or the GRU's b_rec [3H]; out is OT (f32 or bf16).  Step t reads
+// zx_t through the 3-deep buffer, staged two steps ahead with cp.async, in
+// place of the in-kernel x W.  The LSTM's hoisted scan is the
+// instantiation <kLSTM, true, ...>; a pipeline scan (R tiles issued
+// together) is the same with ONE_PASS for every R.
+template <int CELL, bool ZX, typename XT, typename OT, int ROWS, int KS,
+          bool ONE_PASS>
 __global__ void __launch_bounds__(kMaxClusterThreads)
 cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
                     const float* __restrict__ U,
-                    const float* __restrict__ bias, XT* __restrict__ out,
+                    const float* __restrict__ bias, OT* __restrict__ out,
                     int B, int T, int fin, int H, int reuse) {
   constexpr int G = CELL == kLSTM ? 4 : 3;
-  constexpr int NB = CELL == kLSTM ? 1 : 2;
+  constexpr int NB = ZX || CELL == kLSTM ? 1 : 2;
   constexpr int L = KS < ROWS ? KS : ROWS;
   constexpr int N = ROWS / L;                 // rows a lane updates
   constexpr int HS = h_stride(ROWS);
@@ -404,7 +453,7 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
   const int dup = s / L;
   const int r0 = (s % L) * N;
   const int GH = G * H;
-  const int nx = ROWS * fin;
+  const int nx = ZX ? ROWS * G * u : ROWS * fin;   // floats a x / zx buffer
 
   extern __shared__ float4 smem4[];
   const unsigned full = smem_addr(smem4);     // mbarrier of h buffer b: +8b
@@ -412,7 +461,7 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
   float* b_s = W_s + (size_t)fin * u * kGateSlots;
   const int hbuf = kMaxK * KS * HS;          // floats of one h buffer
   float* h_s = b_s + NB * u * kGateSlots;     // h_t in buffer t & 1
-  float* x_s = h_s + 2 * hbuf;                // x_t in buffer t % 3
+  float* x_s = h_s + 2 * hbuf;                // x_t (zx_t) in buffer t % 3
 
   // weights, once: this lane's U rows into registers; W and b slices of
   // the CTA's units into shared memory ([k][unit][gate], padding 0)
@@ -435,11 +484,16 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
     W_s[i] = g < G && jl < uc ? src[g * H + j0 + jl] : 0.0f;
   }
   for (int i = threadIdx.x; i < 2 * hbuf; i += blockDim.x) h_s[i] = 0.0f;
-  if (T > 0) load_x(xs, x_s, row0, ROWS, B, T, 0, fin);
-  if (T > 1) load_x(xs, x_s + nx, row0, ROWS, B, T, 1, fin);
-
   float xn[kXPerThread];                      // x_{t+2} at step t
-  load_x_regs(xs, xn, row0, B, T, 2, fin, nx);
+  if constexpr (ZX) {
+    stage_zx(xs, x_s, row0, ROWS, B, T, 0, G, H, u, uc, j0);
+    stage_zx(xs, x_s + nx, row0, ROWS, B, T, 1, G, H, u, uc, j0);
+    cp_async_wait<1>();                       // zx_0 (the sync below shares)
+  } else {
+    if (T > 0) load_x(xs, x_s, row0, ROWS, B, T, 0, fin);
+    if (T > 1) load_x(xs, x_s + nx, row0, ROWS, B, T, 1, fin);
+    load_x_regs(xs, xn, row0, B, T, 2, fin, nx);
+  }
   float hr[N], cr[N], zx[N][kGateSlots];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
@@ -460,9 +514,22 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
   for (int t = 0; t < T; ++t) {
     const float* hc = h_s + (t & 1) * hbuf;
     // this step's x side (x_t, stored two steps ago or before the loop)
-    // while h_t may still be in flight
-    if (ONE_PASS && lead)
+    // while h_t may still be in flight; in the zx mode, zx_t (landed at
+    // the end of the last step) for every gate, and zx_{t+2} starts to load
+    if constexpr (ZX) {
+      stage_zx(xs, x_s + ((t + 2) % 3) * nx, row0, ROWS, B, T, t + 2, G, H,
+               u, uc, j0);
+      if (lead) {
+        const float* zb = x_s + (t % 3) * nx;
+#pragma unroll
+        for (int r = 0; r < N; ++r)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            zx[r][g] = zb[((r0 + r) * G + g) * u + jj];
+      }
+    } else if (ONE_PASS && lead) {
       x_side<G, N>(x_s + (t % 3) * nx, W_s, u, jj, r0, fin, ~0u, zx);
+    }
     // h_t has landed (h_0 = 0 needs no wait); then open the phase that
     // collects h_{t+1}: its previous phase (h_{t-1}) completed at step t-1
     if (t > 0) mbar_wait(full + 8 * (t & 1), ((t - 1) >> 1) & 1);
@@ -519,7 +586,7 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
 #pragma unroll
         for (int g = 0; g < G; ++g) zh[r][g] += v[r][g];
       if (!ONE_PASS) {
-        if (lead && gates)
+        if (!ZX && lead && gates)
           x_side<G, N>(x_s + (t % 3) * nx, W_s, u, jj, r0, fin, gates, zx);
         __syncthreads();
       }
@@ -536,6 +603,11 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
           const float og = sigmoid((zx[r][3] + zh[r][3]) + b0[3]);
           cr[r] = fg * cr[r] + ig * gg;
           hr[r] = og * tanhf(cr[r]);
+        } else if (ZX) {                 // b_in is in zx; b0 is b_rec
+          const float zg = sigmoid(zx[r][0] + (zh[r][0] + b0[0]));
+          const float rg = sigmoid(zx[r][1] + (zh[r][1] + b0[1]));
+          const float hh = tanhf(zx[r][2] + rg * (zh[r][2] + b0[2]));
+          hr[r] = zg * hr[r] + (1.0f - zg) * hh;
         } else {
           const float* b1 = b0 + u * kGateSlots;   // b_rec
           const float zg = sigmoid((zx[r][0] + b0[0]) + (zh[r][0] + b1[0]));
@@ -554,19 +626,24 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
         store_async<N>(cluster_addr(dst, q), cluster_addr(full + 8 * nb, q),
                        hr);
     }
-    // x_{t+2} (loaded a step ago) into its buffer; x_{t+3} into
-    // registers, a whole step ahead of its store
-    float* xnext = x_s + ((t + 2) % 3) * nx;
+    if constexpr (ZX) {
+      cp_async_wait<1>();                     // zx_{t+1} has landed
+    } else {
+      // x_{t+2} (loaded a step ago) into its buffer; x_{t+3} into
+      // registers, a whole step ahead of its store
+      float* xnext = x_s + ((t + 2) % 3) * nx;
 #pragma unroll
-    for (int q = 0; q < kXPerThread; ++q) {
-      const int i = threadIdx.x + q * blockDim.x;
-      if (i < nx) xnext[i] = xn[q];
+      for (int q = 0; q < kXPerThread; ++q) {
+        const int i = threadIdx.x + q * blockDim.x;
+        if (i < nx) xnext[i] = xn[q];
+      }
+      load_x_regs(xs, xn, row0, B, T, t + 3, fin, nx);
     }
-    load_x_regs(xs, xn, row0, B, T, t + 3, fin, nx);
     __syncthreads();
   }
   // h_T has landed here too: no store is in flight into a CTA that exits
   if (T > 0) mbar_wait(full + 8 * (T & 1), ((T - 1) >> 1) & 1);
+  if constexpr (ZX) cp_async_wait<0>();
   cluster.sync();
 
   if (lead && dup == 0) {
@@ -581,11 +658,12 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
 // Is the layout one that cluster_scan_kernel takes?  (kernels/scan_layout.py
 // builds layouts that are; chip_smoke.py checks that this refuses others.)
 bool cluster_layout_ok(int cell, int B, int T, int fin, int H, int reuse,
-                       int C, int rows, int k_split, int threads,
-                       int smem) {
+                       int C, int rows, int k_split, int threads, int smem,
+                       bool zx = false) {
   const int G = cell == kLSTM ? 4 : 3;
   if (B < 1 || T < 0 || H < 1 || fin < 0 || reuse < 1 || (G * H) % reuse)
     return false;
+  if (zx && fin != 0) return false;
   if (C != 1 && C != 2 && C != 4 && C != 8) return false;
   const int u = units_per_cta(H, C);
   if (C > H || (C - 1) * u >= H || (rows != 1 && rows != 8)) return false;
@@ -595,7 +673,7 @@ bool cluster_layout_ok(int cell, int B, int T, int fin, int H, int reuse,
       threads < u * k_split || rows * fin > kXPerThread * threads)
     return false;
   const size_t want =
-      cluster_smem_floats(cell, fin, H, C, k_split, rows) * sizeof(float);
+      cluster_smem_floats(cell, fin, H, C, k_split, rows, zx) * sizeof(float);
   return (size_t)smem == want && want <= kMaxSmem;
 }
 
@@ -642,12 +720,13 @@ int resident_clusters(K kernel, int C, int threads, int smem) {
 }
 
 // B < 0: report resident_clusters instead of launching.
-template <int CELL, typename XT, int ROWS, int KS, bool ONE_PASS>
+template <int CELL, bool ZX, typename XT, typename OT, int ROWS, int KS,
+          bool ONE_PASS>
 int run_cluster(const void* xs, const float* W, const float* U,
                 const float* bias, void* out, int B, int T, int fin, int H,
                 int reuse, int C, int threads, int smem,
                 cudaStream_t stream) {
-  auto kernel = cluster_scan_kernel<CELL, XT, ROWS, KS, ONE_PASS>;
+  auto kernel = cluster_scan_kernel<CELL, ZX, XT, OT, ROWS, KS, ONE_PASS>;
   const int resident = resident_clusters(kernel, C, threads, smem);
   if (B < 0) return resident;
   if (resident < 0) return -resident;
@@ -670,22 +749,21 @@ int run_cluster(const void* xs, const float* W, const float* U,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(xs),
-                                     W, U, bias, static_cast<XT*>(out), B, T,
+                                     W, U, bias, static_cast<OT*>(out), B, T,
                                      fin, H, reuse);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int CELL, typename XT, bool ONE_PASS>
+template <int CELL, bool ZX, typename XT, typename OT, bool ONE_PASS>
 int launch_cluster_as(const void* xs, const float* W, const float* U,
                       const float* b, void* out, int B, int T, int fin,
                       int H, int reuse, int C, int rows, int k_split,
                       int threads, int smem, cudaStream_t s) {
-#define RUN(ROWS, KS)                                                       \
-  if (rows == ROWS && k_split == KS)                                        \
-  return run_cluster<CELL, XT, ROWS, KS, ONE_PASS>(xs, W, U, b, out, B, T,  \
-                                                   fin, H, reuse, C,        \
-                                                   threads, smem, s)
+#define RUN(ROWS, KS)                                                      \
+  if (rows == ROWS && k_split == KS)                                       \
+  return run_cluster<CELL, ZX, XT, OT, ROWS, KS, ONE_PASS>(                \
+      xs, W, U, b, out, B, T, fin, H, reuse, C, threads, smem, s)
   RUN(1, 2);
   RUN(1, 8);
   RUN(8, 2);
@@ -700,23 +778,49 @@ int launch_cluster(const void* xs, int xs_bf16, const float* W,
                    int fin, int H, int reuse, int C, int rows, int k_split,
                    int threads, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
   if (xs_bf16) {
     return reuse == 1
-               ? launch_cluster_as<CELL, __nv_bfloat16, true>(
+               ? launch_cluster_as<CELL, false, BF, BF, true>(
                      xs, W, U, b, out, B, T, fin, H, reuse, C, rows,
                      k_split, threads, smem, s)
-               : launch_cluster_as<CELL, __nv_bfloat16, false>(
+               : launch_cluster_as<CELL, false, BF, BF, false>(
                      xs, W, U, b, out, B, T, fin, H, reuse, C, rows,
                      k_split, threads, smem, s);
   }
   return reuse == 1
-             ? launch_cluster_as<CELL, float, true>(xs, W, U, b, out, B, T,
-                                                    fin, H, reuse, C, rows,
-                                                    k_split, threads, smem, s)
-             : launch_cluster_as<CELL, float, false>(xs, W, U, b, out, B, T,
-                                                     fin, H, reuse, C, rows,
-                                                     k_split, threads, smem,
-                                                     s);
+             ? launch_cluster_as<CELL, false, float, float, true>(
+                   xs, W, U, b, out, B, T, fin, H, reuse, C, rows, k_split,
+                   threads, smem, s)
+             : launch_cluster_as<CELL, false, float, float, false>(
+                   xs, W, U, b, out, B, T, fin, H, reuse, C, rows, k_split,
+                   threads, smem, s);
+}
+
+// The zx mode (hoisted scans): zx [B,T,G*H] f32, out f32 or bf16.
+template <int CELL>
+int launch_cluster_zx(const float* zx, int out_bf16, const float* U,
+                      const float* b, void* out, int B, int T, int H,
+                      int reuse, int C, int rows, int k_split, int threads,
+                      int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  if (out_bf16) {
+    return reuse == 1
+               ? launch_cluster_as<CELL, true, float, BF, true>(
+                     zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
+                     k_split, threads, smem, s)
+               : launch_cluster_as<CELL, true, float, BF, false>(
+                     zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
+                     k_split, threads, smem, s);
+  }
+  return reuse == 1
+             ? launch_cluster_as<CELL, true, float, float, true>(
+                   zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
+                   k_split, threads, smem, s)
+             : launch_cluster_as<CELL, true, float, float, false>(
+                   zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
+                   k_split, threads, smem, s);
 }
 
 template <int CELL>
@@ -730,6 +834,18 @@ int checked_launch_cluster(const void* xs, int xs_bf16, const float* W,
     return (int)cudaErrorInvalidValue;
   return launch_cluster<CELL>(xs, xs_bf16, W, U, b, out, B, T, fin, H, reuse,
                               C, rows, k_split, threads, smem, stream);
+}
+
+template <int CELL>
+int checked_launch_cluster_zx(const float* zx, int out_bf16, const float* U,
+                              const float* b, void* out, int B, int T, int H,
+                              int reuse, int C, int rows, int k_split,
+                              int threads, int smem, void* stream) {
+  if (!cluster_layout_ok(CELL, B, T, 0, H, reuse, C, rows, k_split, threads,
+                         smem, true))
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster_zx<CELL>(zx, out_bf16, U, b, out, B, T, H, reuse, C,
+                                 rows, k_split, threads, smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -959,11 +1075,42 @@ int lstm_scan_hoisted(const float* zx, const float* U, const float* b,
                                       reuse, stream);
 }
 
+// The GRU's hoisted scan on the cluster kernel's zx mode, at a cluster
+// layout (cluster, rows, k_split, threads, smem_bytes) from
+// kernels/scan_layout.py (hoisted=True): H up to 128.
 int gru_scan_hoisted(const float* zx, const float* U, const float* b_rec,
                      void* out, int out_bf16, int B, int T, int H, int reuse,
-                     void* stream) {
+                     int cluster, int rows, int k_split, int threads,
+                     int smem_bytes, void* stream) {
+  return checked_launch_cluster_zx<kGRU>(zx, out_bf16, U, b_rec, out, B, T,
+                                         H, reuse, cluster, rows, k_split,
+                                         threads, smem_bytes, stream);
+}
+
+// The same function on the block kernel (rnn_scan_kernel): the route for
+// H past the cluster kernel's 128.
+int gru_scan_hoisted_block(const float* zx, const float* U,
+                           const float* b_rec, void* out, int out_bf16,
+                           int B, int T, int H, int reuse, void* stream) {
   return launch_hoisted<kGRU, false>(zx, U, b_rec, out, out_bf16, B, T, H,
                                      reuse, stream);
+}
+
+// Clusters of the zx-mode (hoisted) scan kernel at this layout that the
+// current device holds at once, or a negative CUDA error; the GRU only
+// (cell 1).  kernels/scan_layout.py counts waves with it.
+int cluster_zx_scan_resident(int cell, int out_bf16, int reuse, int cluster,
+                             int rows, int k_split, int threads,
+                             int smem_bytes) {
+  if (cell != kGRU || reuse < 1 || threads < 1 ||
+      threads > kMaxClusterThreads || smem_bytes < 0 ||
+      (size_t)smem_bytes > kMaxSmem ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (rows != 1 && rows != 8) || (k_split != 2 && k_split != 8))
+    return -(int)cudaErrorInvalidValue;
+  return launch_cluster_zx<kGRU>(nullptr, out_bf16, nullptr, nullptr,
+                                 nullptr, -1, 0, 0, reuse, cluster, rows,
+                                 k_split, threads, smem_bytes, nullptr);
 }
 
 int lstm_scan_pipeline(const float* zx, const float* U, const float* b,

@@ -9,7 +9,9 @@ reused.  Nothing is built or loaded at import time.
 
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, and nowhere else, so a caller can show that a run went
-through the kernels.
+through the kernels; :data:`ENTRIES` counts the same calls by C entry
+point, which tells a kernel's routes apart (``gru_scan_hoisted`` on the
+cluster kernel or, past its H, ``gru_scan_hoisted_block``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -37,6 +39,8 @@ _HOISTED = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 #: xs, xs_bf16, W, U, b, out, B, T, in, H, R, then the cluster layout
 #: (cluster, rows, k_split, threads, smem_bytes), stream
 _CLUSTER_SCAN = (_I, [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P])
+#: zx, U, b, out, out_bf16, B, T, H, R, then the cluster layout, stream
+_CLUSTER_HOISTED = (_I, [_P, _P, _P, _P] + [_I] * 10 + [_P])
 #: C signature of every exported function, per library (``csrc/<name>.cu``);
 #: each library exports ``kernel_error_string`` for its error codes
 SIGNATURES = {
@@ -44,11 +48,13 @@ SIGNATURES = {
         "lstm_scan": _CLUSTER_SCAN,
         "gru_scan": _CLUSTER_SCAN,
         "lstm_scan_hoisted": _HOISTED,
-        "gru_scan_hoisted": _HOISTED,
+        "gru_scan_hoisted": _CLUSTER_HOISTED,
+        "gru_scan_hoisted_block": _HOISTED,
         "lstm_scan_pipeline": _HOISTED,
         "gru_scan_pipeline": _HOISTED,
         "scan_rows_per_block": (_I, [_I]),
         "cluster_scan_resident": (_I, [_I] * 8),
+        "cluster_zx_scan_resident": (_I, [_I] * 8),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "reuse_matmul": {
@@ -65,7 +71,9 @@ SIGNATURES = {
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "decode_matmul": {
-        "decode_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
+        #: x, w, bf16, out, ws, M, K, N, R, then the layout (vec, rows,
+        #: chunk, chunks a split, column warps, K warps), stream
+        "decode_matmul": (_I, [_P, _P, _I, _P, _P] + [_I] * 10 + [_P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "rglru_scan": {
@@ -86,6 +94,9 @@ LAUNCHES: Dict[str, int] = {
     "col_matmul": 0, "reuse_matmul": 0, "quant_matmul": 0, "fixed_point": 0,
     "decode_matmul": 0, "rglru_scan": 0, "hadamard": 0}
 
+#: C entry point -> calls since the last :func:`reset_launches`
+ENTRIES: Dict[str, int] = {}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: (library, function) -> the resolved ctypes function
@@ -95,6 +106,7 @@ _fns: Dict[Tuple[str, str], Callable] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ENTRIES.clear()
 
 
 def _nvcc() -> str:
@@ -177,16 +189,19 @@ def stream_ptr(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def launch(lib_name: str, kernel: str, device: torch.device, *args) -> None:
+def launch(lib_name: str, kernel: str, device: torch.device, *args,
+           count_as: Optional[str] = None) -> None:
     """Call the C function ``kernel`` of library ``lib_name`` with ``args``
     on PyTorch's current stream of ``device``, raise if it returned a CUDA
     error (a refused launch never runs, and a later synchronise would not
-    report it), and count the launch."""
+    report it), and count the launch under ``count_as`` (default: the C
+    function's name) and the C function in :data:`ENTRIES`."""
     rc = function(lib_name, kernel)(*args, stream_ptr(device))
     if rc != 0:
         msg = library(lib_name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[count_as or kernel] += 1
+    ENTRIES[kernel] = ENTRIES.get(kernel, 0) + 1
 
 
 def require(kernel: str, io_dtype: torch.dtype, *,

@@ -1,14 +1,19 @@
-"""Single-step decode: the ``decode_matmul`` CUDA kernel's wrapper and
-plain version, the weight-residency helpers, and the scheduled RNN decode
-step.
+"""Single-step decode: the ``decode_matmul`` CUDA kernel's wrapper, launch
+layout and plain version, the weight-residency helpers, and the scheduled
+RNN decode step.
 
 Replaces ``repro/kernels/decode_step.py``'s ``decode_matmul_pallas``
 (``[M, K] @ [K, N]``, both f32 or both bf16, the N columns in R
 sequential passes, the weight resident); the kernel lives in
-``csrc/decode_matmul.cu``.  It spreads the columns over a grid of (row
-tiles x column blocks) instead of the TPU's grid over row tiles only, and
-takes any M (no row padding).  The TPU's alignment check
-(``check_tpu_alignment``) is not ported.
+``csrc/decode_matmul.cu``.  It streams w split along K: K is cut into
+chunks of :func:`chunk_rows` rows (a function of K, N and the dtype,
+never of R), each output's chunk partial is one f32 chain in increasing
+k, and the partials are folded in chunk order, so neither R nor the grid
+changes a bit.  The grid
+is (m tiles x column blocks x K splits) at :func:`decode_layout`'s layout,
+chosen per call so that every R fills the card; it takes any M (no row
+padding).  The TPU's alignment check (``check_tpu_alignment``) is not
+ported.
 
 ``decode_matmul``
     The scheduled single-step matmul.  ``schedule=None`` or
@@ -35,7 +40,9 @@ compute-ready layout (trailing dims flattened, gate-fused, cast) once per
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,6 +76,184 @@ def decode_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return torch.cat(tiles, dim=-1).to(x.dtype)
 
 
+#: the layout model's view of the card (an H100 SXM); used only to rank
+#: layouts, never as a measurement.  The latency, L2 rate and lone-warp
+#: issue rate are assumed values, chosen so that the model ranks the
+#: layouts of gemma-2b's and the taggers' decode shapes near the order in
+#: which they ran on an H100 (``chip_smoke.py --time-decode`` reports the
+#: picked layout's time)
+SMS = 132
+SCHEDULERS = 4                    # warp schedulers an SM
+SMEM_PER_SM = 233_472             # 228 KiB an SM, 227 KiB a block at most
+SMEM_LIMIT = 232_448
+CLOCK_HZ = 1.755e9
+HBM_BPS = 3.35e12
+L2_BPS = 8e12                     # assumed L2 -> SM rate
+LATENCY_S = 0.3e-6                # assumed latency of a ring slot
+#: a lone warp's instructions a cycle on a dependent chain (assumed)
+LONE_IPC = 0.25
+#: what the fold kernel adds where more than one split shares K
+FOLD_S = 2e-6
+#: ring slots a thread: w rows in flight (csrc kDepth)
+DEPTH = 32
+#: w bytes up to which a chunk is short (csrc design note)
+SMALL_W = 16 * 2 ** 20
+ROWS = (1, 2, 4, 8)               # rows of x a block carries
+WARPS = (1, 2, 4)                 # column warps a block, a segment each
+K_WARPS = (1, 2, 4, 8)            # K warps a block, a chunk each in turn
+MAX_THREADS = 256
+MAX_X_BYTES = 32 * 1024           # x of a block's K run, staged as f32
+
+
+def chunk_rows(K: int, N: int, bf16: bool) -> int:
+    """Rows of K a chunk, the unit of one f32 chain in increasing k: all of
+    K up to 32 (one chunk: the kernel rounds into ``out`` itself); else 32
+    where w is at most ``SMALL_W`` bytes (short chains for q|k|v, o and
+    the taggers' products, whose workspace is small) and 128 beyond it
+    (gate|up, down: a workspace of 6 % of w's bytes).  It depends on K, N
+    and the dtype only, so a column's summation order never depends on R,
+    M or the grid."""
+    if K <= 32:
+        return K
+    return 32 if K * N * (2 if bf16 else 4) <= SMALL_W else 128
+
+
+class DecodeLayout(NamedTuple):
+    vec: int                      # columns a thread (16 bytes, or 1)
+    rows: int                     # rows of x a block
+    chunk: int                    # K rows a chunk (chunk_rows)
+    chunks_per_split: int         # a block's run of chunks
+    warps: int                    # column warps a block
+    k_warps: int                  # K warps a block
+    m_tiles: int
+    col_blocks: int               # column blocks of a tile
+    splits: int                   # K splits
+    chunks: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.col_blocks * self.splits
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps * self.k_warps
+
+    @property
+    def launches(self) -> int:
+        """Kernels one call launches: the product, and the chunk fold where
+        more than one split shares K (one split folds in the block)."""
+        return 2 if self.splits > 1 else 1
+
+    def c_args(self) -> Tuple[int, ...]:
+        """What the C entry point takes: vec, rows, chunk, chunks a split,
+        column warps, K warps."""
+        return (self.vec, self.rows, self.chunk, self.chunks_per_split,
+                self.warps, self.k_warps)
+
+
+def _shape(M, K, N, reuse, vec, rows, chunk, cps, warps, k_warps
+           ) -> DecodeLayout:
+    """The derived shape of one candidate (as the C launcher derives it):
+    shared memory holds the ring, x and, where one split covers K, the
+    chunk partials of the block's columns."""
+    ns = N // reuse
+    chunks = -(-K // chunk)
+    segs = -(-ns // (32 * vec))
+    run = min(K, cps * chunk)
+    splits = -(-chunks // cps)
+    part = (reuse * -(-run // chunk) * rows * warps * 32 * vec * 4
+            if chunks > 1 and splits == 1 else 0)
+    smem = (DEPTH * 32 * warps * k_warps * 16 + -(-rows * run * 4 // 16) * 16
+            + part)
+    return DecodeLayout(vec, rows, chunk, cps, warps, k_warps, -(-M // rows),
+                        -(-segs // warps), splits, chunks, smem)
+
+
+def _modelled_s(lay: DecodeLayout, M, K, N, reuse, elt) -> float:
+    """Seconds the layout model gives one call: the largest of instruction
+    issue (a lone warp at ``LONE_IPC``, warps sharing a scheduler in
+    turn), the ring's latency, device-memory bytes and L2 bytes (w re-read
+    per m tile), plus a fold launch.  Constants are the H100's data-sheet
+    rates and assumed latencies, not measurements."""
+    per_sm = min(SMEM_PER_SM // (lay.smem_bytes + 1024),
+                 2048 // lay.threads, 32)
+    if per_sm < 1:
+        return math.inf
+    resident = SMS * per_sm
+    waves = -(-lay.blocks // resident)
+    warps_per_sched = (lay.threads // 32
+                       * -(-min(lay.blocks, resident) // SMS) / SCHEDULERS)
+    # a thread's rows: its chunks of the run, every tile
+    run = min(K, lay.chunks_per_split * lay.chunk)
+    per_warp = -(-(-(-run // lay.chunk)) // lay.k_warps)   # chunks
+    rows = reuse * min(run, per_warp * lay.chunk)
+    bf16 = elt == 2
+    instr = (14 + -(-lay.rows // 4) + (lay.vec if bf16 else 0)
+             + lay.rows * lay.vec)
+    t_issue = (rows * instr / CLOCK_HZ
+               * max(1.0 / LONE_IPC, warps_per_sched) * waves)
+    t_lat = (rows / DEPTH + 2) * LATENCY_S * waves
+    ws = 4 * lay.chunks * M * N if lay.splits > 1 else 0
+    t_hbm = (K * N + M * K + M * N) * elt / HBM_BPS
+    t_l2 = (lay.m_tiles * K * N * elt + 2 * ws) / L2_BPS
+    return max(t_issue, t_lat, t_hbm, t_l2) + (FOLD_S if lay.splits > 1
+                                               else 0.0)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_layout(M: int, K: int, N: int, reuse: int, bf16: bool,
+                  aligned: bool = True) -> DecodeLayout:
+    """The launch layout of one ``decode_matmul`` call: 16-byte pieces
+    (``vec``) where N/R and w's address allow (``aligned``), the chunk of
+    :func:`chunk_rows`, and of the rows, column warps and K warps a block
+    and chunks a split that fit a block (x staged in at most
+    ``MAX_X_BYTES``), the one the layout model (:func:`_modelled_s`) gives
+    the least time, then the fewest threads.  One split folds its chunks
+    in the block (one launch); more splits fill the card where the column
+    blocks alone do not (R = 4 has a quarter of R = 1's) at the cost of a
+    workspace and a fold launch."""
+    if M < 1 or K < 1 or N < 1 or reuse < 1 or N % reuse:
+        raise ValueError(f"decode_layout: M={M} K={K} N={N} R={reuse}")
+    elt = 2 if bf16 else 4
+    ns = N // reuse
+    full = 16 // elt
+    vec = full if aligned and ns % full == 0 else 1
+    chunk = chunk_rows(K, N, bf16)
+    chunks = -(-K // chunk)
+    segs = -(-ns // (32 * vec))
+    # chunks a split: halvings of all of them, down to one
+    cps_all = sorted({-(-chunks // 2 ** i) for i in range(chunks.bit_length())}
+                     | {1})
+    best, best_key = None, None
+    for rows in ROWS:
+        if rows > 1 and rows // 2 >= M:
+            continue
+        for warps in WARPS:
+            if warps > 1 and warps // 2 >= segs:
+                continue
+            for cps in cps_all:
+                run_chunks = -(-min(K, cps * chunk) // chunk)
+                if rows * min(K, cps * chunk) * 4 > MAX_X_BYTES:
+                    continue
+                for k_warps in K_WARPS:
+                    if (32 * warps * k_warps > MAX_THREADS
+                            or (k_warps > 1 and k_warps // 2 >= run_chunks)):
+                        continue
+                    lay = _shape(M, K, N, reuse, vec, rows, chunk, cps,
+                                 warps, k_warps)
+                    if lay.smem_bytes > SMEM_LIMIT:
+                        continue
+                    key = (_modelled_s(lay, M, K, N, reuse, elt),
+                           lay.blocks * lay.threads)
+                    if best_key is None or key < best_key:
+                        best, best_key = lay, key
+    if best is None:
+        raise ValueError(f"decode_layout: no layout fits M={M} K={K} N={N} "
+                         f"R={reuse}")
+    return best
+
+
 def decode_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
                          reuse: int = 1) -> torch.Tensor:
     """x: [M, K] @ w: [K, N], both float32 or both bfloat16 -> [M, N] in
@@ -87,14 +272,28 @@ def decode_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
         return decode_matmul_plain(x, w, reuse=reuse)
     if x.device.type != "cuda":
         raise ValueError(f"decode_matmul: no kernel for device {x.device}")
+    return launch_decode(x, w, reuse)
+
+
+def launch_decode(x: torch.Tensor, w: torch.Tensor,
+                  reuse: int) -> torch.Tensor:
+    """Launch ``decode_matmul`` on CUDA tensors (shapes and dtypes checked
+    by the caller) at :func:`decode_layout`'s layout, with an f32
+    workspace [chunks, M, N] where more than one split shares K."""
     dev = cuda.require("decode_matmul", x.dtype, io=("x", "w"), x=x, w=w)
+    (M, K), N = x.shape, w.shape[1]
     if K == 0:
         raise ValueError("decode_matmul: K = 0")
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if M:
+        bf16 = x.dtype == torch.bfloat16
+        lay = decode_layout(M, K, N, reuse, bf16, w.data_ptr() % 16 == 0)
+        ws = (torch.empty(lay.chunks, M, N, dtype=torch.float32, device=dev)
+              if lay.splits > 1 else None)
         cuda.launch("decode_matmul", "decode_matmul", dev, x.data_ptr(),
-                    w.data_ptr(), int(x.dtype == torch.bfloat16),
-                    out.data_ptr(), M, K, N, reuse)
+                    w.data_ptr(), int(bf16), out.data_ptr(),
+                    0 if ws is None else ws.data_ptr(), M, K, N, reuse,
+                    *lay.c_args())
     return out
 
 

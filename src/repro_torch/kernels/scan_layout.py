@@ -1,4 +1,5 @@
-"""Launch layout of the cluster scan kernels (``lstm_scan`` / ``gru_scan``).
+"""Launch layout of the cluster scan kernels (``lstm_scan`` / ``gru_scan``,
+and ``gru_scan_hoisted`` on the kernel's zx mode).
 
 The in-loop static scans (``csrc/rnn_scan.cu``, ``cluster_scan_kernel``)
 run one thread-block cluster of ``cluster`` CTAs per tile of ``rows`` (1 or
@@ -19,6 +20,12 @@ clusters of each candidate the card holds at once: on the card the C
 library's ``cudaOccupancyMaxActiveClusters`` answers
 (:func:`card_resident`), on the CPU :func:`model_resident`.  The C launcher
 refuses a layout the kernel cannot run (``cudaErrorInvalidValue``).
+
+The hoisted variant (``hoisted=True``: the GRU's hoisted scan, which reads
+precomputed zx in place of the in-kernel x W) follows the same rules; it
+has no x side, and its shared memory holds a bias row and three zx
+buffers of [rows, G, u] where the in-loop kernel holds W, the biases and
+three x buffers.  :func:`launch_hoisted_scan` launches it.
 """
 
 from __future__ import annotations
@@ -83,14 +90,19 @@ def h_stride(rows: int) -> int:
 
 
 def smem_bytes(cell: str, hidden: int, fin: int, cluster: int,
-               k_split: int, rows: int) -> int:
+               k_split: int, rows: int, hoisted: bool = False) -> int:
     """Two mbarriers (4 floats) | W [in, u, 4] | b [1 or 2, u, 4] |
     h [2, 16 * k_split, h_stride(rows)] | x [3, rows, in], f32 (the kernel
-    carves the same regions)."""
+    carves the same regions).  ``hoisted``: no W, one bias row, and zx
+    buffers [3, rows, G, u] in place of x (``fin`` is ignored)."""
     u = units_per_cta(hidden, cluster)
-    bias_rows = 1 if gates(cell) == 4 else 2
+    if hoisted:
+        fin, bias_rows, x_floats = 0, 1, 3 * rows * gates(cell) * u
+    else:
+        bias_rows = 1 if gates(cell) == 4 else 2
+        x_floats = 3 * rows * fin
     floats = (4 + (fin + bias_rows) * u * GATE_SLOTS
-              + 2 * MAX_K * k_split * h_stride(rows) + 3 * rows * fin)
+              + 2 * MAX_K * k_split * h_stride(rows) + x_floats)
     return 4 * floats
 
 
@@ -98,15 +110,15 @@ def threads_for(units: int, k_split: int) -> int:
     return -(-units * k_split // 32) * 32
 
 
-def _candidate(B, hidden, fin, cell, cluster, rows):
+def _candidate(B, hidden, fin, cell, cluster, rows, hoisted=False):
     u = units_per_cta(hidden, cluster)
     ks = k_split_for(hidden)
     if ks is None or cluster > hidden or (cluster - 1) * u >= hidden:
         return None
     threads = threads_for(u, ks)
-    smem = smem_bytes(cell, hidden, fin, cluster, ks, rows)
+    smem = smem_bytes(cell, hidden, fin, cluster, ks, rows, hoisted)
     if (threads > MAX_THREADS or smem > SMEM_LIMIT
-            or rows * fin > X_PER_THREAD * threads):
+            or (not hoisted and rows * fin > X_PER_THREAD * threads)):
         return None
     return ScanLayout(cluster, rows, ks, threads, smem, -(-B // rows))
 
@@ -134,14 +146,16 @@ def model_resident(lay: ScanLayout, sms: int = SMS) -> int:
 
 
 def scan_layout(B: int, hidden: int, fin: int, cell: str, reuse: int = 1,
-                *, resident: Optional[Callable[[ScanLayout], int]] = None
-                ) -> ScanLayout:
+                *, resident: Optional[Callable[[ScanLayout], int]] = None,
+                hoisted: bool = False) -> ScanLayout:
     """The layout of one static in-loop scan of ``B`` rows: of the rows a
     cluster (1 or 8) and cluster sizes that fit a CTA, the one that runs in
     the fewest waves (``resident(layout)``: the clusters the card holds at
     once; default :func:`model_resident`), then gives each CTA the least
     work (rows x units).  At B = 8 that is a cluster per row; at QuickDraw's
-    B = 256 two clusters' CTAs share an SM and hide each other's waits."""
+    B = 256 two clusters' CTAs share an SM and hide each other's waits.
+    ``hoisted``: the layout of the hoisted scan (zx mode) by the same
+    rules; ``fin`` is then ignored."""
     G = gates(cell)
     if B < 1 or hidden < 1 or fin < 0:
         raise ValueError(f"scan_layout: B={B}, H={hidden}, in={fin}")
@@ -149,7 +163,7 @@ def scan_layout(B: int, hidden: int, fin: int, cell: str, reuse: int = 1,
         raise ValueError(f"scan_layout: reuse {reuse} does not divide "
                          f"{G}h = {G * hidden}")
     cands = [lay for rows in ROWS for c in CLUSTERS
-             if (lay := _candidate(B, hidden, fin, cell, c, rows))
+             if (lay := _candidate(B, hidden, fin, cell, c, rows, hoisted))
              is not None]
     if not cands:
         raise ValueError(f"scan_layout: no cluster layout fits {cell} "
@@ -174,13 +188,14 @@ def scan_layout(B: int, hidden: int, fin: int, cell: str, reuse: int = 1,
 
 
 def card_resident(cell: str, bf16: bool, reuse: int,
-                  lay: ScanLayout) -> int:
+                  lay: ScanLayout, hoisted: bool = False) -> int:
     """Clusters of ``lay`` the current CUDA device holds at once, from the
     C library (``cudaOccupancyMaxActiveClusters`` for the kernel that runs
-    that layout)."""
+    that layout; ``hoisted``: the zx mode, ``bf16`` its output's type)."""
     lib = cuda.library("rnn_scan")
-    n = lib.cluster_scan_resident(int(cell == "gru"), int(bf16), reuse,
-                                  *lay[:5])
+    query = (lib.cluster_zx_scan_resident if hoisted
+             else lib.cluster_scan_resident)
+    n = query(int(cell == "gru"), int(bf16), reuse, *lay[:5])
     if n < 0:
         raise RuntimeError(f"{cell}_scan: residency of {tuple(lay)}: CUDA "
                            f"error {-n}: "
@@ -190,13 +205,16 @@ def card_resident(cell: str, bf16: bool, reuse: int,
 
 @functools.lru_cache(maxsize=1024)
 def card_layout(B: int, hidden: int, fin: int, cell: str, reuse: int,
-                bf16: bool, device_index: int) -> ScanLayout:
+                bf16: bool, device_index: int, hoisted: bool = False
+                ) -> ScanLayout:
     """:func:`scan_layout` with the residency the current CUDA device
     reports (:func:`card_resident`), remembered per shape and device (the
     query, like the launch, runs on the current device)."""
+    kw = {"hoisted": True} if hoisted else {}
     return scan_layout(B, hidden, fin, cell, reuse,
                        resident=functools.partial(card_resident, cell, bf16,
-                                                  reuse))
+                                                  reuse, **kw),
+                       hoisted=hoisted)
 
 
 def launch_scan(cell: str, xs: torch.Tensor, W: torch.Tensor,
@@ -215,4 +233,25 @@ def launch_scan(cell: str, xs: torch.Tensor, W: torch.Tensor,
         cuda.launch("rnn_scan", kernel, dev, xs.data_ptr(), int(bf16),
                     W.data_ptr(), U.data_ptr(), b.data_ptr(),
                     out.data_ptr(), B, T, fin, hidden, reuse, *lay[:5])
+    return out
+
+
+def launch_hoisted_scan(cell: str, zx: torch.Tensor, U: torch.Tensor,
+                        b: torch.Tensor, reuse: int,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``<cell>_scan_hoisted`` on the cluster kernel's zx mode (CUDA
+    tensors, shapes checked by the caller; H up to
+    :data:`MAX_CLUSTER_HIDDEN`) at :func:`scan_layout`'s hoisted layout for
+    this card.  zx: [B, T, G*h] f32; b: the LSTM's b or the GRU's b_rec."""
+    kernel = f"{cell}_scan_hoisted"
+    dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b=b)
+    B, T, _ = zx.shape
+    hidden = U.shape[0]
+    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
+    if B:
+        bf16 = out_dtype == torch.bfloat16
+        lay = card_layout(B, hidden, 0, cell, reuse, bf16, dev.index, True)
+        cuda.launch("rnn_scan", kernel, dev, zx.data_ptr(), U.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), int(bf16), B, T, hidden,
+                    reuse, *lay[:5])
     return out

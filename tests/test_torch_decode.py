@@ -141,6 +141,139 @@ def test_decode_matmul_refuses_bad_arguments():
         tds.decode_matmul_kernel(x.double(), w.double())
 
 
+def gemma_products(cut: int = 8):
+    """gemma-2b's four per-token products (K, N) from the port's config,
+    K and N cut by ``cut`` with their K/N ratios kept."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma-2b")
+    d, hd = cfg.d_model, cfg.head_dim
+    full = {"qkv": (d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+            "o": (cfg.n_heads * hd, d), "gate_up": (d, 2 * cfg.d_ff),
+            "down": (cfg.d_ff, d)}
+    return {k: (K // cut, N // cut) for k, (K, N) in full.items()}
+
+
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("prod", ["qkv", "o", "gate_up", "down"])
+def test_decode_matmul_matches_repro_at_gemma_products(prod, R):
+    """bf16 at gemma-2b's per-token products cut by 8 (M = 4, q|k|v also at
+    the ragged M = 3) against repro's interpret-mode kernel."""
+    K, N = gemma_products()[prod]
+    rng = np.random.RandomState(11)
+    for M in ((4, 3) if prod == "qkv" else (4,)):
+        x, w = rng.randn(M, K), rng.randn(K, N) / np.sqrt(K)
+        js, ts = sched(R)
+        want = jds.decode_matmul(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(w, jnp.bfloat16), schedule=js)
+        got = tds.decode_matmul(
+            torch.tensor(x, dtype=torch.float32).bfloat16(),
+            torch.tensor(w, dtype=torch.float32).bfloat16(), schedule=ts)
+        assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+        close(as_np(got), np.asarray(want, np.float32), "bfloat16")
+
+
+#: (M, K, N, bf16) at which the layout is checked: gemma-2b's products at
+#: full size (M = 4, q|k|v also 3), the taggers' decode-step products (f32,
+#: M = 1 and 256), ragged and very wide shapes
+LAYOUT_SHAPES = (
+    [(M, K, N, True) for K, N in gemma_products(1).values() for M in (4,)]
+    + [(3, 2048, 2560, True)]
+    + [(M, K, N, False) for M in (1, 256)
+       for K, N in ((6, 80), (20, 80), (6, 60), (20, 60), (6, 480),
+                    (120, 480), (6, 360), (120, 360), (3, 512), (128, 512),
+                    (3, 384), (128, 384))]
+    + [(3, 26, 80, True), (9, 300, 96, False), (2, 5000, 64, True),
+       (1, 65536, 8, False), (4, 64, 2 ** 22, True)])
+
+
+def walk(lay, M, K, N, R):
+    """How often the kernel's threads multiply x[m, k] by w[k, n], as the
+    kernel carves the layout: block b is m tile b % m_tiles, then column
+    block, then K split; its K warp kw takes chunks kw, kw + k_warps, ...
+    of the split's run, and every tile r of its columns."""
+    cover = np.zeros((M, N, K), np.uint8)
+    ns = N // R
+    bcols = lay.warps * 32 * lay.vec
+    for b in range(lay.blocks):
+        mt, rest = b % lay.m_tiles, b // lay.m_tiles
+        cb, split = rest % lay.col_blocks, rest // lay.col_blocks
+        k0 = split * lay.chunks_per_split * lay.chunk
+        run = min(K - k0, lay.chunks_per_split * lay.chunk)
+        rows = slice(mt * lay.rows, min(M, (mt + 1) * lay.rows))
+        c0, c1 = cb * bcols, min(ns, (cb + 1) * bcols)
+        for kw in range(lay.k_warps):
+            for c in range(kw, -(-run // lay.chunk), lay.k_warps):
+                ks = slice(k0 + c * lay.chunk,
+                           k0 + min((c + 1) * lay.chunk, run))
+                for r in range(R):
+                    cover[rows, r * ns + c0:r * ns + c1, ks] += 1
+    return cover
+
+
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("M,K,N,bf16", [s for s in LAYOUT_SHAPES
+                                        if s[0] * s[1] * s[2] <= 2 ** 26])
+def test_decode_layout_covers_every_product_once(M, K, N, bf16, R):
+    lay = tds.decode_layout(M, K, N, R, bf16)
+    cover = walk(lay, M, K, N, R)
+    assert cover.min() == 1 and cover.max() == 1
+
+
+@pytest.mark.parametrize("M,K,N,bf16", LAYOUT_SHAPES)
+def test_decode_layout_chunks_do_not_depend_on_R(M, K, N, bf16):
+    """The chunk, hence every column's summation order, is the same at every
+    R (and M): R = 1 and R = 4 give the same bits by construction."""
+    chunk = tds.chunk_rows(K, N, bf16)
+    for R in (1, 2, 4, 8):
+        if N % R == 0:
+            lay = tds.decode_layout(M, K, N, R, bf16)
+            assert lay.chunk == chunk and lay.chunks == -(-K // chunk)
+    assert tds.decode_layout(1, K, N, 1, bf16).chunk == chunk
+
+
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("M,K,N,bf16", LAYOUT_SHAPES)
+def test_decode_layout_fits_the_card(M, K, N, bf16, R):
+    lay = tds.decode_layout(M, K, N, R, bf16)
+    run = min(K, lay.chunks_per_split * lay.chunk)
+    assert lay.blocks <= 2 ** 31 - 1 and lay.threads <= 256
+    assert lay.smem_bytes <= tds.SMEM_LIMIT
+    assert lay.rows * run * 4 <= tds.MAX_X_BYTES
+    assert lay.rows in tds.ROWS and lay.warps in tds.WARPS
+    assert lay.k_warps in tds.K_WARPS
+    assert lay.vec == ((8 if bf16 else 4) if (N // R) % (8 if bf16 else 4)
+                       == 0 else 1)
+    assert lay.launches == (2 if lay.splits > 1 else 1)
+    # R = 4's tiles give a quarter of the column blocks: it takes at least
+    # as many splits as R = 1 where K has the chunks for it
+    if R == 4:
+        assert lay.splits >= min(tds.decode_layout(M, K, N, 1, bf16).splits,
+                                 lay.chunks) or lay.blocks >= tds.SMS
+
+
+@pytest.mark.parametrize("M,K,N,R,dtype", [
+    (4, 2048, 2560, 4, torch.bfloat16), (4, 2048, 32768, 1, torch.bfloat16),
+    (256, 128, 512, 1, torch.float32), (1, 20, 60, 4, torch.float32)])
+def test_launch_hands_the_layout_to_the_c_entry_point(M, K, N, R, dtype,
+                                                      monkeypatch):
+    x, w = torch.zeros(M, K, dtype=dtype), torch.zeros(K, N, dtype=dtype)
+    calls = []
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: x.device)
+    monkeypatch.setattr(cuda, "launch", lambda *a, **k: calls.append(a))
+    out = tds.launch_decode(x, w, R)
+    assert out.shape == (M, N) and out.dtype == dtype
+    (lib, fn, dev, *args), = calls
+    assert (lib, fn) == ("decode_matmul", "decode_matmul")
+    # every C argument but the stream, which cuda.launch appends
+    assert len(args) == len(cuda.SIGNATURES[lib][fn][1]) - 1
+    lay = tds.decode_layout(M, K, N, R, dtype == torch.bfloat16)
+    assert args[2] == int(dtype == torch.bfloat16)
+    assert args[5:9] == [M, K, N, R] and tuple(args[9:]) == lay.c_args()
+    # a workspace exactly where more than one split shares K
+    assert (args[4] != 0) == (lay.splits > 1)
+
+
 # ---------------------------------------------------------------------------
 # rnn_decode_step
 # ---------------------------------------------------------------------------

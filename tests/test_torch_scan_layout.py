@@ -240,3 +240,95 @@ def test_card_resident_asks_the_c_library(cell, monkeypatch):
     fake.answer = -1                 # -cudaErrorInvalidValue
     with pytest.raises(RuntimeError, match="invalid argument"):
         sl.card_resident(cell, False, 1, lay)
+
+
+GRU_TAGGERS = sorted(t for t in TAGGERS if get_config(t).rnn.cell == "gru")
+
+
+@pytest.mark.parametrize("reuse", [1, 4])
+@pytest.mark.parametrize("batch", [8, 9, 256])
+@pytest.mark.parametrize("tag", GRU_TAGGERS)
+def test_hoisted_layout_fits_the_card(tag, batch, reuse):
+    """The hoisted GRU's layout (the cluster kernel's zx mode): no x side,
+    zx buffers of [rows, G, u] in the shared memory, the same rules."""
+    cell, H, fin, G = shapes(tag)
+    B = padded(batch)
+    R = SCHED.replace(reuse_factor=reuse).effective_reuse(G * H)
+    lay = sl.scan_layout(B, H, fin, cell, R, hoisted=True)
+    C, bt, ks, threads, smem, clusters = lay
+    assert smem <= 232_448
+    assert smem == sl.smem_bytes(cell, H, 0, C, ks, bt, hoisted=True)
+    # the formula the kernel carves: 2 mbarriers | b_rec [u, 4] |
+    # h [2, 16 k_split, h_stride] | zx [3, rows, G, u], f32
+    u = sl.units_per_cta(H, C)
+    assert smem == 4 * (4 + u * 4 + 2 * 16 * ks * sl.h_stride(bt)
+                        + 3 * bt * G * u)
+    owned = [j for units in owned_units(H, C) for j in units]
+    assert sorted(owned) == list(range(H))
+    assert ks in sl.K_SPLITS and ks * sl.MAX_K >= H
+    assert threads % 32 == 0 and u * ks <= threads <= sl.MAX_THREADS
+    assert clusters * bt >= B > (clusters - 1) * bt
+    if B in (8, 256):
+        assert clusters <= sl.model_resident(lay)
+    if B <= 9:
+        assert (bt, clusters) == (1, B)
+    # fin plays no part in the hoisted layout
+    assert sl.scan_layout(B, H, 0, cell, R, hoisted=True) == lay
+
+
+def hoisted_inputs(B, T, H, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return (t(rng.randn(B, T, 3 * H)), t(rng.randn(H, 3 * H) / 5),
+            t(rng.randn(3 * H) * 0.1))
+
+
+@pytest.mark.parametrize("hidden", [20, 120, 128, 256])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gru_scan_hoisted_routes_by_hidden(hidden, out_dtype, monkeypatch):
+    """H <= MAX_CLUSTER_HIDDEN: the cluster entry point with its hoisted
+    layout; past it the block kernel's entry point, counted as the same
+    kernel."""
+    B, T, R = 256, 4, 4
+    zx, U, b_rec = hoisted_inputs(B, T, hidden)
+    calls = []
+
+    def launch(*args, **kw):
+        calls.append((args, kw))
+
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: zx.device)
+    monkeypatch.setattr(cuda, "launch", launch)
+    monkeypatch.setattr(sl, "card_resident",
+                        lambda c, bf16, reuse, lay, hoisted=False:
+                        sl.model_resident(lay))
+    sl.card_layout.cache_clear()
+    try:
+        out = tgru._launch_hoisted("gru_scan_hoisted", zx, U, b_rec, R,
+                                   out_dtype)
+    finally:
+        sl.card_layout.cache_clear()
+    assert out.shape == (B, hidden) and out.dtype == out_dtype
+    (args, kw), = calls
+    lib, fn, dev, *cargs = args
+    bf16 = int(out_dtype == torch.bfloat16)
+    assert len(cargs) == len(cuda.SIGNATURES[lib][fn][1]) - 1
+    assert cargs[4:9] == [bf16, B, T, hidden, R]
+    if hidden <= sl.MAX_CLUSTER_HIDDEN:
+        assert (lib, fn, kw) == ("rnn_scan", "gru_scan_hoisted", {})
+        lay = sl.scan_layout(B, hidden, 0, "gru", R, hoisted=True)
+        assert tuple(cargs[9:]) == tuple(lay)[:5]
+    else:
+        assert (lib, fn) == ("rnn_scan", "gru_scan_hoisted_block")
+        assert kw == {"count_as": "gru_scan_hoisted"}
+
+
+def test_hoisted_residency_asks_the_zx_kernel(monkeypatch):
+    lay = sl.scan_layout(256, 128, 0, "gru", hoisted=True)
+    fake = FakeLibrary(37)
+    asked = []
+    fake.cluster_zx_scan_resident = lambda *a: asked.append(a) or 21
+    monkeypatch.setattr(cuda, "library", lambda name: fake)
+    assert sl.card_resident("gru", False, 4, lay, hoisted=True) == 21
+    assert asked == [(1, 0, 4, *lay[:5])] and fake.calls == []
+    assert len(asked[0]) == len(
+        cuda.SIGNATURES["rnn_scan"]["cluster_zx_scan_resident"][1])
