@@ -32,8 +32,12 @@ In order, it
      (bf16, M = 4, and q|k|v at M = 3) and at the taggers' decode-step
      products (f32, M = 1 and 256), R = 4 and a second call bit for bit
      equal to R = 1, and that its C entry point refuses a layout it cannot
-     run; ``gru_scan_hoisted`` (the cluster kernel's zx mode) also at
-     B = 8 and 9, on the cluster entry point; ``rglru_scan`` (bit
+     run; the hoisted and pipeline scans also at B = 8 and 9, and all
+     six scans at H = 256; ``lstm_scan_hoisted``, ``gru_scan_hoisted``
+     and ``gru_scan_pipeline`` (the cluster kernel's zx mode) on their
+     cluster entry point up to H = 128 and on ``<name>_block`` past it,
+     ``gru_scan_pipeline`` at every R bit for bit equal to R = 1 and to
+     ``gru_scan_hoisted`` at R = 1; ``rglru_scan`` (bit
      for bit, R = 2 and 4 equal to R = 1) at (4, 12, 20), the ragged
      (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
      {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
@@ -85,8 +89,9 @@ In order, it
                 ``ops.hadamard`` at (16384, 4096) bf16 (one ``hadamard``
                 launch, bit for bit equal to ``torch.mul``);
      and checks that every kernel of each path was launched (``static``:
-     the hoisted GRU's 3 flushes on the cluster kernel; ``static_wide``:
-     on the block kernel);
+     each tagger's hoisted flush on the cluster kernel; ``modes``: the GRU
+     pipelines and the hoisted scans on it; ``static_wide``: both hoisted
+     scans on the block kernel);
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace; the
      cluster scans at B = 256 and B = 8, with their cluster layout) beside
@@ -114,8 +119,9 @@ table is also written to ``build/chip_smoke.json``.
 
     python3 chip_smoke.py --time-scans [--src DIR]
 
-only times the in-loop static scans at B = 8 and 256 beside cuDNN and the
-six engines' ``predict_one`` and flush latency, importing ``repro_torch``
+only times the in-loop static scans at B = 8 and 256, and the hoisted and
+pipeline scans at B = 8 and 256 and R = 1 and 4, beside cuDNN, and the six
+engines' ``predict_one`` and flush latency, importing ``repro_torch``
 from ``DIR`` (default: this checkout's ``src``).  Run it for an unpacked
 parent commit and for this tree in turns (parent, change, change, parent)
 within one call to the card to compare the two; it prints a JSON line of
@@ -284,10 +290,12 @@ def call(name, shape, kern, plain, inputs, flops, library=None,
             "headline": headline, "peak": peak}
 
 
-def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False) -> list:
+def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False,
+               headline=True) -> list:
     """The static, hoisted and pipeline scans of ``rnn.cell`` on these
     inputs; the hoisted and pipeline kernels get zx from the port's hoist
-    stage, as on the main path."""
+    stage, as on the main path.  ``headline``: a QuickDraw call at R = 1
+    may be the result line's."""
     from repro_torch.kernels import gru_scan as gs
     from repro_torch.kernels import lstm_scan as ls
     from repro_torch.kernels.ops import _hoist_stage
@@ -299,7 +307,7 @@ def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False) -> list:
     H = U.shape[0]
     g = 4 if rnn.cell == "lstm" else 3
     shape = f"{tag} B={B} R={reuse}"
-    head = tag.startswith(HEADLINE) and reuse == 1
+    head = headline and tag.startswith(HEADLINE) and reuse == 1
     f_in, f_h = 2.0 * B * T * (fin + H) * g * H, 2.0 * B * T * H * g * H
 
     def lib(name, args):
@@ -380,46 +388,39 @@ def hoist_call(tag, xs, W) -> dict:
 
 
 def small_batch_calls(tag, r, dtype, seed, device, timing=False) -> list:
-    """The in-loop static scan (``lstm_scan`` / ``gru_scan``), and for a GRU
-    tagger the hoisted scan (``gru_scan_hoisted``, the cluster kernel's zx
-    mode) on zx from the port's hoist stage, called directly at the
-    trigger's batch (B = 8: ``predict_one``'s padded row count) and a
-    ragged B = 9 (timing: B = 8 only), R in ``REUSES``."""
-    from repro_torch.kernels import gru_scan as gs
-    from repro_torch.kernels import lstm_scan as ls
-    from repro_torch.kernels.ops import _hoist_stage
-    from repro_torch.kernels.schedule import KernelSchedule
-
-    name = f"{r.cell}_scan"
-    mod = ls if r.cell == "lstm" else gs
-    kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
+    """(R, call) for the in-loop static scan (``lstm_scan`` / ``gru_scan``)
+    and the hoisted and pipeline scans of the tagger's cell (on zx from the
+    port's hoist stage; :func:`scan_calls`) at the trigger's batch (B = 8:
+    ``predict_one``'s padded row count) and a ragged B = 9 (timing: B = 8
+    only), R in ``REUSES``."""
     out = []
     for B in SMALL_BATCHES[:1] if timing else SMALL_BATCHES:
         xs, W, U, b = scan_inputs(r.cell, r.seq_len, r.input_size, r.hidden,
                                   dtype, seed + B, device, batch=B)
-        g = 4 if r.cell == "lstm" else 3
-        flops = 2.0 * B * r.seq_len * (r.input_size + r.hidden) * g * r.hidden
-        args = (xs, W, U, b)
         for reuse in REUSES:
-            out.append((reuse, call(
-                name, f"{tag} B={B} R={reuse}",
-                lambda R=reuse: kern(*args, reuse=R),
-                lambda R=reuse: plain(*args, reuse=R), args, flops,
-                library_call(name, args) if timing else None)))
-        if r.cell != "gru":
-            continue
-        zx = _hoist_stage(xs, W, KernelSchedule())
-        hargs = ((zx + b[0]).contiguous(), U, b[1].contiguous())
-        hflops = 2.0 * B * r.seq_len * r.hidden * g * r.hidden
-        for reuse in REUSES:
-            kw = {"reuse": reuse, "out_dtype": dtype}
-            out.append((reuse, call(
-                "gru_scan_hoisted", f"{tag} B={B} R={reuse}",
-                lambda kw=kw: gs.gru_scan_hoisted_kernel(*hargs, **kw),
-                lambda kw=kw: gs.gru_scan_hoisted_plain(*hargs, **kw),
-                hargs, hflops,
-                library_call("gru_scan_hoisted", hargs) if timing
-                else None)))
+            out.extend((reuse, c) for c in scan_calls(
+                tag, r, xs, W, U, b, reuse, timing, headline=False))
+    return out
+
+
+def wide_calls(dtype, device) -> list:
+    """(tagger, R, call) for the scans of both cells at H = 256, past the
+    cluster kernel's H (``WIDE_SCAN``, B in ``WIDE_BATCHES``, R in
+    ``REUSES``; :func:`scan_calls`): the in-loop scan as ``col_matmul`` +
+    the hoisted scan, the hoisted and pipeline scans on the block
+    kernel."""
+    from types import SimpleNamespace
+
+    T, fin, H = WIDE_SCAN
+    out = []
+    for cell in ("lstm", "gru"):
+        for B in WIDE_BATCHES:
+            xs, W, U, b = scan_inputs(cell, T, fin, H, dtype, 1600 + B,
+                                      device, batch=B)
+            tag = f"{cell} H={H}"
+            for reuse in REUSES:
+                out.extend((tag, reuse, c) for c in scan_calls(
+                    tag, SimpleNamespace(cell=cell), xs, W, U, b, reuse))
     return out
 
 
@@ -452,6 +453,7 @@ def all_calls(dtype, device, timing=False):
     if not timing:
         for reuse, c in product_calls(dtype, device):
             yield "products", reuse, c
+        yield from wide_calls(dtype, device)
 
     for i, tag in enumerate(TAGGERS):
         r = get_config(tag).rnn
@@ -828,7 +830,6 @@ def phase_kernels(device) -> dict:
     import torch
 
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.scan_layout import scan_route
 
     errs: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -839,14 +840,14 @@ def phase_kernels(device) -> dict:
                 got = c["kern"]()
                 torch.cuda.synchronize()
                 want = c["plain"]()
-            if c["name"] == "gru_scan_hoisted":
+            if c["name"].endswith(("_hoisted", "_pipeline")):
                 # H <= 128: the cluster kernel's zx mode, never the block
-                hidden = c["inputs"][1].shape[0]
-                entry = ("gru_scan_hoisted" if scan_route(hidden) ==
-                         "cluster" else "gru_scan_hoisted_block")
+                entry = zx_entry(c["name"], c["inputs"][1].shape[0])
                 check(cuda.ENTRIES == {entry: 1},
-                      f"gru_scan_hoisted {c['shape']}: entries "
+                      f"{c['name']} {c['shape']}: entries "
                       f"{cuda.ENTRIES}, expected one {entry}")
+            if c["name"] == "gru_scan_pipeline":
+                check_pipeline_bits(c, got)
             check(got.dtype == want.dtype and got.shape == want.shape,
                   f"{c['name']} {c['shape']}: {got.dtype} "
                   f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
@@ -900,15 +901,51 @@ def phase_kernels(device) -> dict:
     return errs
 
 
+def zx_entry(name: str, hidden: int) -> str:
+    """The C entry point that scan ``name`` of zx precomputed takes at
+    ``hidden`` units: its own on the cluster kernel's zx mode up to its H,
+    ``<name>_block`` past it (``lstm_scan_pipeline``: its own, the block
+    kernel, at every H)."""
+    from repro_torch.kernels.scan_layout import ZX_CLUSTER, scan_route
+
+    if name in ZX_CLUSTER and scan_route(hidden) != "cluster":
+        return f"{name}_block"
+    return name
+
+
+def check_pipeline_bits(c, got) -> None:
+    """``gru_scan_pipeline`` at any R runs the one-pass instance on the
+    hoisted scan's R = 1 layout: its answer ``got`` equals, bit for bit,
+    the pipeline at R = 1 and ``gru_scan_hoisted`` at R = 1 on the same
+    inputs (both routes)."""
+    import torch
+
+    from repro_torch.kernels import gru_scan as gs
+
+    kw = {"reuse": 1, "out_dtype": got.dtype}
+    with torch.inference_mode():
+        r1 = gs.gru_scan_pipeline_kernel(*c["inputs"], **kw)
+        hoisted = gs.gru_scan_hoisted_kernel(*c["inputs"], **kw)
+        torch.cuda.synchronize()
+    same_r1, same_h = same_bits(got, r1), same_bits(got, hoisted)
+    print(f"check gru_scan_pipeline {c['shape']:44s}: bits equal to R=1: "
+          f"{same_r1}, to gru_scan_hoisted R=1: {same_h}")
+    check(same_r1, f"gru_scan_pipeline {c['shape']}: differs from R=1")
+    check(same_h, f"gru_scan_pipeline {c['shape']}: differs from "
+          f"gru_scan_hoisted at R=1")
+
+
 #: cudaErrorInvalidValue: the C launcher's answer to a layout it refuses
 INVALID_VALUE = 1
 
 
 def check_bad_layouts(device) -> None:
-    """The C entry points ``lstm_scan`` / ``gru_scan`` / ``gru_scan_hoisted``
-    and ``decode_matmul`` refuse a layout that breaks the kernel's rules
-    with cudaErrorInvalidValue, and launch nothing (called directly: no
-    launch is counted)."""
+    """The C entry points of the cluster scan kernel (``lstm_scan`` /
+    ``gru_scan``, and in its zx mode ``lstm_scan_hoisted`` /
+    ``gru_scan_hoisted`` / ``gru_scan_pipeline``) and ``decode_matmul``
+    refuse a layout that breaks the kernel's rules with
+    cudaErrorInvalidValue, and launch nothing (called directly: no launch
+    is counted)."""
     import torch
 
     from repro_torch.kernels import cuda
@@ -917,20 +954,20 @@ def check_bad_layouts(device) -> None:
     lib = cuda.library("rnn_scan")
     B, T, fin, H = 9, 5, 6, 20
     stream = torch.cuda.current_stream(device).cuda_stream
-    for cell in ("lstm", "gru", "gru_hoisted"):
-        hoisted = cell == "gru_hoisted"
-        cell = cell[:-8] if hoisted else cell
+    for name in ("lstm_scan", "gru_scan", *sl.ZX_CLUSTER):
+        cell = name.split("_")[0]
+        zx_mode = name in sl.ZX_CLUSTER
         xs, W, U, b = scan_inputs(cell, T, fin, H, torch.float32, 5, device,
                                   batch=B)
         out = torch.full((B, H), 7.0, device=device)
-        good = sl.card_layout(B, H, 0 if hoisted else fin, cell, 1, False,
-                              device.index, hoisted)
+        good = sl.card_layout(B, H, 0 if zx_mode else fin, cell, 1, False,
+                              device.index, zx_mode)
         bad = {
             "cluster 3": good._replace(cluster=3),
             "a CTA without units": good._replace(
                 cluster=8, smem_bytes=sl.smem_bytes(cell, H, fin, 8,
                                                     good.k_split, good.rows,
-                                                    hoisted)),
+                                                    zx_mode)),
             "rows 16": good._replace(rows=16),
             "k_split 1": good._replace(k_split=1),
             "k_split 4": good._replace(k_split=4),
@@ -939,12 +976,12 @@ def check_bad_layouts(device) -> None:
             "smem 4 bytes short": good._replace(
                 smem_bytes=good.smem_bytes - 4),
         }
-        name = f"{cell}_scan_hoisted" if hoisted else f"{cell}_scan"
-        zx = torch.zeros(B, T, 3 * H, device=device)
+        zx = torch.zeros(B, T, U.shape[1], device=device)
+        b_zx = b if cell == "lstm" else b[1]          # the GRU's b_rec
         for what, lay in bad.items():
-            if hoisted:
-                rc = lib.gru_scan_hoisted(
-                    zx.data_ptr(), U.data_ptr(), b[1].data_ptr(),
+            if zx_mode:
+                rc = getattr(lib, name)(
+                    zx.data_ptr(), U.data_ptr(), b_zx.data_ptr(),
                     out.data_ptr(), 0, B, T, H, 1, *lay[:5], stream)
             else:
                 rc = getattr(lib, name)(
@@ -1079,6 +1116,7 @@ def phase_serving(device) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.scan_layout import ZX_CLUSTER
     from repro_torch.kernels.schedule import KernelSchedule, schedule_key
     from repro_torch.models.init import init_params
     from repro_torch.models.rnn_tagger import param_specs
@@ -1153,17 +1191,30 @@ def phase_serving(device) -> dict:
     launches["static"], static = drive(
         "static", static_path, ("lstm_scan", "lstm_scan_hoisted",
                                 "gru_scan", "gru_scan_hoisted"))
-    # one hoisted flush a tagger: each GRU tagger's on the cluster kernel
-    n_gru = sum(get_config(t).rnn.cell == "gru" for t in TAGGERS)
-    check(launches["static"]["gru_scan_hoisted"] == n_gru
-          and ROUTES["static"].get("gru_scan_hoisted") == n_gru
-          and "gru_scan_hoisted_block" not in ROUTES["static"],
-          f"static: gru_scan_hoisted launches {launches['static']} / "
-          f"{ROUTES['static']}, expected {n_gru} on the cluster kernel")
+    # one hoisted flush a tagger, each on the cluster kernel's zx mode
+    for cell in ("lstm", "gru"):
+        kernel = f"{cell}_scan_hoisted"
+        n = sum(get_config(t).rnn.cell == cell for t in TAGGERS)
+        check(launches["static"][kernel] == n
+              and ROUTES["static"].get(kernel) == n
+              and f"{kernel}_block" not in ROUTES["static"],
+              f"static: {kernel} launches {launches['static']} / "
+              f"{ROUTES['static']}, expected {n} on the cluster kernel")
     launches["modes"], moded = drive(
         "modes", modes_path, ("col_matmul", "lstm_scan_pipeline",
                               "gru_scan_pipeline", "lstm_scan_hoisted",
                               "gru_scan_hoisted"))
+    # pipeline R = 1 and R = 4 of each GRU tagger, and the hoist_reuse = 2
+    # flushes, on the cluster kernel's zx mode
+    n_gru = sum(get_config(t).rnn.cell == "gru" for t in TAGGERS)
+    check(launches["modes"]["gru_scan_pipeline"] == 2 * n_gru,
+          f"modes: gru_scan_pipeline launches {launches['modes']}, "
+          f"expected {2 * n_gru}")
+    for kernel in ZX_CLUSTER:
+        check(ROUTES["modes"].get(kernel) == launches["modes"][kernel]
+              and f"{kernel}_block" not in ROUTES["modes"],
+              f"modes: {kernel} entries {ROUTES['modes']}, expected "
+              f"{launches['modes'][kernel]} on the cluster kernel")
     launches["matmul"], mm = drive("matmul", matmul_path, ("reuse_matmul",))
     launches["static_wide"] = drive_wide_scans(device)
 
@@ -1229,11 +1280,12 @@ def drive_wide_scans(device) -> dict:
                      "gru_scan_hoisted": n}
     check({k: v for k, v in launches.items() if v} == want_launches,
           f"static_wide launches {launches}, expected {want_launches}")
-    # past the cluster kernel's H the hoisted GRU runs on the block kernel
-    check(ROUTES["static_wide"].get("gru_scan_hoisted_block") == n
-          and "gru_scan_hoisted" not in ROUTES["static_wide"],
-          f"static_wide: entries {ROUTES['static_wide']}, expected {n} "
-          f"gru_scan_hoisted_block")
+    # past the cluster kernel's H both hoisted scans run on the block kernel
+    for kernel in ("lstm_scan_hoisted", "gru_scan_hoisted"):
+        check(ROUTES["static_wide"].get(f"{kernel}_block") == n
+              and kernel not in ROUTES["static_wide"],
+              f"static_wide: entries {ROUTES['static_wide']}, expected {n} "
+              f"{kernel}_block")
     for (cell, args), g in zip(cases, got):
         scan = ops.lstm_scan if cell == "lstm" else ops.gru_scan
         with torch.inference_mode():
@@ -1638,7 +1690,8 @@ def phase_timing(device) -> tuple:
     import torch
 
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.scan_layout import (card_layout, card_resident,
+    from repro_torch.kernels.scan_layout import (ZX_CLUSTER, card_layout,
+                                                 card_resident,
                                                  model_resident, scan_route)
 
     rows = []
@@ -1674,23 +1727,23 @@ def phase_timing(device) -> tuple:
         row["device_ms"] = per_call(c["kern"], group, calls)
         row["library_device_ms"] = (per_call(lib, "other", calls) if lib
                                     else None)
-        hoisted_cluster = (c["name"] == "gru_scan_hoisted"
-                           and scan_route(c["inputs"][1].shape[0])
-                           == "cluster")
-        if c["name"] in CLUSTER_SCANS or hoisted_cluster:
-            xs, U = c["inputs"][0], c["inputs"][1 if hoisted_cluster else 2]
-            cell = "gru" if hoisted_cluster else c["name"][:-5]
+        zx_cluster = (c["name"] in ZX_CLUSTER
+                      and scan_route(c["inputs"][1].shape[0]) == "cluster")
+        if c["name"] in CLUSTER_SCANS or zx_cluster:
+            xs, U = c["inputs"][0], c["inputs"][1 if zx_cluster else 2]
+            cell = c["name"].split("_")[0]
             bf16 = out.dtype == torch.bfloat16
-            fin = 0 if hoisted_cluster else xs.shape[-1]
-            lay = card_layout(xs.shape[0], U.shape[0], fin, cell, reuse,
-                              bf16, xs.device.index, hoisted_cluster)
+            fin = 0 if zx_cluster else xs.shape[-1]
+            # the pipeline runs the one-pass instance on R = 1's layout
+            lay_reuse = 1 if c["name"].endswith("_pipeline") else reuse
+            lay = card_layout(xs.shape[0], U.shape[0], fin, cell, lay_reuse,
+                              bf16, xs.device.index, zx_cluster)
             # clusters the card holds at once (its occupancy query) beside
             # the CPU tests' model of it
             row["layout"] = {**lay._asdict(),
                              "resident": card_resident(
-                                 cell, bf16, reuse, lay,
-                                 **({"hoisted": True} if hoisted_cluster
-                                    else {})),
+                                 cell, bf16, lay_reuse, lay,
+                                 hoisted=zx_cluster),
                              "model_resident": model_resident(lay)}
         elif c["name"] == "decode_matmul":
             row["layout"] = decode_layout_row(c["inputs"], reuse)
@@ -1723,6 +1776,12 @@ def phase_timing(device) -> tuple:
                   + time_rglru_modes(device))
 
 
+#: the cluster kernel's zx-mode instances each scan runs, by fragments of
+#: their mangled names: <CELL, true, ...> (cell 0: LSTM, 1: GRU), the
+#: pipeline's with ONE_PASS (the last template argument) true
+ZX_INSTANCES = {"lstm_scan_hoisted": ("ILi0ELb1E",),
+                "gru_scan_hoisted": ("ILi1ELb1E",),
+                "gru_scan_pipeline": ("ILi1ELb1E", "Lb1EEEv")}
 #: the entries of the two tiled products' C libraries (layout exports)
 PRODUCT_LIBS = {"col_matmul": "reuse_matmul", "quant_matmul": "quantized"}
 
@@ -1783,12 +1842,12 @@ def ptxas_report(paths) -> dict:
     return report
 
 
-def ptxas_summary(report: dict, name: str, fragment: str = "") -> dict:
+def ptxas_summary(report: dict, name: str, *fragments: str) -> dict:
     """The compiled instances of kernel ``name`` (its template
-    instantiations; with ``fragment``, those whose mangled name holds it):
-    how many, their registers, their spill bytes."""
+    instantiations; with ``fragments``, those whose mangled name holds
+    every one): how many, their registers, their spill bytes."""
     inst = [v for k, v in report.items()
-            if f"{name}_kernel" in k and fragment in k]
+            if f"{name}_kernel" in k and all(f in k for f in fragments)]
     return {"instances": len(inst),
             "registers": sorted(v["registers"] for v in inst),
             "spill_bytes": sum(v["spill_bytes"] for v in inst)}
@@ -2445,8 +2504,9 @@ def main() -> int:
                   f"{spills or 'none'}")
     for name in (*PRODUCT_LIBS, "decode_matmul", "decode_matmul_fold"):
         print(f"ptxas {name}: {json.dumps(ptxas_summary(ptxas, name))}")
-    print(f"ptxas gru_scan_hoisted (cluster zx mode): "
-          f"{json.dumps(ptxas_summary(ptxas, 'cluster_scan', 'ILi1ELb1E'))}")
+    for name, frags in ZX_INSTANCES.items():
+        print(f"ptxas {name} (cluster zx mode): "
+              f"{json.dumps(ptxas_summary(ptxas, 'cluster_scan', *frags))}")
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
@@ -2482,11 +2542,10 @@ def main() -> int:
         if name == "decode_matmul":
             kernels[-1]["ptxas_fold"] = ptxas_summary(ptxas,
                                                       "decode_matmul_fold")
-        if name == "gru_scan_hoisted":
-            # the cluster kernel's zx-mode GRU instances: <1, true, ...>
+        if name in ZX_INSTANCES:
             kernels[-1]["layout"] = row["layout"]
             kernels[-1]["ptxas"] = ptxas_summary(ptxas, "cluster_scan",
-                                                 "ILi1ELb1E")
+                                                 *ZX_INSTANCES[name])
         if name in CLUSTER_SCANS:
             b8 = next(r for r in rows if r["name"] == name and r["reuse"] == 1
                       and r["tagger"].startswith(HEADLINE)

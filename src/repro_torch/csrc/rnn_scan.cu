@@ -14,8 +14,9 @@
 //
 // Two designs live here.
 //
-// 1. The in-loop static scans (lstm_scan, gru_scan) and the GRU's hoisted
-//    scan (gru_scan_hoisted, H <= 128): cluster_scan_kernel, a
+// 1. The in-loop static scans (lstm_scan, gru_scan), both hoisted scans
+//    (lstm_scan_hoisted, gru_scan_hoisted) and the GRU's pipeline scan
+//    (gru_scan_pipeline), each for H <= 128: cluster_scan_kernel, a
 //    weight-stationary thread-block-cluster kernel.
 //    - A cluster of C CTAs (C in {1, 2, 4, 8}) owns a tile of ROWS batch
 //      rows (1 or 8: a cluster a row where the batch is small enough for
@@ -71,20 +72,23 @@
 //      below cp.async's 4-byte granule); the x side of step t is computed
 //      before the wait for h_t, while h_t may still be in flight.  A
 //      __syncthreads() a step orders the x buffers.
-//    - The zx mode (template ZX, the hoisted scan): the same recurrence
-//      over precomputed zx = x W (+ b_in for the GRU).  Step t reads the
-//      pre-activations zx[b, t, .] of the CTA's units' G columns through
-//      the same 3-deep shared buffer, staged two steps ahead with 4-byte
-//      cp.async (a unit's gate columns are runs of f32; one commit group a
-//      step, a wait_group before the step's __syncthreads()), in place of
-//      the in-kernel x W; the rest of the step is unchanged.  Only the
-//      GRU's hoisted scan takes it in this build; the LSTM's hoisted scan
-//      is the instantiation <kLSTM, true, ...>, and a pipeline scan (R
-//      tiles issued together) the same with ONE_PASS at every R.  Its
-//      layout comes from kernels/scan_layout.py with hoisted=True (no x
-//      side; the shared memory is the zx buffers).  Past H = 128 the
-//      hoisted GRU runs on design 2 (gru_scan_hoisted_block): a route by
-//      shape, as scan_route routes the in-loop scans.
+//    - The zx mode (template ZX): the same recurrence over precomputed
+//      zx = x W (+ b_in for the GRU).  Step t reads the pre-activations
+//      zx[b, t, .] of the CTA's units' G columns through the same 3-deep
+//      shared buffer, staged two steps ahead with 4-byte cp.async (a
+//      unit's gate columns are runs of f32; one commit group a step, a
+//      wait_group before the step's __syncthreads()), in place of the
+//      in-kernel x W; the rest of the step is unchanged: the LSTM forms
+//      (zx + zh) + b and keeps c in registers, the GRU zx + (zh + b_rec).
+//      The hoisted scans of both cells take it (<CELL, true, ...>), and so
+//      does the GRU's pipeline scan (R tiles issued together): the
+//      ONE_PASS instance at every R, R naming the tiles only, so the
+//      pipeline at any R gives the hoisted scan's R = 1 bits.  The layout
+//      comes from kernels/scan_layout.py with hoisted=True (no x side; the
+//      shared memory is one bias row [u][4] and the zx buffers
+//      [3][rows][G][u]; the pipeline's is R = 1's).  Past H = 128 these
+//      three run on design 2 (the *_block entry points): a route by shape,
+//      as scan_route routes the in-loop scans.
 //    - R keeps its meaning: at R > 1 a step runs R passes in order, pass p
 //      computing the gate columns [p*gw, (p+1)*gw) (gw = G*H/R) of the
 //      CTA's units (x side included), a __syncthreads() between passes, the
@@ -117,8 +121,9 @@
 //      the tensor cores save; plain TF32 does not hold the f32 tolerance
 //      over 100 steps.
 //
-// 2. The LSTM's hoisted scan, both pipeline scans and the GRU's hoisted scan
-//    past H = 128: rnn_scan_kernel, one thread block per ROWS batch rows.
+// 2. The LSTM's pipeline scan, and the hoisted scans and the GRU's
+//    pipeline scan past H = 128: rnn_scan_kernel, one thread block per
+//    ROWS batch rows.
 //    - Translation of the TPU grid.  The Pallas grid is (B/bt, T, R) with T
 //      and R sequential: the state lives in VMEM scratch across grid steps.
 //      Here one block keeps h (and c) in shared memory for the whole
@@ -137,8 +142,10 @@
 //      thread streams its U column from L2 at every step, so each step of
 //      every block re-reads all of U (G*h*h*4 bytes) from L2, a chain of
 //      T*R (pipeline: T) steps of 7-8 us at QuickDraw (NVIDIA H100 80GB
-//      HBM3, 700 W).  The cluster kernel's zx mode above takes the GRU's
-//      hoisted scan off this design; the other three are queued for it.
+//      HBM3, 700 W).  The cluster kernel's zx mode above takes both
+//      hoisted scans and the GRU's pipeline scan off this design up to
+//      H = 128; the LSTM's pipeline scan is queued for it (the same
+//      ONE_PASS route as the GRU's).
 //    - Numerics as above: f32 FMA per column, (zx + dot_h) + b for the
 //      LSTM, zh = dot_h + b_rec for the GRU.
 //
@@ -416,13 +423,12 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[ROWS][kGateSlots],
 // along x.  Thread i of a CTA is lane s = i % KS of unit jj = i / KS; it
 // holds U[k][g*H + j0 + jj] for k = s, s + KS, ... in registers.
 // ONE_PASS: R = 1 (all gates each pass).
-// ZX (the hoisted scan): xs is zx [B,T,G*H] f32, precomputed x W (the GRU
-// with b_in folded in), W is unused and fin = 0; bias is the LSTM's b
-// [4H] or the GRU's b_rec [3H]; out is OT (f32 or bf16).  Step t reads
-// zx_t through the 3-deep buffer, staged two steps ahead with cp.async, in
-// place of the in-kernel x W.  The LSTM's hoisted scan is the
-// instantiation <kLSTM, true, ...>; a pipeline scan (R tiles issued
-// together) is the same with ONE_PASS for every R.
+// ZX (the hoisted and GRU pipeline scans): xs is zx [B,T,G*H] f32,
+// precomputed x W (the GRU with b_in folded in), W is unused and fin = 0;
+// bias is the LSTM's b [4H] or the GRU's b_rec [3H]; out is OT (f32 or
+// bf16).  Step t reads zx_t through the 3-deep buffer, staged two steps
+// ahead with cp.async, in place of the in-kernel x W.  The pipeline scan
+// (R tiles issued together) runs with ONE_PASS at every R.
 template <int CELL, bool ZX, typename XT, typename OT, int ROWS, int KS,
           bool ONE_PASS>
 __global__ void __launch_bounds__(kMaxClusterThreads)
@@ -449,6 +455,13 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
   // the same sums: each updates rows r0 .. r0+N-1 alike, and they share
   // out the stores to the cluster's CTAs
   constexpr int DUP = KS / L;
+  // The zx LSTM at R > 1 runs every gate's chain in every pass and keeps
+  // the pass's gates when it sums (each column's sum is the same chain, so
+  // the bits are those of a predicated FMA a gate): predicated, its
+  // 8-row, 8-lane instance took 172 registers, two 128-thread CTAs an SM,
+  // 30 clusters of 8 for the 32 of B = 256; so, 164 and one wave.  (The
+  // GRU's instances keep the predicated FMAs: faster at R = 4 on the H100.)
+  constexpr bool MASK_SUM = ZX && CELL == kLSTM && !ONE_PASS;
   const bool lead = active;
   const int dup = s / L;
   const int r0 = (s % L) * N;
@@ -576,7 +589,7 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
           for (int r = 0; r < ROWS; ++r)
 #pragma unroll
             for (int g = 0; g < G; ++g)
-              if (ONE_PASS || (gates >> g & 1u))
+              if (ONE_PASS || MASK_SUM || (gates >> g & 1u))
                 v[r][g] = fmaf(hv[r], ur[i][g], v[r][g]);
         }
       }
@@ -584,7 +597,8 @@ cluster_scan_kernel(const XT* __restrict__ xs, const float* __restrict__ W,
 #pragma unroll
       for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int g = 0; g < G; ++g) zh[r][g] += v[r][g];
+        for (int g = 0; g < G; ++g)
+          if (!MASK_SUM || (gates >> g & 1u)) zh[r][g] += v[r][g];
       if (!ONE_PASS) {
         if (!ZX && lead && gates)
           x_side<G, N>(x_s + (t % 3) * nx, W_s, u, jj, r0, fin, gates, zx);
@@ -797,16 +811,18 @@ int launch_cluster(const void* xs, int xs_bf16, const float* W,
                    threads, smem, s);
 }
 
-// The zx mode (hoisted scans): zx [B,T,G*H] f32, out f32 or bf16.
+// The zx mode (hoisted and pipeline scans): zx [B,T,G*H] f32, out f32 or
+// bf16.  one_pass: the ONE_PASS instance (the hoisted scan at R = 1, the
+// pipeline scan at every R: R only names its tiles).
 template <int CELL>
 int launch_cluster_zx(const float* zx, int out_bf16, const float* U,
                       const float* b, void* out, int B, int T, int H,
-                      int reuse, int C, int rows, int k_split, int threads,
-                      int smem, void* stream) {
+                      int reuse, bool one_pass, int C, int rows, int k_split,
+                      int threads, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
   if (out_bf16) {
-    return reuse == 1
+    return one_pass
                ? launch_cluster_as<CELL, true, float, BF, true>(
                      zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
                      k_split, threads, smem, s)
@@ -814,7 +830,7 @@ int launch_cluster_zx(const float* zx, int out_bf16, const float* U,
                      zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
                      k_split, threads, smem, s);
   }
-  return reuse == 1
+  return one_pass
              ? launch_cluster_as<CELL, true, float, float, true>(
                    zx, nullptr, U, b, out, B, T, 0, H, reuse, C, rows,
                    k_split, threads, smem, s)
@@ -839,13 +855,15 @@ int checked_launch_cluster(const void* xs, int xs_bf16, const float* W,
 template <int CELL>
 int checked_launch_cluster_zx(const float* zx, int out_bf16, const float* U,
                               const float* b, void* out, int B, int T, int H,
-                              int reuse, int C, int rows, int k_split,
-                              int threads, int smem, void* stream) {
+                              int reuse, bool one_pass, int C, int rows,
+                              int k_split, int threads, int smem,
+                              void* stream) {
   if (!cluster_layout_ok(CELL, B, T, 0, H, reuse, C, rows, k_split, threads,
                          smem, true))
     return (int)cudaErrorInvalidValue;
-  return launch_cluster_zx<CELL>(zx, out_bf16, U, b, out, B, T, H, reuse, C,
-                                 rows, k_split, threads, smem, stream);
+  return launch_cluster_zx<CELL>(zx, out_bf16, U, b, out, B, T, H, reuse,
+                                 one_pass, C, rows, k_split, threads, smem,
+                                 stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1068,27 +1086,50 @@ int cluster_scan_resident(int cell, int xs_bf16, int reuse, int cluster,
                nullptr);
 }
 
+// The hoisted scans and the GRU's pipeline scan on the cluster kernel's zx
+// mode, at a cluster layout (cluster, rows, k_split, threads, smem_bytes)
+// from kernels/scan_layout.py (hoisted=True; the pipeline's is R = 1's):
+// H up to 128.  The pipeline runs the ONE_PASS instance at every R, so at
+// any R it gives the hoisted scan's R = 1 bits.
 int lstm_scan_hoisted(const float* zx, const float* U, const float* b,
                       void* out, int out_bf16, int B, int T, int H, int reuse,
-                      void* stream) {
-  return launch_hoisted<kLSTM, false>(zx, U, b, out, out_bf16, B, T, H,
-                                      reuse, stream);
+                      int cluster, int rows, int k_split, int threads,
+                      int smem_bytes, void* stream) {
+  return checked_launch_cluster_zx<kLSTM>(zx, out_bf16, U, b, out, B, T, H,
+                                          reuse, reuse == 1, cluster, rows,
+                                          k_split, threads, smem_bytes,
+                                          stream);
 }
 
-// The GRU's hoisted scan on the cluster kernel's zx mode, at a cluster
-// layout (cluster, rows, k_split, threads, smem_bytes) from
-// kernels/scan_layout.py (hoisted=True): H up to 128.
 int gru_scan_hoisted(const float* zx, const float* U, const float* b_rec,
                      void* out, int out_bf16, int B, int T, int H, int reuse,
                      int cluster, int rows, int k_split, int threads,
                      int smem_bytes, void* stream) {
   return checked_launch_cluster_zx<kGRU>(zx, out_bf16, U, b_rec, out, B, T,
-                                         H, reuse, cluster, rows, k_split,
-                                         threads, smem_bytes, stream);
+                                         H, reuse, reuse == 1, cluster, rows,
+                                         k_split, threads, smem_bytes,
+                                         stream);
 }
 
-// The same function on the block kernel (rnn_scan_kernel): the route for
+int gru_scan_pipeline(const float* zx, const float* U, const float* b_rec,
+                      void* out, int out_bf16, int B, int T, int H, int reuse,
+                      int cluster, int rows, int k_split, int threads,
+                      int smem_bytes, void* stream) {
+  return checked_launch_cluster_zx<kGRU>(zx, out_bf16, U, b_rec, out, B, T,
+                                         H, reuse, true, cluster, rows,
+                                         k_split, threads, smem_bytes,
+                                         stream);
+}
+
+// The same functions on the block kernel (rnn_scan_kernel): the route for
 // H past the cluster kernel's 128.
+int lstm_scan_hoisted_block(const float* zx, const float* U, const float* b,
+                            void* out, int out_bf16, int B, int T, int H,
+                            int reuse, void* stream) {
+  return launch_hoisted<kLSTM, false>(zx, U, b, out, out_bf16, B, T, H,
+                                      reuse, stream);
+}
+
 int gru_scan_hoisted_block(const float* zx, const float* U,
                            const float* b_rec, void* out, int out_bf16,
                            int B, int T, int H, int reuse, void* stream) {
@@ -1096,35 +1137,39 @@ int gru_scan_hoisted_block(const float* zx, const float* U,
                                      reuse, stream);
 }
 
-// Clusters of the zx-mode (hoisted) scan kernel at this layout that the
-// current device holds at once, or a negative CUDA error; the GRU only
-// (cell 1).  kernels/scan_layout.py counts waves with it.
+int gru_scan_pipeline_block(const float* zx, const float* U,
+                            const float* b_rec, void* out, int out_bf16,
+                            int B, int T, int H, int reuse, void* stream) {
+  return launch_hoisted<kGRU, true>(zx, U, b_rec, out, out_bf16, B, T, H,
+                                    reuse, stream);
+}
+
+// Clusters of the zx-mode scan kernel at this layout (cell 0: LSTM, 1:
+// GRU; the ONE_PASS instance at reuse 1, as the pipeline runs it) that the
+// current device holds at once, or a negative CUDA error.
+// kernels/scan_layout.py counts waves with it.
 int cluster_zx_scan_resident(int cell, int out_bf16, int reuse, int cluster,
                              int rows, int k_split, int threads,
                              int smem_bytes) {
-  if (cell != kGRU || reuse < 1 || threads < 1 ||
+  if ((cell != kLSTM && cell != kGRU) || reuse < 1 || threads < 1 ||
       threads > kMaxClusterThreads || smem_bytes < 0 ||
       (size_t)smem_bytes > kMaxSmem ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
       (rows != 1 && rows != 8) || (k_split != 2 && k_split != 8))
     return -(int)cudaErrorInvalidValue;
-  return launch_cluster_zx<kGRU>(nullptr, out_bf16, nullptr, nullptr,
-                                 nullptr, -1, 0, 0, reuse, cluster, rows,
-                                 k_split, threads, smem_bytes, nullptr);
+  auto query =
+      cell == kLSTM ? launch_cluster_zx<kLSTM> : launch_cluster_zx<kGRU>;
+  return query(nullptr, out_bf16, nullptr, nullptr, nullptr, -1, 0, 0, reuse,
+               reuse == 1, cluster, rows, k_split, threads, smem_bytes,
+               nullptr);
 }
 
+// The LSTM's pipeline scan stays on the block kernel at every H.
 int lstm_scan_pipeline(const float* zx, const float* U, const float* b,
                        void* out, int out_bf16, int B, int T, int H, int reuse,
                        void* stream) {
   return launch_hoisted<kLSTM, true>(zx, U, b, out, out_bf16, B, T, H, reuse,
                                      stream);
-}
-
-int gru_scan_pipeline(const float* zx, const float* U, const float* b_rec,
-                      void* out, int out_bf16, int B, int T, int H, int reuse,
-                      void* stream) {
-  return launch_hoisted<kGRU, true>(zx, U, b_rec, out, out_bf16, B, T, H,
-                                    reuse, stream);
 }
 
 // Rows of the batch each thread block of the hoisted and pipeline scans

@@ -10,8 +10,9 @@ reused.  Nothing is built or loaded at import time.
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, and nowhere else, so a caller can show that a run went
 through the kernels; :data:`ENTRIES` counts the same calls by C entry
-point, which tells a kernel's routes apart (``gru_scan_hoisted`` on the
-cluster kernel or, past its H, ``gru_scan_hoisted_block``).
+point, which tells a kernel's routes apart (``lstm_scan_hoisted``,
+``gru_scan_hoisted`` and ``gru_scan_pipeline`` on the cluster kernel or,
+past its H, ``*_block`` on the block kernel).
 """
 
 from __future__ import annotations
@@ -47,11 +48,13 @@ SIGNATURES = {
     "rnn_scan": {
         "lstm_scan": _CLUSTER_SCAN,
         "gru_scan": _CLUSTER_SCAN,
-        "lstm_scan_hoisted": _HOISTED,
+        "lstm_scan_hoisted": _CLUSTER_HOISTED,
+        "lstm_scan_hoisted_block": _HOISTED,
         "gru_scan_hoisted": _CLUSTER_HOISTED,
         "gru_scan_hoisted_block": _HOISTED,
         "lstm_scan_pipeline": _HOISTED,
-        "gru_scan_pipeline": _HOISTED,
+        "gru_scan_pipeline": _CLUSTER_HOISTED,
+        "gru_scan_pipeline_block": _HOISTED,
         "scan_rows_per_block": (_I, [_I]),
         "cluster_scan_resident": (_I, [_I] * 8),
         "cluster_zx_scan_resident": (_I, [_I] * 8),

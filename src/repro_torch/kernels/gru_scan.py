@@ -2,14 +2,15 @@
 
 Replaces ``repro/kernels/gru_scan.py``'s ``gru_scan_pallas``,
 ``gru_scan_hoisted_pallas`` and ``gru_scan_pipeline_pallas``.  The kernels
-live in ``csrc/rnn_scan.cu``: the in-loop and the hoisted ones on the
-thread-block-cluster kernel (the hoisted one on its zx mode) at a layout
-from ``kernels/scan_layout.py``, for h up to ``MAX_CLUSTER_HIDDEN``; past
-it the in-loop function runs as ``col_matmul`` and the hoisted scan
-(:func:`gru_scan_composed`), and the hoisted scan on the block kernel.
-The pipeline kernel (the block kernel) computes the hoisted kernel's
-function with its R column tiles issued together, so both share one plain
-version.
+live in ``csrc/rnn_scan.cu``: all three on the thread-block-cluster kernel
+(the hoisted and pipeline ones on its zx mode) at a layout from
+``kernels/scan_layout.py``, for h up to ``MAX_CLUSTER_HIDDEN``; past it
+the in-loop function runs as ``col_matmul`` and the hoisted scan
+(:func:`gru_scan_composed`), and the hoisted and pipeline scans on the
+block kernel.  The pipeline kernel computes the hoisted kernel's function
+with its R column tiles issued together (on the cluster kernel: its
+one-pass instance, so at every R it gives the hoisted scan's R = 1 bits),
+so both share one plain version.
 
 A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, which repeats the kernel's R-tiled arithmetic: per step, R column
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda
 from repro_torch.kernels.reuse_matmul import col_matmul_kernel
 from repro_torch.kernels.scan_layout import (launch_hoisted_scan, launch_scan,
                                              scan_route)
@@ -118,11 +118,9 @@ def gru_scan_composed(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
 
 
 def _hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype) -> torch.Tensor:
-    """Wrapper of the two kernels that take zx precomputed: the hoisted
-    scan goes to the cluster kernel's zx mode up to ``MAX_CLUSTER_HIDDEN``
-    (a route by shape, as :func:`scan_route` gives it) and to the block
-    kernel (``gru_scan_hoisted_block``) past it; the pipeline scan runs on
-    the block kernel."""
+    """Wrapper of the two kernels that take zx precomputed: a CUDA tensor
+    goes to :func:`~repro_torch.kernels.scan_layout.launch_hoisted_scan`,
+    which routes by H."""
     hidden = U.shape[0]
     _check_shapes(kernel, hidden, reuse, U, zx.shape[-1])
     if b_rec.shape != (3 * hidden,):
@@ -132,25 +130,8 @@ def _hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype) -> torch.Tensor:
                                       out_dtype=out_dtype)
     if zx.device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {zx.device}")
-    return _launch_hoisted(kernel, zx, U, b_rec, reuse, out_dtype)
+    return launch_hoisted_scan(kernel, zx, U, b_rec, reuse, out_dtype)
 
-
-def _launch_hoisted(kernel: str, zx, U, b_rec, reuse, out_dtype):
-    """The CUDA launch of :func:`_hoisted` (arguments checked): the route
-    by H, then the C entry point."""
-    hidden = U.shape[0]
-    hoisted = kernel == "gru_scan_hoisted"
-    if hoisted and scan_route(hidden) == "cluster":
-        return launch_hoisted_scan("gru", zx, U, b_rec, reuse, out_dtype)
-    dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b_rec=b_rec)
-    B, T, _ = zx.shape
-    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
-    if B:
-        cuda.launch("rnn_scan", f"{kernel}_block" if hoisted else kernel,
-                    dev, zx.data_ptr(), U.data_ptr(), b_rec.data_ptr(),
-                    out.data_ptr(), int(out_dtype == torch.bfloat16), B, T,
-                    hidden, reuse, count_as=kernel)
-    return out
 
 
 def gru_scan_hoisted_kernel(zx: torch.Tensor, U: torch.Tensor,

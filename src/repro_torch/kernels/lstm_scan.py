@@ -3,13 +3,14 @@
 Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas``,
 ``lstm_scan_hoisted_pallas`` and ``lstm_scan_pipeline_pallas``.  The kernels
 live in ``csrc/rnn_scan.cu`` (its header says what bounds them on an H100
-and how the design answers); the in-loop one is a thread-block-cluster
-kernel at a layout from ``kernels/scan_layout.py``, for h up to
-``MAX_CLUSTER_HIDDEN``; past it the in-loop function runs as
-``col_matmul`` and the hoisted kernel (:func:`lstm_scan_composed`).  The
-pipeline kernel
-computes the hoisted kernel's function with its R column tiles issued
-together, so both share one plain version.
+and how the design answers); the in-loop and the hoisted ones run on the
+thread-block-cluster kernel (the hoisted one on its zx mode) at a layout
+from ``kernels/scan_layout.py``, for h up to ``MAX_CLUSTER_HIDDEN``; past
+it the in-loop function runs as ``col_matmul`` and the hoisted kernel
+(:func:`lstm_scan_composed`), and the hoisted kernel on the block kernel
+(``lstm_scan_hoisted_block``).  The pipeline kernel (the block kernel at
+every h) computes the hoisted kernel's function with its R column tiles
+issued together, so both share one plain version.
 
 Each wrapper takes the tensor's device as the dispatch: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version beside
@@ -22,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda
 from repro_torch.kernels.reuse_matmul import col_matmul_kernel
-from repro_torch.kernels.scan_layout import launch_scan, scan_route
+from repro_torch.kernels.scan_layout import (launch_hoisted_scan, launch_scan,
+                                             scan_route)
 
 
 def _gate_update(z: torch.Tensor, c: torch.Tensor, hidden: int):
@@ -118,7 +119,9 @@ def lstm_scan_composed(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
 
 
 def _hoisted(kernel: str, zx, U, b, reuse, out_dtype) -> torch.Tensor:
-    """Wrapper of the two kernels that take zx precomputed."""
+    """Wrapper of the two kernels that take zx precomputed: a CUDA tensor
+    goes to :func:`~repro_torch.kernels.scan_layout.launch_hoisted_scan`,
+    which routes by H."""
     hidden = U.shape[0]
     _check_shapes(kernel, hidden, reuse, U, b, zx.shape[-1])
     if zx.device.type == "cpu":
@@ -126,14 +129,8 @@ def _hoisted(kernel: str, zx, U, b, reuse, out_dtype) -> torch.Tensor:
                                        out_dtype=out_dtype)
     if zx.device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {zx.device}")
-    dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b=b)
-    B, T, _ = zx.shape
-    out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
-    if B:
-        cuda.launch("rnn_scan", kernel, dev, zx.data_ptr(), U.data_ptr(),
-                    b.data_ptr(), out.data_ptr(),
-                    int(out_dtype == torch.bfloat16), B, T, hidden, reuse)
-    return out
+    return launch_hoisted_scan(kernel, zx, U, b, reuse, out_dtype)
+
 
 
 def lstm_scan_hoisted_kernel(zx: torch.Tensor, U: torch.Tensor,

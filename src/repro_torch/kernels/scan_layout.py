@@ -1,5 +1,6 @@
 """Launch layout of the cluster scan kernels (``lstm_scan`` / ``gru_scan``,
-and ``gru_scan_hoisted`` on the kernel's zx mode).
+and ``lstm_scan_hoisted``, ``gru_scan_hoisted`` and ``gru_scan_pipeline``
+on the kernel's zx mode).
 
 The in-loop static scans (``csrc/rnn_scan.cu``, ``cluster_scan_kernel``)
 run one thread-block cluster of ``cluster`` CTAs per tile of ``rows`` (1 or
@@ -21,11 +22,16 @@ library's ``cudaOccupancyMaxActiveClusters`` answers
 (:func:`card_resident`), on the CPU :func:`model_resident`.  The C launcher
 refuses a layout the kernel cannot run (``cudaErrorInvalidValue``).
 
-The hoisted variant (``hoisted=True``: the GRU's hoisted scan, which reads
+The hoisted variant (``hoisted=True``: the zx mode, which reads
 precomputed zx in place of the in-kernel x W) follows the same rules; it
 has no x side, and its shared memory holds a bias row and three zx
 buffers of [rows, G, u] where the in-loop kernel holds W, the biases and
-three x buffers.  :func:`launch_hoisted_scan` launches it.
+three x buffers.  Three scans run on it up to :data:`MAX_CLUSTER_HIDDEN`
+(:data:`ZX_CLUSTER`): both hoisted scans and the GRU's pipeline scan,
+which runs the one-pass instance at every R on R = 1's layout.
+:func:`launch_hoisted_scan` routes every scan of zx (the LSTM's pipeline
+scan and any H past the cluster kernel's go to the block kernel) and
+launches it.
 """
 
 from __future__ import annotations
@@ -52,6 +58,9 @@ K_SPLITS = (2, 8)
 MAX_CLUSTER_HIDDEN = MAX_K * K_SPLITS[-1]
 #: x values each thread loads a step, at most
 X_PER_THREAD = 4
+#: the scans of zx precomputed that run on the cluster kernel's zx mode up
+#: to MAX_CLUSTER_HIDDEN (``lstm_scan_pipeline`` stays on the block kernel)
+ZX_CLUSTER = ("lstm_scan_hoisted", "gru_scan_hoisted", "gru_scan_pipeline")
 GATE_SLOTS = 4                      # W / b padded to 4 gates a unit
 
 
@@ -191,7 +200,8 @@ def card_resident(cell: str, bf16: bool, reuse: int,
                   lay: ScanLayout, hoisted: bool = False) -> int:
     """Clusters of ``lay`` the current CUDA device holds at once, from the
     C library (``cudaOccupancyMaxActiveClusters`` for the kernel that runs
-    that layout; ``hoisted``: the zx mode, ``bf16`` its output's type)."""
+    that layout; ``hoisted``: the zx mode, ``bf16`` its output's type; at
+    ``reuse`` 1 the one-pass instance, which the pipeline scan runs)."""
     lib = cuda.library("rnn_scan")
     query = (lib.cluster_zx_scan_resident if hoisted
              else lib.cluster_scan_resident)
@@ -236,22 +246,36 @@ def launch_scan(cell: str, xs: torch.Tensor, W: torch.Tensor,
     return out
 
 
-def launch_hoisted_scan(cell: str, zx: torch.Tensor, U: torch.Tensor,
+def launch_hoisted_scan(kernel: str, zx: torch.Tensor, U: torch.Tensor,
                         b: torch.Tensor, reuse: int,
                         out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch ``<cell>_scan_hoisted`` on the cluster kernel's zx mode (CUDA
-    tensors, shapes checked by the caller; H up to
-    :data:`MAX_CLUSTER_HIDDEN`) at :func:`scan_layout`'s hoisted layout for
-    this card.  zx: [B, T, G*h] f32; b: the LSTM's b or the GRU's b_rec."""
-    kernel = f"{cell}_scan_hoisted"
+    """Launch ``kernel``, a scan of zx precomputed (``<cell>_scan_hoisted``
+    or ``<cell>_scan_pipeline``; CUDA tensors, shapes checked by the
+    caller), by its route.  The kernels of :data:`ZX_CLUSTER` run on the
+    cluster kernel's zx mode up to :data:`MAX_CLUSTER_HIDDEN`, at
+    :func:`scan_layout`'s hoisted layout for this card; the pipeline scan
+    runs the one-pass instance at every R, so its layout (and the
+    residency asked for it) is R = 1's.  Past that H the block kernel runs
+    them (``<kernel>_block``, counted as ``kernel``), and
+    ``lstm_scan_pipeline`` at every H (its own entry point).  No fallback:
+    a refused launch raises.  zx: [B, T, G*h] f32; b: the LSTM's b or the GRU's
+    b_rec."""
+    cell = kernel.split("_", 1)[0]
     dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b=b)
     B, T, _ = zx.shape
     hidden = U.shape[0]
     out = torch.empty(B, hidden, dtype=out_dtype, device=dev)
-    if B:
-        bf16 = out_dtype == torch.bfloat16
-        lay = card_layout(B, hidden, 0, cell, reuse, bf16, dev.index, True)
-        cuda.launch("rnn_scan", kernel, dev, zx.data_ptr(), U.data_ptr(),
-                    b.data_ptr(), out.data_ptr(), int(bf16), B, T, hidden,
-                    reuse, *lay[:5])
+    if not B:
+        return out
+    bf16 = out_dtype == torch.bfloat16
+    args = (zx.data_ptr(), U.data_ptr(), b.data_ptr(), out.data_ptr(),
+            int(bf16), B, T, hidden, reuse)
+    if kernel in ZX_CLUSTER and scan_route(hidden) == "cluster":
+        lay_reuse = 1 if kernel.endswith("_pipeline") else reuse
+        lay = card_layout(B, hidden, 0, cell, lay_reuse, bf16, dev.index,
+                          True)
+        cuda.launch("rnn_scan", kernel, dev, *args, *lay[:5])
+    else:
+        entry = f"{kernel}_block" if kernel in ZX_CLUSTER else kernel
+        cuda.launch("rnn_scan", entry, dev, *args, count_as=kernel)
     return out

@@ -1,5 +1,7 @@
 """The cluster layout of the in-loop static scan kernels (``lstm_scan`` /
-``gru_scan``): ``repro_torch.kernels.scan_layout``.
+``gru_scan``) and of the zx mode (both hoisted scans and the GRU's
+pipeline scan), and the zx scans' routes by H:
+``repro_torch.kernels.scan_layout``.
 
 The kernel itself runs only on the card (``chip_smoke.py`` holds it to its
 plain version there, and checks that the C launcher refuses bad layouts);
@@ -242,15 +244,13 @@ def test_card_resident_asks_the_c_library(cell, monkeypatch):
         sl.card_resident(cell, False, 1, lay)
 
 
-GRU_TAGGERS = sorted(t for t in TAGGERS if get_config(t).rnn.cell == "gru")
-
-
 @pytest.mark.parametrize("reuse", [1, 4])
 @pytest.mark.parametrize("batch", [8, 9, 256])
-@pytest.mark.parametrize("tag", GRU_TAGGERS)
+@pytest.mark.parametrize("tag", sorted(TAGGERS))
 def test_hoisted_layout_fits_the_card(tag, batch, reuse):
-    """The hoisted GRU's layout (the cluster kernel's zx mode): no x side,
-    zx buffers of [rows, G, u] in the shared memory, the same rules."""
+    """The layout of the cluster kernel's zx mode (both cells' hoisted
+    scans, the GRU's pipeline scan): no x side, zx buffers of [rows, G, u]
+    in the shared memory (G from the cell), the same rules."""
     cell, H, fin, G = shapes(tag)
     B = padded(batch)
     R = SCHED.replace(reuse_factor=reuse).effective_reuse(G * H)
@@ -303,8 +303,8 @@ def test_gru_scan_hoisted_routes_by_hidden(hidden, out_dtype, monkeypatch):
                         sl.model_resident(lay))
     sl.card_layout.cache_clear()
     try:
-        out = tgru._launch_hoisted("gru_scan_hoisted", zx, U, b_rec, R,
-                                   out_dtype)
+        out = sl.launch_hoisted_scan("gru_scan_hoisted", zx, U, b_rec, R,
+                                     out_dtype)
     finally:
         sl.card_layout.cache_clear()
     assert out.shape == (B, hidden) and out.dtype == out_dtype
@@ -332,3 +332,120 @@ def test_hoisted_residency_asks_the_zx_kernel(monkeypatch):
     assert asked == [(1, 0, 4, *lay[:5])] and fake.calls == []
     assert len(asked[0]) == len(
         cuda.SIGNATURES["rnn_scan"]["cluster_zx_scan_resident"][1])
+
+
+def zx_inputs(cell, B, T, H, seed=0):
+    """zx [B, T, G*H], U [H, G*H] and the LSTM's b [4H] or the GRU's b_rec
+    [3H], f32."""
+    rng = np.random.RandomState(seed)
+    G = 4 if cell == "lstm" else 3
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return (t(rng.randn(B, T, G * H)), t(rng.randn(H, G * H) / 5),
+            t(rng.randn(G * H) * 0.1))
+
+
+def record_launches(monkeypatch, device):
+    """Patch the launch path so that no card is needed: returns the list
+    of (args, kwargs) of every ``cuda.launch`` and the list of residency
+    questions (cell, bf16, reuse, layout, hoisted) the layout asked."""
+    calls, asked = [], []
+
+    def resident(c, bf16, reuse, lay, hoisted=False):
+        asked.append((c, bf16, reuse, lay, hoisted))
+        return sl.model_resident(lay)
+
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: device)
+    monkeypatch.setattr(cuda, "launch",
+                        lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.setattr(sl, "card_resident", resident)
+    return calls, asked
+
+
+@pytest.mark.parametrize("hidden", [20, 120, 128, 256])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["lstm_scan_hoisted", "gru_scan_pipeline"])
+def test_zx_scans_route_by_hidden(kernel, out_dtype, hidden, monkeypatch):
+    """``lstm_scan_hoisted`` and ``gru_scan_pipeline`` route as
+    ``gru_scan_hoisted`` does: H <= MAX_CLUSTER_HIDDEN takes the cluster
+    entry point with its hoisted layout (the pipeline's at R = 4 is the
+    hoisted scan's at R = 1, the one-pass instance it runs), a larger H the
+    block kernel's ``_block`` entry point, counted as the kernel."""
+    cell = kernel.split("_")[0]
+    B, T, R = 256, 4, 4
+    zx, U, b = zx_inputs(cell, B, T, hidden)
+    calls, asked = record_launches(monkeypatch, zx.device)
+    sl.card_layout.cache_clear()
+    try:
+        out = sl.launch_hoisted_scan(kernel, zx, U, b, R, out_dtype)
+        if kernel == "gru_scan_pipeline":
+            sl.launch_hoisted_scan("gru_scan_hoisted", zx, U, b, 1,
+                                   out_dtype)
+    finally:
+        sl.card_layout.cache_clear()
+    assert out.shape == (B, hidden) and out.dtype == out_dtype
+    (args, kw), *rest = calls
+    lib, fn, dev, *cargs = args
+    bf16 = int(out_dtype == torch.bfloat16)
+    assert len(cargs) == len(cuda.SIGNATURES[lib][fn][1]) - 1
+    assert cargs[4:9] == [bf16, B, T, hidden, R]
+    if hidden <= sl.MAX_CLUSTER_HIDDEN:
+        assert (lib, fn, kw) == ("rnn_scan", kernel, {})
+        pipeline = kernel.endswith("_pipeline")
+        lay = sl.scan_layout(B, hidden, 0, cell, 1 if pipeline else R,
+                             hoisted=True)
+        assert tuple(cargs[9:]) == tuple(lay)[:5]
+        assert asked and all(a[:3] == (cell, bool(bf16), 1 if pipeline
+                                       else R) and a[4] for a in asked)
+        if pipeline:
+            # the same layout as the hoisted GRU at R = 1, at the same B
+            (hargs, _), = rest
+            assert hargs[1] == "gru_scan_hoisted" and hargs[-5:] == args[-5:]
+    else:
+        assert (lib, fn) == ("rnn_scan", f"{kernel}_block")
+        assert kw == {"count_as": kernel} and not asked
+
+
+@pytest.mark.parametrize("hidden", [20, 128, 256])
+def test_lstm_scan_pipeline_stays_on_the_block_kernel(hidden, monkeypatch):
+    zx, U, b = zx_inputs("lstm", 9, 3, hidden)
+    calls, asked = record_launches(monkeypatch, zx.device)
+    sl.launch_hoisted_scan("lstm_scan_pipeline", zx, U, b, 4, torch.float32)
+    ((lib, fn, dev, *cargs), kw), = calls
+    assert (lib, fn, kw) == ("rnn_scan", "lstm_scan_pipeline",
+                             {"count_as": "lstm_scan_pipeline"})
+    assert len(cargs) == len(cuda.SIGNATURES[lib][fn][1]) - 1
+    assert cargs[4:] == [0, 9, 3, hidden, 4] and not asked
+
+
+@pytest.mark.parametrize("kernel,cell_id,reuse_asked", [
+    ("lstm_scan_hoisted", 0, 4), ("gru_scan_hoisted", 1, 4),
+    ("gru_scan_pipeline", 1, 1)])
+def test_zx_residency_asks_for_the_instance_that_runs(
+        kernel, cell_id, reuse_asked, monkeypatch):
+    """On the card the layout of a zx scan at R = 4 asks
+    ``cluster_zx_scan_resident`` about the instance the launch runs: cell 0
+    for the LSTM, and the one-pass instance (reuse 1) for the pipeline,
+    which runs it at every R; never the in-loop kernel's query."""
+    cell = kernel.split("_")[0]
+    zx, U, b = zx_inputs(cell, 256, 4, 128)
+    fake = FakeLibrary(37)
+    asked = []
+    fake.cluster_zx_scan_resident = lambda *a: asked.append(a) or 37
+    calls = []
+    monkeypatch.setattr(cuda, "library", lambda name: fake)
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: zx.device)
+    monkeypatch.setattr(cuda, "launch",
+                        lambda *a, **kw: calls.append((a, kw)))
+    sl.card_layout.cache_clear()
+    try:
+        sl.launch_hoisted_scan(kernel, zx, U, b, 4, torch.bfloat16)
+    finally:
+        sl.card_layout.cache_clear()
+    assert asked and fake.calls == []
+    n_args = len(cuda.SIGNATURES["rnn_scan"]["cluster_zx_scan_resident"][1])
+    for a in asked:
+        assert len(a) == n_args and a[:3] == (cell_id, 1, reuse_asked)
+    # every candidate layout was asked about, and the launch took one of
+    # them
+    ((_, fn, _, *cargs), _), = calls
+    assert fn == kernel and tuple(cargs[-5:]) in {a[3:] for a in asked}
