@@ -19,8 +19,11 @@ In order, it
      4-slot cp.async ring) at each step's x-side and h-side product, at the
      hoist stage's [256*T, in] product (R = 2), at ragged shapes (M in {1,
      9}, K in {3, 20}, N/R down to 15) and at a 128 x 1024 f32 weight (512
-     KiB, over a block's shared memory); ``reuse_matmul`` at
-     QuickDraw's h-side shape; ``quant_matmul`` (tolerance 0; 32 x 32
+     KiB, over a block's shared memory); ``reuse_matmul`` (the same tiled
+     body as one tile of all N columns over all of K at every R) at QuickDraw's
+     h-side shape, at ``RAGGED_PRODUCTS`` with K and N swapped and at a K
+     of 520 (K/R = 130), float32 and bfloat16, R in {1, 2, 4}, R = 2 and 4
+     bit for bit equal to R = 1; ``quant_matmul`` (tolerance 0; 32 x 32
      outputs a CTA of four warps on int8 ``mma.sync`` m16n8k32, K in chunks
      of 128 through the same ring) at every native gate product, int8 and
      int4-range operands, at the same ragged shapes and at a 512 x 1024
@@ -33,11 +36,11 @@ In order, it
      products (f32, M = 1 and 256), R = 4 and a second call bit for bit
      equal to R = 1, and that its C entry point refuses a layout it cannot
      run; the hoisted and pipeline scans also at B = 8 and 9, and all
-     six scans at H = 256; ``lstm_scan_hoisted``, ``gru_scan_hoisted``
-     and ``gru_scan_pipeline`` (the cluster kernel's zx mode) on their
-     cluster entry point up to H = 128 and on ``<name>_block`` past it,
-     ``gru_scan_pipeline`` at every R bit for bit equal to R = 1 and to
-     ``gru_scan_hoisted`` at R = 1; ``rglru_scan`` (bit
+     six scans at H = 256; the hoisted and pipeline scans of both cells
+     (the cluster kernel's zx mode) on their cluster entry point up to
+     H = 128 and on ``<name>_block`` past it, each pipeline at every R bit
+     for bit equal to R = 1 and to its cell's hoisted scan at R = 1;
+     ``rglru_scan`` (bit
      for bit, R = 2 and 4 equal to R = 1) at (4, 12, 20), the ragged
      (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
      {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
@@ -89,9 +92,9 @@ In order, it
                 ``ops.hadamard`` at (16384, 4096) bf16 (one ``hadamard``
                 launch, bit for bit equal to ``torch.mul``);
      and checks that every kernel of each path was launched (``static``:
-     each tagger's hoisted flush on the cluster kernel; ``modes``: the GRU
-     pipelines and the hoisted scans on it; ``static_wide``: both hoisted
-     scans on the block kernel);
+     each tagger's hoisted flush on the cluster kernel; ``modes``: every
+     tagger's two pipelines and the hoisted scans on it; ``static_wide``:
+     both hoisted scans on the block kernel);
   4. times each kernel (CUDA events around back-to-back calls, and the
      device's own time per call from a ``torch.profiler`` trace; the
      cluster scans at B = 256 and B = 8, with their cluster layout) beside
@@ -129,9 +132,10 @@ its own and no result line.
 
     python3 chip_smoke.py --time-products [--src DIR]
 
-likewise times only ``col_matmul`` and ``quant_matmul`` at every tagger's
-gate products (B = 256 and 8, R = 1 and 4; events and device ms beside
-``torch.matmul`` / ``torch._int_mm``), the host path of a call split into
+likewise times only ``col_matmul``, ``reuse_matmul`` and ``quant_matmul``
+at every tagger's gate products (B = 256 and 8, R = 1 and 4; events and
+device ms beside ``torch.matmul`` / ``torch._int_mm``), the host path of a
+call split into
 its parts, whole QuickDraw LSTM non-static and native ``ap_fixed<8,3>``
 scans, and the six engines' ``predict_one`` and flush of 256 in those two
 modes.
@@ -170,6 +174,7 @@ REUSES = (1, 4)
 HOIST_REUSE = 2                  # the hoist stage's column tiles
 ONE_CALLS = 12                   # predict_one calls per tagger (first builds)
 F32_PEAK = 67e12                 # H100 SXM f32 CUDA-core peak, FLOP/s
+BF16_PEAK = 989e12               # H100 SXM dense bf16 tensor-core peak
 INT8_PEAK = 1979e12              # H100 SXM dense int8 tensor-core peak, OP/s
 HBM_BPS = 3.35e12                # H100 SXM device memory, bytes/s
 TAGGERS = ("top-tagging-lstm", "top-tagging-gru", "flavor-tagging-lstm",
@@ -181,6 +186,13 @@ MATMUL_SHAPE = (BATCH, 128, 512)
 #: col_matmul / quant_matmul at ragged shapes: (M, K, N, R), N/R down to 15
 RAGGED_PRODUCTS = tuple((M, K, 60, R) for M in (1, 9) for K in (3, 20)
                         for R in (1, 4))
+#: reuse_matmul's other shapes (M, K, N): RAGGED_PRODUCTS with K and N
+#: swapped, so that R divides K (K/R down to 15, N in {3, 20}), and a K past
+#: the x staged once (K = 520: nine chunks of 64 through the ring)
+REUSE_SHAPES = tuple(sorted({(M, N, K) for M, K, N, _ in RAGGED_PRODUCTS})
+                     ) + ((BATCH, 520, 60),)
+#: reuse_matmul's R: every shape at each, bit for bit equal to R = 1
+REUSE_BITS = (1, 2, 4)
 #: weights over a block's 227 KiB of shared memory: (M, K, N), f32 for
 #: col_matmul (512 KiB), int8 for quant_matmul (512 KiB)
 LARGE_PRODUCTS = {"col_matmul": (BATCH, 128, 1024),
@@ -335,8 +347,7 @@ def scan_calls(tag, rnn, xs, W, U, b, reuse, timing=False,
 
 def matmul_calls(tag, rnn, xs, U, reuse, seed) -> list:
     """``col_matmul`` at one step's x-side and h-side products of a tagger
-    (M = 256 rows): x_t @ W and h @ U; and, at R = 1 only,
-    ``reuse_matmul`` at QuickDraw's h-side shape (no model calls it)."""
+    (M = 256 rows): x_t @ W and h @ U."""
     import torch
 
     from repro_torch.kernels import reuse_matmul as rm
@@ -359,15 +370,34 @@ def matmul_calls(tag, rnn, xs, U, reuse, seed) -> list:
             lambda x=x, w=w: torch.matmul(x, w),
             tag.startswith(HEADLINE) and side == "h-side" and reuse == 1
             and rnn.cell == "lstm"))
-    if tag == "quickdraw-lstm":
-        M, K, N = MATMUL_SHAPE
-        x, w = rand(M, K).to(dt), rand(K, N).to(dt) / np.sqrt(K)
-        out.append(call(
-            "reuse_matmul", f"({M},{K})@({K},{N}) R={reuse}",
-            lambda: rm.reuse_matmul_kernel(x, w, reuse=reuse),
-            lambda: rm.reuse_matmul_plain(x, w, reuse=reuse),
-            (x, w), 2.0 * M * K * N, lambda: torch.matmul(x, w),
-            reuse == 1))
+    return out
+
+
+def reuse_calls(dtype, device, timing=False) -> list:
+    """(R, call) for ``reuse_matmul`` (no model calls it), x and w both in
+    ``dtype``: at QuickDraw's h-side shape, the result line's at R = 1
+    (timing: only there, R in ``REUSES``, ``torch.matmul`` beside); else
+    also at ``REUSE_SHAPES``, each shape at every R of ``REUSE_BITS`` on
+    the same inputs, R = 1 first."""
+    import torch
+
+    from repro_torch.kernels import reuse_matmul as rm
+
+    gen = torch.Generator(device=device).manual_seed(1500)
+    shapes = [MATMUL_SHAPE] + ([] if timing else list(REUSE_SHAPES))
+    out = []
+    for M, K, N in shapes:
+        x = torch.randn(M, K, generator=gen, device=device).to(dtype)
+        w = (torch.randn(K, N, generator=gen, device=device)
+             / np.sqrt(K)).to(dtype)
+        for R in REUSES if timing else REUSE_BITS:
+            out.append((R, call(
+                "reuse_matmul", f"({M},{K})@({K},{N}) R={R}",
+                lambda x=x, w=w, R=R: rm.reuse_matmul_kernel(x, w, reuse=R),
+                lambda x=x, w=w, R=R: rm.reuse_matmul_plain(x, w, reuse=R),
+                (x, w), 2.0 * M * K * N, lambda x=x, w=w: torch.matmul(x, w),
+                (M, K, N) == MATMUL_SHAPE and R == 1,
+                BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK)))
     return out
 
 
@@ -454,6 +484,8 @@ def all_calls(dtype, device, timing=False):
         for reuse, c in product_calls(dtype, device):
             yield "products", reuse, c
         yield from wide_calls(dtype, device)
+    for reuse, c in reuse_calls(dtype, device, timing):
+        yield "products", reuse, c
 
     for i, tag in enumerate(TAGGERS):
         r = get_config(tag).rnn
@@ -618,7 +650,8 @@ def decode_calls(device, timing=False):
                     x, w, reuse=R),
                 (x, w), 2.0 * M * K * N,
                 (lambda x=x, w=w: torch.matmul(x, w)) if timing else None,
-                head and reuse == 1)
+                head and reuse == 1,
+                BF16_PEAK if dt == torch.bfloat16 else F32_PEAK)
 
 
 def rglru_inputs(B, T, W, dtype, gen, device, bx_dtype=None):
@@ -816,9 +849,9 @@ def device_trace(fn, calls: int = 1) -> dict:
 def bound(inputs, out, flops, peak=F32_PEAK):
     """(bound_ms, bound_by, bytes): the larger of the bytes each input read
     once and the output written once over device-memory bandwidth, and the
-    operations over ``peak``: the f32 CUDA-core peak for the float kernels
-    (they use no tensor cores), the int8 tensor-core peak for
-    ``quant_matmul``."""
+    operations over ``peak``, the card's rate for the operands' type: the
+    bf16 tensor-core peak for a product of two bf16 operands, the int8
+    tensor-core peak for ``quant_matmul``, else the f32 CUDA-core peak."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
     t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
     return (max(t_ops, t_bytes) * 1e3,
@@ -834,6 +867,7 @@ def phase_kernels(device) -> dict:
     errs: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
+        first_pass: dict = {}               # reuse_matmul at R = 1, a shape
         for tag, reuse, c in all_calls(dtype, device):
             cuda.reset_launches()
             with torch.inference_mode():
@@ -846,8 +880,16 @@ def phase_kernels(device) -> dict:
                 check(cuda.ENTRIES == {entry: 1},
                       f"{c['name']} {c['shape']}: entries "
                       f"{cuda.ENTRIES}, expected one {entry}")
-            if c["name"] == "gru_scan_pipeline":
+            if c["name"].endswith("_pipeline"):
                 check_pipeline_bits(c, got)
+            if c["name"] == "reuse_matmul":
+                # every output sums its K products in k order at any R
+                key = c["shape"].rsplit(" R=", 1)[0]
+                same = same_bits(got, first_pass.setdefault(key, got))
+                print(f"check reuse_matmul {c['shape']:44s} "
+                      f"{str(dtype)[6:]:8s}: bits equal to R=1: {same}")
+                check(same, f"reuse_matmul {c['shape']} {dtype}: R={reuse} "
+                      f"differs from R=1")
             check(got.dtype == want.dtype and got.shape == want.shape,
                   f"{c['name']} {c['shape']}: {got.dtype} "
                   f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
@@ -904,35 +946,37 @@ def phase_kernels(device) -> dict:
 def zx_entry(name: str, hidden: int) -> str:
     """The C entry point that scan ``name`` of zx precomputed takes at
     ``hidden`` units: its own on the cluster kernel's zx mode up to its H,
-    ``<name>_block`` past it (``lstm_scan_pipeline``: its own, the block
-    kernel, at every H)."""
-    from repro_torch.kernels.scan_layout import ZX_CLUSTER, scan_route
+    ``<name>_block`` past it."""
+    from repro_torch.kernels.scan_layout import scan_route
 
-    if name in ZX_CLUSTER and scan_route(hidden) != "cluster":
-        return f"{name}_block"
-    return name
+    return name if scan_route(hidden) == "cluster" else f"{name}_block"
 
 
 def check_pipeline_bits(c, got) -> None:
-    """``gru_scan_pipeline`` at any R runs the one-pass instance on the
-    hoisted scan's R = 1 layout: its answer ``got`` equals, bit for bit,
-    the pipeline at R = 1 and ``gru_scan_hoisted`` at R = 1 on the same
-    inputs (both routes)."""
+    """A pipeline scan (``lstm_scan_pipeline`` / ``gru_scan_pipeline``) at
+    any R runs the one-pass instance on its cell's hoisted R = 1 layout:
+    its answer ``got`` equals, bit for bit, the pipeline at R = 1 and
+    ``<cell>_scan_hoisted`` at R = 1 on the same inputs (both routes)."""
     import torch
 
     from repro_torch.kernels import gru_scan as gs
+    from repro_torch.kernels import lstm_scan as ls
 
+    name = c["name"]
+    cell = name.split("_")[0]
+    mod = ls if cell == "lstm" else gs
     kw = {"reuse": 1, "out_dtype": got.dtype}
     with torch.inference_mode():
-        r1 = gs.gru_scan_pipeline_kernel(*c["inputs"], **kw)
-        hoisted = gs.gru_scan_hoisted_kernel(*c["inputs"], **kw)
+        r1 = getattr(mod, f"{name}_kernel")(*c["inputs"], **kw)
+        hoisted = getattr(mod, f"{cell}_scan_hoisted_kernel")(*c["inputs"],
+                                                              **kw)
         torch.cuda.synchronize()
     same_r1, same_h = same_bits(got, r1), same_bits(got, hoisted)
-    print(f"check gru_scan_pipeline {c['shape']:44s}: bits equal to R=1: "
-          f"{same_r1}, to gru_scan_hoisted R=1: {same_h}")
-    check(same_r1, f"gru_scan_pipeline {c['shape']}: differs from R=1")
-    check(same_h, f"gru_scan_pipeline {c['shape']}: differs from "
-          f"gru_scan_hoisted at R=1")
+    print(f"check {name} {c['shape']:44s}: bits equal to R=1: "
+          f"{same_r1}, to {cell}_scan_hoisted R=1: {same_h}")
+    check(same_r1, f"{name} {c['shape']}: differs from R=1")
+    check(same_h, f"{name} {c['shape']}: differs from {cell}_scan_hoisted "
+          f"at R=1")
 
 
 #: cudaErrorInvalidValue: the C launcher's answer to a layout it refuses
@@ -941,8 +985,8 @@ INVALID_VALUE = 1
 
 def check_bad_layouts(device) -> None:
     """The C entry points of the cluster scan kernel (``lstm_scan`` /
-    ``gru_scan``, and in its zx mode ``lstm_scan_hoisted`` /
-    ``gru_scan_hoisted`` / ``gru_scan_pipeline``) and ``decode_matmul``
+    ``gru_scan``, and in its zx mode the hoisted and pipeline scans of both
+    cells) and ``decode_matmul``
     refuse a layout that breaks the kernel's rules with
     cudaErrorInvalidValue, and launch nothing (called directly: no launch
     is counted)."""
@@ -1204,12 +1248,13 @@ def phase_serving(device) -> dict:
         "modes", modes_path, ("col_matmul", "lstm_scan_pipeline",
                               "gru_scan_pipeline", "lstm_scan_hoisted",
                               "gru_scan_hoisted"))
-    # pipeline R = 1 and R = 4 of each GRU tagger, and the hoist_reuse = 2
+    # pipeline R = 1 and R = 4 of each tagger, and the hoist_reuse = 2
     # flushes, on the cluster kernel's zx mode
-    n_gru = sum(get_config(t).rnn.cell == "gru" for t in TAGGERS)
-    check(launches["modes"]["gru_scan_pipeline"] == 2 * n_gru,
-          f"modes: gru_scan_pipeline launches {launches['modes']}, "
-          f"expected {2 * n_gru}")
+    for cell in ("lstm", "gru"):
+        kernel = f"{cell}_scan_pipeline"
+        n = 2 * sum(get_config(t).rnn.cell == cell for t in TAGGERS)
+        check(launches["modes"][kernel] == n,
+              f"modes: {kernel} launches {launches['modes']}, expected {n}")
     for kernel in ZX_CLUSTER:
         check(ROUTES["modes"].get(kernel) == launches["modes"][kernel]
               and f"{kernel}_block" not in ROUTES["modes"],
@@ -1781,9 +1826,11 @@ def phase_timing(device) -> tuple:
 #: pipeline's with ONE_PASS (the last template argument) true
 ZX_INSTANCES = {"lstm_scan_hoisted": ("ILi0ELb1E",),
                 "gru_scan_hoisted": ("ILi1ELb1E",),
+                "lstm_scan_pipeline": ("ILi0ELb1E", "Lb1EEEv"),
                 "gru_scan_pipeline": ("ILi1ELb1E", "Lb1EEEv")}
-#: the entries of the two tiled products' C libraries (layout exports)
-PRODUCT_LIBS = {"col_matmul": "reuse_matmul", "quant_matmul": "quantized"}
+#: the tiled products and their C libraries (each exports ``<name>_layout``)
+PRODUCT_LIBS = {"col_matmul": "reuse_matmul", "reuse_matmul": "reuse_matmul",
+                "quant_matmul": "quantized"}
 
 
 def decode_layout_row(inputs, reuse) -> dict:
@@ -1800,8 +1847,9 @@ def decode_layout_row(inputs, reuse) -> dict:
 
 
 def product_layout(name: str, M: int, K: int, N: int, reuse: int) -> dict:
-    """The launch of ``col_matmul`` (f32 x) or ``quant_matmul`` at this
-    shape, as its C library's ``*_layout`` export gives it: the CTA tile,
+    """The launch of ``col_matmul`` / ``reuse_matmul`` (f32) or
+    ``quant_matmul`` at this shape, as its C library's ``*_layout`` export
+    gives it: the CTA tile,
     the grid, the threads, the ring's stages and the shared bytes."""
     import ctypes
 
@@ -1888,11 +1936,18 @@ def per_call(fn, group, calls: int) -> float:
     return float("nan")
 
 
+#: back-to-back calls a whole-scan trace of :func:`time_nonstatic_scans`
+#: reads
+SCAN_TRACE_CALLS = 5
+
+
 def time_nonstatic_scans(device) -> list:
     """One whole scan of QuickDraw LSTM at B = 256 through ``ops.lstm_scan``
     per schedule: device time between CUDA events around 5 calls (host
     launch gaps included), the launches of one call, and from a trace of
-    one call the device's busy time and idle share."""
+    ``SCAN_TRACE_CALLS`` calls back to back the device's span, busy time
+    and idle share (one call's span would open on its first event and
+    miss the host's gap to the next call)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1917,13 +1972,14 @@ def time_nonstatic_scans(device) -> list:
         launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
         ms = time_ms(fn, 5)
         n = sum(launches.values())
-        trace = device_trace(fn)
+        trace = device_trace(fn, SCAN_TRACE_CALLS)
         out.append({"schedule": sched.key(), "ms": ms, "launches": launches,
-                    "us_per_launch": ms * 1e3 / n, "trace": trace})
+                    "us_per_launch": ms * 1e3 / n, "trace": trace,
+                    "trace_calls": SCAN_TRACE_CALLS})
         print(f"scan quickdraw-lstm B={BATCH} {sched.key():32s}: {ms:.3f} ms "
               f"device span, {n} launches {launches}, "
-              f"{ms * 1e3 / n:.2f} us per launch; trace of one call: "
-              f"{json.dumps(trace)}")
+              f"{ms * 1e3 / n:.2f} us per launch; trace of "
+              f"{SCAN_TRACE_CALLS} calls: {json.dumps(trace)}")
     return out
 
 
@@ -2195,9 +2251,10 @@ def host_split(device) -> dict:
 
 
 def time_products(device) -> dict:
-    """``--time-products``: ``col_matmul`` (f32) and ``quant_matmul`` (int8)
-    at every tagger's x-side and h-side gate product, at B = 256 and B = 8
-    and R in ``REUSES``: CUDA-event ms over back-to-back calls and device ms
+    """``--time-products``: ``col_matmul`` (f32), ``reuse_matmul`` (f32 and
+    bf16) and ``quant_matmul`` (int8) at every tagger's x-side and h-side
+    gate product, at B = 256 and B = 8 and R in ``REUSES`` (``reuse_matmul``
+    where R divides K): CUDA-event ms over back-to-back calls and device ms
     from a trace, with ``torch.matmul`` / ``torch._int_mm`` (f32
     ``torch.matmul`` on the same integers where ``_int_mm`` refuses the
     shape) timed both ways beside them, and the bound; the host path's
@@ -2228,18 +2285,28 @@ def time_products(device) -> dict:
                                device=device, dtype=torch.int8)
             wi = torch.randint(-128, 128, (K, N), generator=gen,
                                device=device, dtype=torch.int8)
+            xb, wb = xf.to(torch.bfloat16), wf.to(torch.bfloat16)
             for R in REUSES:
                 for name, kern, lib, inputs, peak in (
                         ("col_matmul",
                          lambda R=R: rm.col_matmul_kernel(xf, wf, reuse=R),
                          lambda: torch.matmul(xf, wf), (xf, wf), F32_PEAK),
+                        ("reuse_matmul",
+                         lambda R=R: rm.reuse_matmul_kernel(xf, wf, reuse=R),
+                         lambda: torch.matmul(xf, wf), (xf, wf), F32_PEAK),
+                        ("reuse_matmul",
+                         lambda R=R: rm.reuse_matmul_kernel(xb, wb, reuse=R),
+                         lambda: torch.matmul(xb, wb), (xb, wb), BF16_PEAK),
                         ("quant_matmul",
                          lambda R=R: qm.quant_matmul_kernel(xi, wi, reuse=R),
                          int_matmul_library(xi, wi), (xi, wi), INT8_PEAK)):
+                    if name == "reuse_matmul" and K % R:
+                        continue        # R splits K: the x-side's K = 3, 6
+                    dtype = str(inputs[0].dtype).split(".")[1]
                     with torch.inference_mode():
                         o = kern()
-                    row = {"name": name, "tagger": tag, "side": side, "B": B,
-                           "K": K, "N": N, "R": R,
+                    row = {"name": name, "dtype": dtype, "tagger": tag,
+                           "side": side, "B": B, "K": K, "N": N, "R": R,
                            "ms": time_ms(kern, 200),
                            "device_ms": per_call(kern, name, 50),
                            "library_ms": time_ms(lib, 200),
@@ -2247,7 +2314,8 @@ def time_products(device) -> dict:
                            "bound_ms": bound(inputs, o, 2.0 * B * K * N,
                                              peak)[0]}
                     out["kernels"].append(row)
-                    print(f"product {name:12s} {tag:20s} {side} ({B},{K})@"
+                    print(f"product {name:12s} {dtype:8s} {tag:20s} {side} "
+                          f"({B},{K})@"
                           f"({K},{N}) R={R}: device {row['device_ms']:.4f} "
                           f"ms, events {row['ms']:.4f}; library device "
                           f"{row['library_device_ms']:.4f}, events "
@@ -2373,7 +2441,8 @@ def time_decode(device) -> dict:
                "library_ms": time_ms(lib, 200),
                "library_device_ms": per_call(lib, "other", 50),
                "library_cold_ms": time_cold_ms(lib, 50) if lm else None,
-               "bound_ms": bound(c["inputs"], o, c["flops"])[0]}
+               "bound_ms": bound(c["inputs"], o, c["flops"],
+                                 c["peak"])[0]}
         out["kernels"].append(row)
         cold = ("" if not lm else f", L2 cold {row['cold_ms']:.4f} / "
                 f"{row['library_cold_ms']:.4f}")
@@ -2441,9 +2510,9 @@ def main() -> int:
                       help="only time the in-loop scans and the engines "
                       "(see time_scans)")
     what.add_argument("--time-products", action="store_true",
-                      help="only time col_matmul and quant_matmul, the "
-                      "host path, the non-static and fixed-point scans and "
-                      "engines (see time_products)")
+                      help="only time col_matmul, reuse_matmul and "
+                      "quant_matmul, the host path, the non-static and "
+                      "fixed-point scans and engines (see time_products)")
     what.add_argument("--time-decode", action="store_true",
                       help="only time decode_matmul beside torch.matmul and "
                       "the LM decode tick per key (see time_decode)")

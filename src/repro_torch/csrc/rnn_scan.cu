@@ -15,9 +15,9 @@
 // Two designs live here.
 //
 // 1. The in-loop static scans (lstm_scan, gru_scan), both hoisted scans
-//    (lstm_scan_hoisted, gru_scan_hoisted) and the GRU's pipeline scan
-//    (gru_scan_pipeline), each for H <= 128: cluster_scan_kernel, a
-//    weight-stationary thread-block-cluster kernel.
+//    (lstm_scan_hoisted, gru_scan_hoisted) and both pipeline scans
+//    (lstm_scan_pipeline, gru_scan_pipeline), each for H <= 128:
+//    cluster_scan_kernel, a weight-stationary thread-block-cluster kernel.
 //    - A cluster of C CTAs (C in {1, 2, 4, 8}) owns a tile of ROWS batch
 //      rows (1 or 8: a cluster a row where the batch is small enough for
 //      all CTAs to be resident, as at predict_one's B = 8).  CTA c owns the
@@ -81,13 +81,13 @@
 //      in-kernel x W; the rest of the step is unchanged: the LSTM forms
 //      (zx + zh) + b and keeps c in registers, the GRU zx + (zh + b_rec).
 //      The hoisted scans of both cells take it (<CELL, true, ...>), and so
-//      does the GRU's pipeline scan (R tiles issued together): the
-//      ONE_PASS instance at every R, R naming the tiles only, so the
-//      pipeline at any R gives the hoisted scan's R = 1 bits.  The layout
-//      comes from kernels/scan_layout.py with hoisted=True (no x side; the
+//      do both pipeline scans (R tiles issued together): the ONE_PASS
+//      instance at every R, R naming the tiles only, so a pipeline at any
+//      R gives its cell's hoisted scan's R = 1 bits.  The layout comes
+//      from kernels/scan_layout.py with hoisted=True (no x side; the
 //      shared memory is one bias row [u][4] and the zx buffers
-//      [3][rows][G][u]; the pipeline's is R = 1's).  Past H = 128 these
-//      three run on design 2 (the *_block entry points): a route by shape,
+//      [3][rows][G][u]; the pipelines' is R = 1's).  Past H = 128 these
+//      four run on design 2 (the *_block entry points): a route by shape,
 //      as scan_route routes the in-loop scans.
 //    - R keeps its meaning: at R > 1 a step runs R passes in order, pass p
 //      computing the gate columns [p*gw, (p+1)*gw) (gw = G*H/R) of the
@@ -121,9 +121,9 @@
 //      the tensor cores save; plain TF32 does not hold the f32 tolerance
 //      over 100 steps.
 //
-// 2. The LSTM's pipeline scan, and the hoisted scans and the GRU's
-//    pipeline scan past H = 128: rnn_scan_kernel, one thread block per
-//    ROWS batch rows.
+// 2. The hoisted and pipeline scans past H = 128 (the *_block entry
+//    points), and only there: rnn_scan_kernel, one thread block per ROWS
+//    batch rows.
 //    - Translation of the TPU grid.  The Pallas grid is (B/bt, T, R) with T
 //      and R sequential: the state lives in VMEM scratch across grid steps.
 //      Here one block keeps h (and c) in shared memory for the whole
@@ -142,10 +142,10 @@
 //      thread streams its U column from L2 at every step, so each step of
 //      every block re-reads all of U (G*h*h*4 bytes) from L2, a chain of
 //      T*R (pipeline: T) steps of 7-8 us at QuickDraw (NVIDIA H100 80GB
-//      HBM3, 700 W).  The cluster kernel's zx mode above takes both
-//      hoisted scans and the GRU's pipeline scan off this design up to
-//      H = 128; the LSTM's pipeline scan is queued for it (the same
-//      ONE_PASS route as the GRU's).
+//      HBM3, 700 W).  The cluster kernel's zx mode above takes all four
+//      zx scans off this design up to H = 128, where the taggers run: it
+//      is the route by H past that, as col_matmul + hoisted is for the
+//      in-loop scans.
 //    - Numerics as above: f32 FMA per column, (zx + dot_h) + b for the
 //      LSTM, zh = dot_h + b_rec for the GRU.
 //
@@ -423,7 +423,7 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[ROWS][kGateSlots],
 // along x.  Thread i of a CTA is lane s = i % KS of unit jj = i / KS; it
 // holds U[k][g*H + j0 + jj] for k = s, s + KS, ... in registers.
 // ONE_PASS: R = 1 (all gates each pass).
-// ZX (the hoisted and GRU pipeline scans): xs is zx [B,T,G*H] f32,
+// ZX (the hoisted and pipeline scans): xs is zx [B,T,G*H] f32,
 // precomputed x W (the GRU with b_in folded in), W is unused and fin = 0;
 // bias is the LSTM's b [4H] or the GRU's b_rec [3H]; out is OT (f32 or
 // bf16).  Step t reads zx_t through the 3-deep buffer, staged two steps
@@ -1086,11 +1086,11 @@ int cluster_scan_resident(int cell, int xs_bf16, int reuse, int cluster,
                nullptr);
 }
 
-// The hoisted scans and the GRU's pipeline scan on the cluster kernel's zx
-// mode, at a cluster layout (cluster, rows, k_split, threads, smem_bytes)
-// from kernels/scan_layout.py (hoisted=True; the pipeline's is R = 1's):
-// H up to 128.  The pipeline runs the ONE_PASS instance at every R, so at
-// any R it gives the hoisted scan's R = 1 bits.
+// The hoisted and pipeline scans on the cluster kernel's zx mode, at a
+// cluster layout (cluster, rows, k_split, threads, smem_bytes) from
+// kernels/scan_layout.py (hoisted=True; the pipelines' is R = 1's): H up to
+// 128.  A pipeline runs the ONE_PASS instance at every R, so at any R it
+// gives the hoisted scan's R = 1 bits.
 int lstm_scan_hoisted(const float* zx, const float* U, const float* b,
                       void* out, int out_bf16, int B, int T, int H, int reuse,
                       int cluster, int rows, int k_split, int threads,
@@ -1109,6 +1109,16 @@ int gru_scan_hoisted(const float* zx, const float* U, const float* b_rec,
                                          H, reuse, reuse == 1, cluster, rows,
                                          k_split, threads, smem_bytes,
                                          stream);
+}
+
+int lstm_scan_pipeline(const float* zx, const float* U, const float* b,
+                       void* out, int out_bf16, int B, int T, int H, int reuse,
+                       int cluster, int rows, int k_split, int threads,
+                       int smem_bytes, void* stream) {
+  return checked_launch_cluster_zx<kLSTM>(zx, out_bf16, U, b, out, B, T, H,
+                                          reuse, true, cluster, rows,
+                                          k_split, threads, smem_bytes,
+                                          stream);
 }
 
 int gru_scan_pipeline(const float* zx, const float* U, const float* b_rec,
@@ -1137,6 +1147,13 @@ int gru_scan_hoisted_block(const float* zx, const float* U,
                                      reuse, stream);
 }
 
+int lstm_scan_pipeline_block(const float* zx, const float* U,
+                             const float* b, void* out, int out_bf16, int B,
+                             int T, int H, int reuse, void* stream) {
+  return launch_hoisted<kLSTM, true>(zx, U, b, out, out_bf16, B, T, H, reuse,
+                                     stream);
+}
+
 int gru_scan_pipeline_block(const float* zx, const float* U,
                             const float* b_rec, void* out, int out_bf16,
                             int B, int T, int H, int reuse, void* stream) {
@@ -1145,7 +1162,7 @@ int gru_scan_pipeline_block(const float* zx, const float* U,
 }
 
 // Clusters of the zx-mode scan kernel at this layout (cell 0: LSTM, 1:
-// GRU; the ONE_PASS instance at reuse 1, as the pipeline runs it) that the
+// GRU; the ONE_PASS instance at reuse 1, as the pipelines run it) that the
 // current device holds at once, or a negative CUDA error.
 // kernels/scan_layout.py counts waves with it.
 int cluster_zx_scan_resident(int cell, int out_bf16, int reuse, int cluster,
@@ -1162,14 +1179,6 @@ int cluster_zx_scan_resident(int cell, int out_bf16, int reuse, int cluster,
   return query(nullptr, out_bf16, nullptr, nullptr, nullptr, -1, 0, 0, reuse,
                reuse == 1, cluster, rows, k_split, threads, smem_bytes,
                nullptr);
-}
-
-// The LSTM's pipeline scan stays on the block kernel at every H.
-int lstm_scan_pipeline(const float* zx, const float* U, const float* b,
-                       void* out, int out_bf16, int B, int T, int H, int reuse,
-                       void* stream) {
-  return launch_hoisted<kLSTM, true>(zx, U, b, out, out_bf16, B, T, H, reuse,
-                                     stream);
 }
 
 // Rows of the batch each thread block of the hoisted and pipeline scans

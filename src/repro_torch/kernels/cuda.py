@@ -10,9 +10,9 @@ reused.  Nothing is built or loaded at import time.
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, and nowhere else, so a caller can show that a run went
 through the kernels; :data:`ENTRIES` counts the same calls by C entry
-point, which tells a kernel's routes apart (``lstm_scan_hoisted``,
-``gru_scan_hoisted`` and ``gru_scan_pipeline`` on the cluster kernel or,
-past its H, ``*_block`` on the block kernel).
+point, which tells a kernel's routes apart (the hoisted and pipeline
+scans on the cluster kernel or, past its H, ``*_block`` on the block
+kernel).
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ SIGNATURES = {
         "lstm_scan_hoisted_block": _HOISTED,
         "gru_scan_hoisted": _CLUSTER_HOISTED,
         "gru_scan_hoisted_block": _HOISTED,
-        "lstm_scan_pipeline": _HOISTED,
+        "lstm_scan_pipeline": _CLUSTER_HOISTED,
+        "lstm_scan_pipeline_block": _HOISTED,
         "gru_scan_pipeline": _CLUSTER_HOISTED,
         "gru_scan_pipeline_block": _HOISTED,
         "scan_rows_per_block": (_I, [_I]),
@@ -64,6 +65,7 @@ SIGNATURES = {
         "col_matmul": (_I, [_P, _I, _P, _P, _I, _I, _I, _I, _P]),
         "col_matmul_layout": (_I, [_I, _I, _I, _I, _P]),
         "reuse_matmul": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
+        "reuse_matmul_layout": (_I, [_I, _I, _I, _I, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "quantized": {

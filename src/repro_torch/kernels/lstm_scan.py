@@ -3,14 +3,16 @@
 Replaces ``repro/kernels/lstm_scan.py``'s ``lstm_scan_pallas``,
 ``lstm_scan_hoisted_pallas`` and ``lstm_scan_pipeline_pallas``.  The kernels
 live in ``csrc/rnn_scan.cu`` (its header says what bounds them on an H100
-and how the design answers); the in-loop and the hoisted ones run on the
-thread-block-cluster kernel (the hoisted one on its zx mode) at a layout
-from ``kernels/scan_layout.py``, for h up to ``MAX_CLUSTER_HIDDEN``; past
-it the in-loop function runs as ``col_matmul`` and the hoisted kernel
-(:func:`lstm_scan_composed`), and the hoisted kernel on the block kernel
-(``lstm_scan_hoisted_block``).  The pipeline kernel (the block kernel at
-every h) computes the hoisted kernel's function with its R column tiles
-issued together, so both share one plain version.
+and how the design answers); all three run on the thread-block-cluster
+kernel (the hoisted and pipeline ones on its zx mode) at a layout from
+``kernels/scan_layout.py``, for h up to ``MAX_CLUSTER_HIDDEN``; past it
+the in-loop function runs as ``col_matmul`` and the hoisted kernel
+(:func:`lstm_scan_composed`), and the hoisted and pipeline kernels on the
+block kernel (``lstm_scan_hoisted_block``, ``lstm_scan_pipeline_block``).
+The pipeline kernel computes the hoisted kernel's function with its R
+column tiles issued together: it runs the hoisted kernel's R = 1 instance
+and layout at every R, and column tiles change no column's arithmetic, so
+both share one plain version.
 
 Each wrapper takes the tensor's device as the dispatch: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version beside
@@ -146,7 +148,9 @@ def lstm_scan_pipeline_kernel(zx: torch.Tensor, U: torch.Tensor,
                               out_dtype=torch.float32) -> torch.Tensor:
     """The pipeline schedule's scan: arguments and result as
     :func:`lstm_scan_hoisted_kernel`, the R column tiles of each step's
-    h U issued together (a chain of T steps, not T*R)."""
+    h U issued together (a chain of T steps, not T*R).  Up to
+    ``MAX_CLUSTER_HIDDEN`` it is the hoisted kernel at R = 1 on the card,
+    bit for bit, at every R."""
     return _hoisted("lstm_scan_pipeline", zx, U, b, reuse, out_dtype)
 
 

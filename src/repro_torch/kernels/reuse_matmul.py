@@ -4,7 +4,11 @@ Replaces ``repro/kernels/reuse_matmul.py``'s ``col_matmul_pallas`` (the N
 output columns in R sequential tiles: the per-timestep blocks of the
 non-static schedule and the hoist stage at ``hoist_reuse > 1``) and
 ``reuse_matmul_pallas`` (the K reduction in R sequential passes).  The
-kernels live in ``csrc/reuse_matmul.cu``.
+kernels live in ``csrc/reuse_matmul.cu``: both run one tiled design (a CTA
+tile of outputs in registers, w staged through a ring of shared-memory
+slots); ``col_matmul`` walks its R column tiles in order, ``reuse_matmul``
+runs it as one tile over all of K at every R (its passes, added in order,
+are R = 1's k-ascending sum, so R names them only).
 
 A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, which repeats the kernel's R-tiled arithmetic with f32
@@ -74,12 +78,24 @@ def reuse_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
                         reuse: int = 1) -> torch.Tensor:
     """x: [M, K] @ w: [K, N], both f32 or both bf16 -> [M, N] in x's dtype,
     K in ``reuse`` sequential passes accumulated in f32 (``reuse`` must
-    divide K)."""
+    divide K).  On the card every output sums its K products in k order
+    whatever R, so R = 2 and 4 give R = 1's bits.  Mixed operands raise
+    on every device, the CPU included (the Pallas kernel's contract)."""
     _check("reuse_matmul", x, w, reuse, x.shape[1])
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"reuse_matmul: x and w must be both float32 or "
+                        f"both bfloat16, not {x.dtype} and {w.dtype}")
     if x.device.type == "cpu":
         return reuse_matmul_plain(x, w, reuse=reuse)
     if x.device.type != "cuda":
         raise ValueError(f"reuse_matmul: no kernel for device {x.device}")
+    return launch_reuse_matmul(x, w, reuse)
+
+
+def launch_reuse_matmul(x: torch.Tensor, w: torch.Tensor,
+                        reuse: int) -> torch.Tensor:
+    """Launch ``reuse_matmul`` on CUDA tensors (shapes and dtypes checked by
+    the caller); the kernel masks a ragged M and N itself."""
     dev = cuda.require("reuse_matmul", x.dtype, io=("x", "w"), x=x, w=w)
     (M, K), N = x.shape, w.shape[1]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)

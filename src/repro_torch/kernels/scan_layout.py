@@ -1,6 +1,6 @@
 """Launch layout of the cluster scan kernels (``lstm_scan`` / ``gru_scan``,
-and ``lstm_scan_hoisted``, ``gru_scan_hoisted`` and ``gru_scan_pipeline``
-on the kernel's zx mode).
+and the hoisted and pipeline scans of both cells on the kernel's zx
+mode).
 
 The in-loop static scans (``csrc/rnn_scan.cu``, ``cluster_scan_kernel``)
 run one thread-block cluster of ``cluster`` CTAs per tile of ``rows`` (1 or
@@ -26,12 +26,11 @@ The hoisted variant (``hoisted=True``: the zx mode, which reads
 precomputed zx in place of the in-kernel x W) follows the same rules; it
 has no x side, and its shared memory holds a bias row and three zx
 buffers of [rows, G, u] where the in-loop kernel holds W, the biases and
-three x buffers.  Three scans run on it up to :data:`MAX_CLUSTER_HIDDEN`
-(:data:`ZX_CLUSTER`): both hoisted scans and the GRU's pipeline scan,
-which runs the one-pass instance at every R on R = 1's layout.
-:func:`launch_hoisted_scan` routes every scan of zx (the LSTM's pipeline
-scan and any H past the cluster kernel's go to the block kernel) and
-launches it.
+three x buffers.  Four scans run on it up to :data:`MAX_CLUSTER_HIDDEN`
+(:data:`ZX_CLUSTER`): both hoisted scans and both pipeline scans, which
+run the one-pass instance at every R on R = 1's layout.
+:func:`launch_hoisted_scan` routes every scan of zx (any H past the
+cluster kernel's goes to the block kernel) and launches it.
 """
 
 from __future__ import annotations
@@ -58,9 +57,10 @@ K_SPLITS = (2, 8)
 MAX_CLUSTER_HIDDEN = MAX_K * K_SPLITS[-1]
 #: x values each thread loads a step, at most
 X_PER_THREAD = 4
-#: the scans of zx precomputed that run on the cluster kernel's zx mode up
-#: to MAX_CLUSTER_HIDDEN (``lstm_scan_pipeline`` stays on the block kernel)
-ZX_CLUSTER = ("lstm_scan_hoisted", "gru_scan_hoisted", "gru_scan_pipeline")
+#: the scans of zx precomputed, which run on the cluster kernel's zx mode
+#: up to MAX_CLUSTER_HIDDEN and on the block kernel past it
+ZX_CLUSTER = ("lstm_scan_hoisted", "gru_scan_hoisted", "lstm_scan_pipeline",
+              "gru_scan_pipeline")
 GATE_SLOTS = 4                      # W / b padded to 4 gates a unit
 
 
@@ -253,13 +253,12 @@ def launch_hoisted_scan(kernel: str, zx: torch.Tensor, U: torch.Tensor,
     or ``<cell>_scan_pipeline``; CUDA tensors, shapes checked by the
     caller), by its route.  The kernels of :data:`ZX_CLUSTER` run on the
     cluster kernel's zx mode up to :data:`MAX_CLUSTER_HIDDEN`, at
-    :func:`scan_layout`'s hoisted layout for this card; the pipeline scan
+    :func:`scan_layout`'s hoisted layout for this card; a pipeline scan
     runs the one-pass instance at every R, so its layout (and the
     residency asked for it) is R = 1's.  Past that H the block kernel runs
-    them (``<kernel>_block``, counted as ``kernel``), and
-    ``lstm_scan_pipeline`` at every H (its own entry point).  No fallback:
-    a refused launch raises.  zx: [B, T, G*h] f32; b: the LSTM's b or the GRU's
-    b_rec."""
+    them (``<kernel>_block``, counted as ``kernel``).  No fallback: a
+    refused launch raises.  zx: [B, T, G*h] f32; b: the LSTM's b or the
+    GRU's b_rec."""
     cell = kernel.split("_", 1)[0]
     dev = cuda.require(kernel, out_dtype, zx=zx, U=U, b=b)
     B, T, _ = zx.shape
@@ -270,12 +269,12 @@ def launch_hoisted_scan(kernel: str, zx: torch.Tensor, U: torch.Tensor,
     bf16 = out_dtype == torch.bfloat16
     args = (zx.data_ptr(), U.data_ptr(), b.data_ptr(), out.data_ptr(),
             int(bf16), B, T, hidden, reuse)
-    if kernel in ZX_CLUSTER and scan_route(hidden) == "cluster":
+    if scan_route(hidden) == "cluster":
         lay_reuse = 1 if kernel.endswith("_pipeline") else reuse
         lay = card_layout(B, hidden, 0, cell, lay_reuse, bf16, dev.index,
                           True)
         cuda.launch("rnn_scan", kernel, dev, *args, *lay[:5])
     else:
-        entry = f"{kernel}_block" if kernel in ZX_CLUSTER else kernel
-        cuda.launch("rnn_scan", entry, dev, *args, count_as=kernel)
+        cuda.launch("rnn_scan", f"{kernel}_block", dev, *args,
+                    count_as=kernel)
     return out

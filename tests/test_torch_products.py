@@ -199,6 +199,56 @@ def test_launch_raises_on_an_error_and_does_not_count(monkeypatch):
 def test_layout_exports_are_declared():
     """chip_smoke.py reads each product's launch layout from its library."""
     for lib, fn in (("reuse_matmul", "col_matmul_layout"),
+                    ("reuse_matmul", "reuse_matmul_layout"),
                     ("quantized", "quant_matmul_layout")):
         restype, argtypes = cuda.SIGNATURES[lib][fn]
         assert len(argtypes) == 5
+
+
+# -- 4. reuse_matmul's hand-off to its C entry point -----------------------
+
+
+def record_launches(monkeypatch, device):
+    calls = []
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: device)
+    monkeypatch.setattr(cuda, "launch", lambda *a, **k: calls.append((a, k)))
+    return calls
+
+
+@pytest.mark.parametrize("reuse", REUSES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("M,K,N", [(256, 128, 512), (1, 60, 3), (9, 60, 20)])
+def test_reuse_matmul_hands_the_shape_to_the_c_entry_point(M, K, N, dtype,
+                                                           reuse,
+                                                           monkeypatch):
+    """The C call gets every argument of its signature: x, w, the bf16
+    flag, out and (M, K, N, R) as given, a ragged M and N unpadded (the
+    tiled kernel masks both edges)."""
+    x, w = torch.zeros(M, K, dtype=dtype), torch.zeros(K, N, dtype=dtype)
+    calls = record_launches(monkeypatch, x.device)
+    out = trm.launch_reuse_matmul(x, w, reuse)
+    assert out.shape == (M, N) and out.dtype == dtype
+    ((lib, fn, dev, *args), kw), = calls
+    assert (lib, fn, kw) == ("reuse_matmul", "reuse_matmul", {})
+    # every C argument but the stream, which cuda.launch appends
+    assert len(args) == len(cuda.SIGNATURES[lib][fn][1]) - 1
+    assert args[:4] == [x.data_ptr(), w.data_ptr(),
+                        int(dtype == torch.bfloat16), out.data_ptr()]
+    assert args[4:] == [M, K, N, reuse]
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_reuse_matmul_refuses_mixed_operands_before_any_launch(
+        x_dtype, w_dtype, monkeypatch):
+    """x and w are both f32 or both bf16 (the Pallas kernel's contract):
+    mixed operands raise on any device, and the launch path refuses them
+    before it calls the library."""
+    x, w = torch.zeros(9, 8, dtype=x_dtype), torch.zeros(8, 20, dtype=w_dtype)
+    calls = []
+    monkeypatch.setattr(cuda, "launch", lambda *a, **k: calls.append(a))
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
+        trm.reuse_matmul_kernel(x, w, reuse=2)
+    with pytest.raises(TypeError, match="w must be"):
+        trm.launch_reuse_matmul(x, w, 2)
+    assert calls == []

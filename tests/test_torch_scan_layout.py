@@ -1,6 +1,6 @@
 """The cluster layout of the in-loop static scan kernels (``lstm_scan`` /
-``gru_scan``) and of the zx mode (both hoisted scans and the GRU's
-pipeline scan), and the zx scans' routes by H:
+``gru_scan``) and of the zx mode (both hoisted scans and both pipeline
+scans), and the zx scans' routes by H:
 ``repro_torch.kernels.scan_layout``.
 
 The kernel itself runs only on the card (``chip_smoke.py`` holds it to its
@@ -249,7 +249,7 @@ def test_card_resident_asks_the_c_library(cell, monkeypatch):
 @pytest.mark.parametrize("tag", sorted(TAGGERS))
 def test_hoisted_layout_fits_the_card(tag, batch, reuse):
     """The layout of the cluster kernel's zx mode (both cells' hoisted
-    scans, the GRU's pipeline scan): no x side, zx buffers of [rows, G, u]
+    and pipeline scans): no x side, zx buffers of [rows, G, u]
     in the shared memory (G from the cell), the same rules."""
     cell, H, fin, G = shapes(tag)
     B = padded(batch)
@@ -363,13 +363,15 @@ def record_launches(monkeypatch, device):
 
 @pytest.mark.parametrize("hidden", [20, 120, 128, 256])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["lstm_scan_hoisted", "gru_scan_pipeline"])
+@pytest.mark.parametrize("kernel", ["lstm_scan_hoisted", "lstm_scan_pipeline",
+                                    "gru_scan_pipeline"])
 def test_zx_scans_route_by_hidden(kernel, out_dtype, hidden, monkeypatch):
-    """``lstm_scan_hoisted`` and ``gru_scan_pipeline`` route as
+    """``lstm_scan_hoisted`` and both pipeline scans route as
     ``gru_scan_hoisted`` does: H <= MAX_CLUSTER_HIDDEN takes the cluster
-    entry point with its hoisted layout (the pipeline's at R = 4 is the
-    hoisted scan's at R = 1, the one-pass instance it runs), a larger H the
-    block kernel's ``_block`` entry point, counted as the kernel."""
+    entry point with its hoisted layout (a pipeline's at R = 4 is its
+    cell's hoisted scan's at R = 1, the one-pass instance it runs), a
+    larger H the block kernel's ``_block`` entry point, counted as the
+    kernel."""
     cell = kernel.split("_")[0]
     B, T, R = 256, 4, 4
     zx, U, b = zx_inputs(cell, B, T, hidden)
@@ -377,8 +379,8 @@ def test_zx_scans_route_by_hidden(kernel, out_dtype, hidden, monkeypatch):
     sl.card_layout.cache_clear()
     try:
         out = sl.launch_hoisted_scan(kernel, zx, U, b, R, out_dtype)
-        if kernel == "gru_scan_pipeline":
-            sl.launch_hoisted_scan("gru_scan_hoisted", zx, U, b, 1,
+        if kernel.endswith("_pipeline"):
+            sl.launch_hoisted_scan(f"{cell}_scan_hoisted", zx, U, b, 1,
                                    out_dtype)
     finally:
         sl.card_layout.cache_clear()
@@ -397,34 +399,24 @@ def test_zx_scans_route_by_hidden(kernel, out_dtype, hidden, monkeypatch):
         assert asked and all(a[:3] == (cell, bool(bf16), 1 if pipeline
                                        else R) and a[4] for a in asked)
         if pipeline:
-            # the same layout as the hoisted GRU at R = 1, at the same B
+            # the same layout as its cell's hoisted scan at R = 1, at the
+            # same B
             (hargs, _), = rest
-            assert hargs[1] == "gru_scan_hoisted" and hargs[-5:] == args[-5:]
+            assert (hargs[1] == f"{cell}_scan_hoisted"
+                    and hargs[-5:] == args[-5:])
     else:
         assert (lib, fn) == ("rnn_scan", f"{kernel}_block")
         assert kw == {"count_as": kernel} and not asked
 
 
-@pytest.mark.parametrize("hidden", [20, 128, 256])
-def test_lstm_scan_pipeline_stays_on_the_block_kernel(hidden, monkeypatch):
-    zx, U, b = zx_inputs("lstm", 9, 3, hidden)
-    calls, asked = record_launches(monkeypatch, zx.device)
-    sl.launch_hoisted_scan("lstm_scan_pipeline", zx, U, b, 4, torch.float32)
-    ((lib, fn, dev, *cargs), kw), = calls
-    assert (lib, fn, kw) == ("rnn_scan", "lstm_scan_pipeline",
-                             {"count_as": "lstm_scan_pipeline"})
-    assert len(cargs) == len(cuda.SIGNATURES[lib][fn][1]) - 1
-    assert cargs[4:] == [0, 9, 3, hidden, 4] and not asked
-
-
 @pytest.mark.parametrize("kernel,cell_id,reuse_asked", [
     ("lstm_scan_hoisted", 0, 4), ("gru_scan_hoisted", 1, 4),
-    ("gru_scan_pipeline", 1, 1)])
+    ("lstm_scan_pipeline", 0, 1), ("gru_scan_pipeline", 1, 1)])
 def test_zx_residency_asks_for_the_instance_that_runs(
         kernel, cell_id, reuse_asked, monkeypatch):
     """On the card the layout of a zx scan at R = 4 asks
     ``cluster_zx_scan_resident`` about the instance the launch runs: cell 0
-    for the LSTM, and the one-pass instance (reuse 1) for the pipeline,
+    for the LSTM, and the one-pass instance (reuse 1) for a pipeline,
     which runs it at every R; never the in-loop kernel's query."""
     cell = kernel.split("_")[0]
     zx, U, b = zx_inputs(cell, 256, 4, 128)
