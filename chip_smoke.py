@@ -29,7 +29,11 @@ In order, it
      int4-range operands, at the same ragged shapes and at a 512 x 1024
      int8 weight; ``fixed_point``
      (bit for bit) at QuickDraw LSTM's gate block of one step and of all T
-     steps, float32 and bfloat16, for seven ap_fixed configs;
+     steps, float32 and bfloat16, for seven ap_fixed configs, and at its
+     edge values (+-0, NaN, +-inf, ties, the rails and just past them,
+     |x * 2^F| >= 2^24, subnormals; NaN positions equal) in every config
+     and dtype, with the input and the output at every element offset off
+     16-byte alignment, through its C entry point;
      ``decode_matmul`` (split-K: chunks folded in chunk order, in the
      block or by a fold kernel) at gemma-2b's four per-token products
      (bf16, M = 4, and q|k|v at M = 3) and at the taggers' decode-step
@@ -45,8 +49,9 @@ In order, it
      (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
      {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
      bit, and equal to ``torch.mul``) at (1500, 200) and (16384, 4096),
-     float32 and bfloat16, and at (1500, 200) with operands off 16-byte
-     alignment (the scalar path);
+     float32 and bfloat16, at (1500, 200) with operands 4, 8 and 12 bytes
+     off 16-byte alignment, and through its C entry point at a ragged
+     length with a, b and out at every element offset off that alignment;
   3. drives the port's main paths, each with the launch counts set to 0
      just before it and read just after, and checks every answer against
      the same model on ``backend="xla"``:
@@ -146,6 +151,15 @@ likewise times only ``decode_matmul`` at gemma-2b's four products and the
 taggers' decode-step products (R = 1 and 4; events, device ms and, for
 gemma-2b, device ms after an L2 flush, beside ``torch.matmul``) and
 gemma-2b's decode tick per key (host-clock latency and a trace).
+
+    python3 chip_smoke.py --time-elementwise [--src DIR]
+
+likewise times only ``fixed_point`` (QuickDraw LSTM's gate block of one
+step and of all T steps, f32 and bf16, every ``FP_GRID`` config) and
+``hadamard`` (``HADAMARD_SHAPES``, f32 and bf16): events, device ms and
+device ms after an L2 flush, beside ``fake_quantize_per_tensor_affine``
+(rnd / sat configs) and ``torch.mul``, and the bytes bound held against
+the L2-cold time.
 """
 
 from __future__ import annotations
@@ -234,6 +248,10 @@ RG_B, RG_T, RG_W = 8, 2048, 4096
 RGLRU_SHAPES = ((4, 12, 20), (9, 12, 200), (RG_B, RG_T, RG_W))
 #: hadamard's shapes: a ragged row count, and the RG-LRU path's (B*T, W)
 HADAMARD_SHAPES = ((1500, 200), (RG_B * RG_T, RG_W))
+#: the streaming kernels' (fixed_point, hadamard) edge checks: a length
+#: that is no multiple of 4 vectors of 16 bytes (n = 304 297), at every
+#: element offset of each operand and of the output off 16-byte alignment
+RAGGED_STREAM = 1499 * 203
 #: kernel -> (TPU kernel it replaces, source of the CUDA kernel)
 KERNELS = {
     "lstm_scan": ("src/repro/kernels/lstm_scan.py:120", SCAN_SRC),
@@ -524,6 +542,21 @@ def int_matmul_library(x, w):
     return lambda: torch.matmul(xf, wf)
 
 
+def fake_quantize_library(x, fp):
+    """``fake_quantize_per_tensor_affine`` of ``x`` onto ``fp``'s grid: the
+    same function as ``fixed_point`` where it rounds half to even and
+    saturates (rnd / sat), else None."""
+    import torch
+
+    from repro_torch.core.quant.fixed_point import grid_constants
+
+    if (fp.rounding, fp.saturation) != ("rnd", "sat"):
+        return None
+    scale, lo, hi = grid_constants(fp)
+    return lambda: torch.fake_quantize_per_tensor_affine(x, 1.0 / scale, 0,
+                                                         int(lo), int(hi))
+
+
 def quant_calls(device, timing=False):
     """(tagger, R, call) for ``quant_matmul`` at every native gate product
     of the six taggers (x-side and h-side, int8 and int4-range operands)
@@ -582,16 +615,8 @@ def quant_calls(device, timing=False):
             x = x.to(device)
             for spec in specs:
                 fp = fixed_point_config(spec)
-                lib = None
-                if timing and dtype == torch.float32 and spec[2:] == (
-                        "rnd", "sat"):
-                    from repro_torch.core.quant.fixed_point import \
-                        grid_constants
-
-                    scale, lo, hi = grid_constants(fp)
-                    lib = (lambda x=x, s=1.0 / scale, lo=int(lo), hi=int(hi):
-                           torch.fake_quantize_per_tensor_affine(
-                               x, s, 0, lo, hi))
+                lib = (fake_quantize_library(x, fp)
+                       if timing and dtype == torch.float32 else None)
                 yield "quickdraw-lstm", 1, call(
                     "fixed_point", f"{tuple(shape)} {str(dtype)[6:]} "
                     f"ap{'_'.join(map(str, spec))}",
@@ -713,14 +738,17 @@ def elementwise_calls(device, timing=False):
                 (x, y), float(x.numel()), lambda x=x, y=y: torch.mul(x, y),
                 shape == HADAMARD_SHAPES[-1] and dt == torch.float32)
     if not timing:
-        # operands 4 bytes off 16-byte alignment take the scalar path
+        # operands 4, 8 and 12 bytes off 16-byte alignment, alike and apart
         rows, cols = HADAMARD_SHAPES[0]
-        base = torch.randn(2, rows * cols + 1, generator=gen, device=device)
-        x, y = (v[1:].view(rows, cols) for v in base)
-        yield (rows, cols), 1, call(
-            "hadamard", f"({rows}, {cols}) float32 unaligned",
-            lambda: hd.hadamard_kernel(x, y), lambda: hd.hadamard_plain(x, y),
-            (x, y), float(x.numel()), lambda: torch.mul(x, y))
+        base = torch.randn(2, rows * cols + 3, generator=gen, device=device)
+        for ox, oy in ((1, 1), (2, 2), (3, 3), (1, 2), (3, 0)):
+            x = base[0, ox:ox + rows * cols].view(rows, cols)
+            y = base[1, oy:oy + rows * cols].view(rows, cols)
+            yield (rows, cols), 1, call(
+                "hadamard", f"({rows}, {cols}) float32 +{4 * ox}/+{4 * oy} B",
+                lambda x=x, y=y: hd.hadamard_kernel(x, y),
+                lambda x=x, y=y: hd.hadamard_plain(x, y),
+                (x, y), float(x.numel()), lambda x=x, y=y: torch.mul(x, y))
 
 
 def same_bits(got, want) -> bool:
@@ -734,6 +762,16 @@ def same_bits(got, want) -> bool:
         view = torch.int16 if got.element_size() == 2 else torch.int32
         got, want = got.view(view), want.view(view)
     return torch.equal(got, want)
+
+
+def same_bits_nan(got, want) -> bool:
+    """Equal bit for bit where ``want`` is a number, NaN where it is NaN
+    (the payload and sign of a NaN are not compared)."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and same_bits(torch.where(nan, 0, got), torch.where(nan, 0, want)))
 
 
 def library_call(name, inputs):
@@ -938,6 +976,7 @@ def phase_kernels(device) -> dict:
         check(again, f"decode_matmul {c['shape']}: a second call differs")
         errs["decode_matmul"] = max(errs.get("decode_matmul", 0.0), err)
     check_elementwise(device, errs)
+    check_stream_edges(device, errs)
     check_bad_layouts(device)
     check(set(errs) == set(KERNELS), f"kernels checked: {sorted(errs)}")
     return errs
@@ -1117,6 +1156,88 @@ def check_elementwise(device, errs: dict) -> None:
         check(same_r1, f"{c['name']} {c['shape']}: differs from R=1")
         check(same_lib, f"{c['name']} {c['shape']}: differs from torch.mul")
         errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
+
+
+def offset_copy(t, elems: int):
+    """A copy of ``t`` (flat) whose first element lies ``elems`` elements
+    past a 16-byte boundary (PyTorch's allocations start on one)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[elems:elems + t.numel()]
+    view.copy_(t.reshape(-1))
+    return view
+
+
+def check_stream_edges(device, errs: dict) -> None:
+    """The streaming body of ``fixed_point`` and ``hadamard`` through their
+    C entry points at ``RAGGED_STREAM`` elements, with every operand and the
+    output at every element offset off 16-byte alignment (a scalar head,
+    vectors assembled from narrower loads, a scalar tail): ``hadamard``
+    bit for bit equal to ``torch.mul``; ``fixed_point`` at ``edge_values``
+    (tiled) in every ``FP_GRID`` mode bit for bit equal to its plain
+    version, NaN positions equal."""
+    import itertools
+
+    import torch
+
+    from repro_torch.core.quant.fixed_point import grid_constants
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.fixed_point import edge_values, fixed_point_plain
+
+    gen = torch.Generator(device=device).manual_seed(810)
+    for dt in (torch.float32, torch.bfloat16):
+        offsets = range(16 // torch.empty((), dtype=dt).element_size())
+        bf16 = int(dt == torch.bfloat16)
+        a, b = (torch.randn(RAGGED_STREAM, generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        want = torch.mul(a, b)
+        bad = []
+        for oa, ob, oo in itertools.product(offsets, repeat=3):
+            av, bv = offset_copy(a, oa), offset_copy(b, ob)
+            # NaN in every output slot: a product of numbers is none
+            out = offset_copy(torch.full_like(a, float("nan")), oo)
+            cuda.launch("hadamard", "hadamard", device, av.data_ptr(),
+                        bv.data_ptr(), bf16, out.data_ptr(), RAGGED_STREAM)
+            torch.cuda.synchronize()
+            if not same_bits(out, want):
+                bad.append((oa, ob, oo))
+        print(f"check hadamard n={RAGGED_STREAM} {str(dt)[6:]}: "
+              f"{len(offsets) ** 3} offsets of a / b / out, bit for bit "
+              f"equal to torch.mul at {len(offsets) ** 3 - len(bad)}")
+        check(not bad, f"hadamard {dt}: differs from torch.mul at element "
+              f"offsets (a, b, out) {bad[:8]}")
+        for spec in FP_GRID:
+            fp = fixed_point_config(spec)
+            x = edge_values(fp).to(device)
+            x = x.repeat(RAGGED_STREAM // x.numel() + 1)[:RAGGED_STREAM]
+            x = x.to(dt)
+            want = fixed_point_plain(x, fp)
+            scale, lo, hi = grid_constants(fp)
+            bad, err = [], 0.0
+            for ox, oo in itertools.product(offsets, repeat=2):
+                xv = offset_copy(x, ox)
+                # 0.3 in every output slot: on none of the grids
+                out = offset_copy(torch.full_like(x, 0.3), oo)
+                cuda.launch("quantized", "fixed_point", device, xv.data_ptr(),
+                            bf16, out.data_ptr(), RAGGED_STREAM, scale, lo,
+                            hi, int(fp.rounding == "rnd"),
+                            int(fp.saturation == "sat"),
+                            2.0 ** fp.total_bits)
+                torch.cuda.synchronize()
+                if not same_bits_nan(out, want):
+                    bad.append((ox, oo))
+                num = torch.isfinite(want)
+                err = max(err, float((out[num].float() - want[num].float())
+                                     .abs().max()))
+            print(f"check fixed_point edges n={RAGGED_STREAM} "
+                  f"{str(dt)[6:]:8s} ap{'_'.join(map(str, spec))}: "
+                  f"{len(offsets) ** 2} offsets of x / out, max_abs_err "
+                  f"{err:.3e} over the finite values, bit for bit (NaN "
+                  f"positions equal) at {len(offsets) ** 2 - len(bad)}")
+            check(not bad, f"fixed_point {spec} {dt}: differs from its "
+                  f"plain version at element offsets (x, out) {bad[:8]}")
+            errs["fixed_point"] = max(errs.get("fixed_point", 0.0), err)
 
 
 #: path -> calls per C entry point in its drive (``cuda.ENTRIES``)
@@ -2491,6 +2612,66 @@ def time_decode(device) -> dict:
     return out
 
 
+def time_elementwise(device) -> dict:
+    """``--time-elementwise``: ``fixed_point`` at ``FXP_SHAPES`` x {f32,
+    bf16} x ``FP_GRID`` and ``hadamard`` at ``HADAMARD_SHAPES`` x {f32,
+    bf16}: CUDA-event ms over back-to-back calls, device ms from a trace,
+    and CUDA-event ms of calls that each find L2 cold, beside the library
+    call's (``fake_quantize_per_tensor_affine`` where it computes the same
+    function, rnd / sat; ``torch.mul``) and the bytes bound, held against
+    the L2-cold time.  It times
+    whichever tree's ``repro_torch`` was imported (``--src``)."""
+    import torch
+
+    from repro_torch.kernels import fixed_point as fx
+    from repro_torch.kernels import hadamard as hd
+
+    gen = torch.Generator(device=device).manual_seed(950)
+    rows = []
+
+    def row(name, shape, kern, lib, inputs, flops):
+        with torch.inference_mode():
+            out = kern()
+        r = {"name": name, "shape": shape, "ms": time_ms(kern, 200),
+             "device_ms": per_call(kern, name, 50),
+             "cold_ms": time_cold_ms(kern, 50),
+             "library_ms": time_ms(lib, 200) if lib else None,
+             "library_device_ms": per_call(lib, "other", 50) if lib else None,
+             "library_cold_ms": time_cold_ms(lib, 50) if lib else None,
+             "bound_ms": bound(inputs, out, flops)[0]}
+        # the bound counts every byte from HBM: only a call that finds L2
+        # cold is held to it (a warm call may read its input from L2)
+        r["cold_share_of_bound"] = r["bound_ms"] / r["cold_ms"]
+        rows.append(r)
+        lib_txt = ("n/a" if lib is None else
+                   f"device {r['library_device_ms']:.4f}, events "
+                   f"{r['library_ms']:.4f}, L2 cold "
+                   f"{r['library_cold_ms']:.4f}")
+        print(f"elementwise {name:11s} {shape:32s}: device "
+              f"{r['device_ms']:.4f} ms, events {r['ms']:.4f} (L2 warm), "
+              f"L2 cold {r['cold_ms']:.4f}; library {lib_txt}; HBM bytes "
+              f"bound {r['bound_ms']:.5f}, {r['cold_share_of_bound']:.1%} "
+              f"of the L2-cold time")
+
+    for shape in FXP_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(*shape, generator=gen, device=device) * 8).to(dt)
+            for spec in FP_GRID:
+                fp = fixed_point_config(spec)
+                row("fixed_point", f"{tuple(shape)} {str(dt)[6:]} "
+                    f"ap{'_'.join(map(str, spec))}",
+                    lambda x=x, fp=fp: fx.fixed_point_kernel(x, fp),
+                    fake_quantize_library(x, fp), (x,), 0.0)
+    for shape in HADAMARD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = (torch.randn(*shape, generator=gen, device=device).to(dt)
+                    for _ in range(2))
+            row("hadamard", f"{shape} {str(dt)[6:]}",
+                lambda x=x, y=y: hd.hadamard_kernel(x, y),
+                lambda x=x, y=y: torch.mul(x, y), (x, y), float(x.numel()))
+    return {"kernels": rows}
+
+
 def no_nan(obj):
     """``obj`` with every NaN (a reading the trace did not give) as None,
     so that the line is strict JSON."""
@@ -2516,17 +2697,20 @@ def main() -> int:
     what.add_argument("--time-decode", action="store_true",
                       help="only time decode_matmul beside torch.matmul and "
                       "the LM decode tick per key (see time_decode)")
-    ap.add_argument("--src", help="with --time-scans, --time-products or "
-                    "--time-decode: import repro_torch from this directory "
-                    "(default: this checkout's src)")
+    what.add_argument("--time-elementwise", action="store_true",
+                      help="only time fixed_point and hadamard beside their "
+                      "library calls (see time_elementwise)")
+    ap.add_argument("--src", help="with a --time-* option: import "
+                    "repro_torch from this directory (default: this "
+                    "checkout's src)")
     opts = ap.parse_args()
     timing = {"time_scans": time_scans, "time_products": time_products,
-              "time_decode": time_decode}
+              "time_decode": time_decode,
+              "time_elementwise": time_elementwise}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
         if not only:
-            ap.error("--src goes with --time-scans, --time-products or "
-                     "--time-decode")
+            ap.error("--src goes with a --time-* option")
         sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 

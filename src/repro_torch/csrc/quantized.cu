@@ -55,20 +55,32 @@
 // runs unpack_ints once per scan call, outside the time loop).
 //
 // fixed_point.  out = quantize(x, fp) elementwise over f32 or bf16 (output
-// in the input's dtype): y = x * scale; rnd: round-half-even (rintf), trn:
+// in the input's dtype): y = x * 2^F; rnd: round-half-even (rintf), trn:
 // floor; sat: clip to the integer rails [lo, hi], wrap: floored modulo
-// (y - lo) mod 2^W + lo; then y / scale.  Bitwise equal to the reference
+// (y - lo) mod 2^W + lo; then y * 2^-F.  Bitwise equal to the reference
 // quantizers: every step is an explicit IEEE round-to-nearest intrinsic, so
-// nvcc cannot contract a multiply and an add into an FMA, and NaN passes
-// the clip as it does through jnp.clip / torch.clamp.  Bound by bytes (one
-// read and one write per element); one thread per element, grid-stride.
+// nvcc cannot contract a multiply and an add into an FMA.  After the clip
+// or the wrap y is an integer no larger than 2^W in magnitude, so y * 2^-F
+// is exact and gives the bits of the reference's y / 2^F; the floored
+// modulo t - 2^W * floor(t * 2^-W) (t = y - lo) is exact at every step, and
+// its exact result is an integer below 2^W, so it equals jnp.mod's /
+// torch.remainder's.  NaN passes the clip (y < lo ? lo : y > hi ? hi : y),
+// as through jnp.clip / torch.clamp, and +-inf saturate to the rails.  No
+// flush of subnormals (no -ftz), as IEEE and torch on the CPU: a negative
+// subnormal x truncates to -2^-F.  Bound by bytes (one read and one write
+// per element): it runs on the streaming body of stream_elementwise.cuh
+// (16-byte vectors, two of them in flight a thread, one block a pass,
+// streaming stores); the first form read one element per thread an
+// iteration and divided.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
+#include "stream_elementwise.cuh"
 #include "tile_stage.cuh"
 
 namespace {
@@ -381,33 +393,64 @@ quant_matmul_kernel(const int8_t* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// The quantizer over one element: every constant a power of two (scale =
+// 2^F, span = 2^W; the C entry point refuses anything else).
+struct FixedPoint {
+  static constexpr int kInputs = 1;
+  float scale, inv_scale, lo, hi, span, inv_span;
+  int rnd, sat;
 
-template <typename T>
-__global__ void fixed_point_kernel(const T* __restrict__ x,
-                                   T* __restrict__ out, long long n,
-                                   float scale, float lo, float hi, int rnd,
-                                   int sat, float span) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float y = __fmul_rn(to_f32(x[i]), scale);
+  __device__ __forceinline__ float operator()(float x) const {
+    float y = __fmul_rn(x, scale);
     y = rnd ? rintf(y) : floorf(y);
     if (sat) {
       y = y < lo ? lo : (y > hi ? hi : y);
     } else {
-      float m = fmodf(__fsub_rn(y, lo), span);  // exact; sign of dividend
-      if (m < 0.0f) m = __fadd_rn(m, span);  // floored, as jnp.mod
-      y = __fadd_rn(m, lo);
+      const float t = __fsub_rn(y, lo);
+      y = __fadd_rn(
+          __fsub_rn(t, __fmul_rn(span, floorf(__fmul_rn(t, inv_span)))), lo);
     }
-    store(&out[i], __fdiv_rn(y, scale));
+    return __fmul_rn(y, inv_scale);
   }
+  __device__ __forceinline__ __nv_bfloat16
+  operator()(__nv_bfloat16 x) const {
+    return __float2bfloat16_rn((*this)(__bfloat162float(x)));
+  }
+};
+
+template <typename T, int G>
+__global__ void __launch_bounds__(stream::kThreads)
+fixed_point_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   stream::Span sp, FixedPoint op) {
+  stream::body<T, G>(x, static_cast<const T*>(nullptr), out, sp, op);
+}
+
+template <typename T>
+struct FixedPointLaunch {
+  const T* x;
+  T* out;
+  stream::Span sp;
+  FixedPoint op;
+  cudaStream_t s;
+
+  template <int G>
+  int run() const {
+    return stream::launch(fixed_point_kernel<T, G>, sp, s, x, out, sp, op);
+  }
+};
+
+template <typename T>
+int run_fixed_point(const void* x, void* out, long long n,
+                    const FixedPoint& op, cudaStream_t s) {
+  const stream::Span sp = stream::span_of<T>(out, n);
+  const FixedPointLaunch<T> l{static_cast<const T*>(x), static_cast<T*>(out),
+                              sp, op, s};
+  return stream::dispatch<T>(l, stream::granule(l.x + sp.head));
+}
+
+bool power_of_two(float v) {
+  int e = 0;
+  return v > 0.0f && std::frexp(v, &e) == 0.5f;
 }
 
 // x's staging granule (stage16), or 0 for the flat span: K <= 32, rows not
@@ -470,23 +513,18 @@ int quant_matmul(const void* x, const void* w, void* out, int M, int K,
   return (int)cudaGetLastError();
 }
 
+// scale = 2^F and span = 2^W (powers of two: the quantizer multiplies by
+// their exact inverses), lo / hi the integer rails.
 int fixed_point(const void* x, int bf16, void* out, long long n, float scale,
                 float lo, float hi, int rnd, int sat, float span,
                 void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || !power_of_two(scale) || !power_of_two(span))
+    return (int)cudaErrorInvalidValue;
+  const FixedPoint op{scale, 1.0f / scale, lo, hi, span, 1.0f / span,
+                      rnd, sat};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride past 32 waves
-  if (bf16)
-    fixed_point_kernel<__nv_bfloat16><<<(int)blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(out), n, scale, lo, hi, rnd, sat, span);
-  else
-    fixed_point_kernel<float><<<(int)blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), n, scale, lo,
-        hi, rnd, sat, span);
-  return (int)cudaGetLastError();
+  if (bf16) return run_fixed_point<__nv_bfloat16>(x, out, n, op, s);
+  return run_fixed_point<float>(x, out, n, op, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -3,9 +3,10 @@
 Replaces ``repro/kernels/hadamard.py``'s ``hadamard_pallas``, the op the
 paper added to hls4ml (Sec. 3): ``a * b`` elementwise over ``[N, M]``, a and
 b of one dtype, float32 or bfloat16, the output in that dtype.  The kernel
-lives in ``csrc/hadamard.cu``: a grid-stride loop in 16-byte vectors with a
-scalar tail, over any N (the TPU's row blocks and their padding are not
-ported).  Each output is the float32 product rounded once to the dtype; for
+lives in ``csrc/hadamard.cu``, on the streaming body of
+``csrc/stream_elementwise.cuh`` (16-byte vectors, a scalar head and tail,
+any N and any operand offset; the TPU's row blocks and their padding are
+not ported).  Each output is the float32 product rounded once to the dtype; for
 two bfloat16 operands that product is exact in float32, so the result is
 the correctly rounded bfloat16 product, the bits of ``torch.mul``.
 

@@ -284,9 +284,19 @@ _MODES = {"static": _static_scan, "nonstatic": _cell_unrolled,
           "pipeline": _cell_pipeline}
 
 
+def _scan_weights_resident(cell: str, W, U, b):
+    """The kernels compute every gate product in f32 from f32 weights, so
+    the f32 contiguous layout is packed once per weights identity (and
+    version) instead of on every call, as ``repro``'s
+    ``_scan_weights_resident``.  bf16 -> f32 is exact, so the result is
+    bit for bit the in-call cast; f32 contiguous weights come back as the
+    same tensors."""
+    return resident((W, U, b), f"{cell}-scan-f32",
+                    lambda: tuple(t.float().contiguous() for t in (W, U, b)))
+
+
 def _kernel_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):
-    # the kernels compute every gate product in f32 from f32 weights
-    W, U, b = (t.float().contiguous() for t in (W, U, b))
+    W, U, b = _scan_weights_resident(cell, W, U, b)
     return _MODES[schedule.mode](cell, xs, W, U, b, schedule)
 
 

@@ -54,7 +54,8 @@ from repro_torch.core.quant import ptq as tptq  # noqa: E402
 from repro_torch.core.rnn.layer import rnn_layer  # noqa: E402
 from repro_torch.kernels import cuda, ops  # noqa: E402
 from repro_torch.kernels import quantized as tq  # noqa: E402
-from repro_torch.kernels.fixed_point import (fixed_point_kernel,  # noqa: E402
+from repro_torch.kernels.fixed_point import (edge_values,  # noqa: E402
+                                             fixed_point_kernel,
                                              fixed_point_plain)
 from repro_torch.kernels.schedule import KernelSchedule, schedule_key  # noqa: E402,E501
 from repro_torch.models.rnn_tagger import RNNTagger, params_from_jax  # noqa: E402,E501
@@ -191,6 +192,47 @@ def test_fixed_point_matches_pallas(cfg, dtype):
     assert cuda.LAUNCHES == before, "a CPU tensor must not launch a kernel"
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fixed_point_kernel(xt.to("meta"), tfp)
+
+
+def bits_nan(a) -> np.ndarray:
+    """Raw bits with every NaN as one pattern: NaN positions count, NaN
+    payloads and signs do not."""
+    f = a.float().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a, np.float32)
+    b = bits(a).copy()
+    b[np.isnan(f)] = -1
+    return b
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("cfg", GRID, ids=gid)
+def test_fixed_point_plain_at_edge_values(cfg, dtype):
+    """The plain version (the port's ``quantize``, which the kernel is held
+    to on the card) at ``edge_values`` against ``repro``'s Pallas kernel
+    in interpret mode and its ``quantize``: bit for bit, NaN positions
+    equal.  XLA on the CPU flushes f32 subnormal inputs to zero; the port
+    does not (nor does IEEE arithmetic).  At a subnormal input the port is
+    held to ``repro``'s float64 host quantizer ``quantize_np``, and
+    ``repro``'s device result to the port's or to that of the zero the
+    flush leaves (they differ where trn floors a negative subnormal to
+    -2^-F)."""
+    jfp, tfp = fps(*cfg)
+    xt = edge_values(tfp).to(getattr(torch, dtype)).reshape(1, -1).repeat(8, 1)
+    xf = xt.float().numpy()
+    xj = jnp.asarray(xf, dtype)
+    got = fixed_point_plain(xt, tfp)
+    assert got.dtype == xt.dtype
+    sub = (xf != 0) & (np.abs(xf) < np.finfo(np.float32).tiny)
+    assert sub.any() and np.isnan(xf).any() and np.isinf(xf).any()
+    host = to_torch(jnp.asarray(jfx.quantize_np(xf, jfp), dtype))
+    flushed = jfx.quantize(jnp.asarray(np.copysign(0.0, xf), dtype), jfp)
+    for want in (fixed_point_pallas(xj, jfp, block=8, interpret=True),
+                 jfx.quantize(xj, jfp)):
+        np.testing.assert_array_equal(bits_nan(got)[~sub],
+                                      bits_nan(want)[~sub])
+        np.testing.assert_array_equal(bits(got)[sub], bits(host)[sub])
+        w = bits(want)[sub]
+        assert np.all((w == bits(got)[sub]) | (w == bits(flushed)[sub]))
 
 
 # -- 3. the integer product ------------------------------------------------
