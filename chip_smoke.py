@@ -45,9 +45,13 @@ In order, it
      H = 128 and on ``<name>_block`` past it, each pipeline at every R bit
      for bit equal to R = 1 and to its cell's hoisted scan at R = 1;
      ``rglru_scan`` (bit
-     for bit, R = 2 and 4 equal to R = 1) at (4, 12, 20), the ragged
-     (9, 12, 200) and recurrentgemma-9b's width (8, 2048, 4096), R in
-     {1, 2, 4}, float32, bfloat16 and both mixes; ``hadamard`` (bit for
+     for bit, R = 2 and 4 equal to R = 1, the launch layout equal to its
+     Python model) at (4, 12, 20), the ragged (9, 12, 200),
+     recurrentgemma-9b's width (8, 2048, 4096), one sequence of it
+     (1, 2048, 4096) and (3, 37, 1001) (a row stride off the 16-byte
+     grid), R in {1, 2, 4}, float32, bfloat16 and both mixes, and through
+     its C entry point at (3, 37, 200) with a, bx and out at every element
+     offset off 16-byte alignment, every dtype pair; ``hadamard`` (bit for
      bit, and equal to ``torch.mul``) at (1500, 200) and (16384, 4096),
      float32 and bfloat16, at (1500, 200) with operands 4, 8 and 12 bytes
      off 16-byte alignment, and through its C entry point at a ragged
@@ -154,12 +158,15 @@ gemma-2b's decode tick per key (host-clock latency and a trace).
 
     python3 chip_smoke.py --time-elementwise [--src DIR]
 
-likewise times only ``fixed_point`` (QuickDraw LSTM's gate block of one
-step and of all T steps, f32 and bf16, every ``FP_GRID`` config) and
-``hadamard`` (``HADAMARD_SHAPES``, f32 and bf16): events, device ms and
-device ms after an L2 flush, beside ``fake_quantize_per_tensor_affine``
-(rnd / sat configs) and ``torch.mul``, and the bytes bound held against
-the L2-cold time.
+likewise times only ``rglru_scan`` (``RGLRU_TIMED``: recurrentgemma-9b's
+width at R = 1 and 4, in f32 and bf16, and one sequence, with its launch
+layout and ``torch.mul(a, bx)`` as the floor for the same bytes),
+``fixed_point`` (QuickDraw LSTM's gate block of one step and of all T
+steps, f32 and bf16, every ``FP_GRID`` config) and ``hadamard``
+(``HADAMARD_SHAPES``, f32 and bf16): events, device ms and device ms after
+an L2 flush, beside ``fake_quantize_per_tensor_affine`` (rnd / sat
+configs) and ``torch.mul``, and the bytes bound held against the L2-cold
+time.
 """
 
 from __future__ import annotations
@@ -244,8 +251,14 @@ HADAMARD_SRC = "src/repro_torch/csrc/hadamard.cu"
 #: recurrentgemma_9b.py: lru_width 4096, local-attention window 2048) for 8
 #: sequences: a, bx [RG_B, RG_T, RG_W]
 RG_B, RG_T, RG_W = 8, 2048, 4096
-#: rglru_scan's checked shapes (B, T, W): small, a ragged width, full width
-RGLRU_SHAPES = ((4, 12, 20), (9, 12, 200), (RG_B, RG_T, RG_W))
+#: rglru_scan's checked shapes (B, T, W): small, a ragged width, full width,
+#: one sequence at full width, and a row stride W * itemsize that is no
+#: multiple of 16 bytes (one element a thread)
+RGLRU_SHAPES = ((4, 12, 20), (9, 12, 200), (RG_B, RG_T, RG_W),
+                (1, RG_T, RG_W), (3, 37, 1001))
+#: rglru_scan's offset checks: a, bx and out at every element offset off
+#: the 16-byte grid, at a width whose rows keep that grid
+RGLRU_OFFSET_SHAPE = (3, 37, 200)
 #: hadamard's shapes: a ragged row count, and the RG-LRU path's (B*T, W)
 HADAMARD_SHAPES = ((1500, 200), (RG_B * RG_T, RG_W))
 #: the streaming kernels' (fixed_point, hadamard) edge checks: a length
@@ -726,7 +739,8 @@ def elementwise_calls(device, timing=False):
                                                                    **kw),
                     lambda a=a, bx=bx: rg.rglru_scan_plain(a, bx),
                     (a, bx), 2.0 * B * T * W, None,
-                    W == RG_W and reuse == 1 and dt == torch.float32)
+                    (B, T, W) == (RG_B, RG_T, RG_W) and reuse == 1
+                    and dt == torch.float32)
     for shape in HADAMARD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(*shape, generator=gen, device=device).to(dt)
@@ -1128,10 +1142,34 @@ def check_bad_decode_layouts(device) -> None:
           "decode_matmul wrote out on a refused launch")
 
 
+def rglru_layouts(a, bx, out) -> tuple:
+    """(the Python model's, the C launcher's) layout of ``rglru_scan`` for
+    these tensors on their card: ``rglru_layout`` and ``rglru_scan_layout``
+    at the same addresses and SM count."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.rglru_scan import RglruLayout, layout_of
+
+    B, _, W = a.shape
+    lay = (ctypes.c_longlong * len(RglruLayout._fields))()
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    rc = cuda.function("rglru_scan", "rglru_scan_layout")(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), bx.data_ptr(),
+        int(bx.dtype == torch.bfloat16), out.data_ptr(), B, W, sms, lay)
+    check(rc == 0, f"rglru_scan_layout returned {rc}")
+    return layout_of(a, bx, out), RglruLayout(*lay)
+
+
 def check_elementwise(device, errs: dict) -> None:
     """``rglru_scan`` and ``hadamard`` bit for bit against their plain
     versions, R = 2 and 4 against R = 1, ``hadamard`` against
-    ``torch.mul``; the largest error per kernel goes into ``errs``."""
+    ``torch.mul``, ``rglru_scan``'s launch layout against its Python model,
+    and ``rglru_scan`` with its operands off the 16-byte grid
+    (:func:`check_rglru_offsets`); the largest error per kernel goes into
+    ``errs``."""
     import torch
 
     first_tile: dict = {}
@@ -1155,7 +1193,69 @@ def check_elementwise(device, errs: dict) -> None:
               f"version (err {err})")
         check(same_r1, f"{c['name']} {c['shape']}: differs from R=1")
         check(same_lib, f"{c['name']} {c['shape']}: differs from torch.mul")
+        if c["name"] == "rglru_scan":
+            model, card = rglru_layouts(*c["inputs"], got)
+            print(f"check rglru_scan {c['shape']:44s}: layout {card}, "
+                  f"model {'equal' if model == card else model}")
+            check(model == card, f"rglru_scan {c['shape']}: the launcher "
+                  f"plans {card}, the model {model}")
         errs[c["name"]] = max(errs.get(c["name"], 0.0), err)
+    check_rglru_offsets(device)
+
+
+def check_rglru_offsets(device) -> None:
+    """``rglru_scan`` through its C entry point at ``RGLRU_OFFSET_SHAPE``,
+    every dtype pair, with a, bx and out at every element offset off the
+    16-byte grid and R in {1, 2, 4}: bit for bit equal to
+    ``rglru_scan_plain``, R = 2 and 4 equal to R = 1 (the same instance),
+    and the launch layout equal to its Python model."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.ops import rglru_tiles
+    from repro_torch.kernels.rglru_scan import rglru_scan_plain
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    B, T, W = RGLRU_OFFSET_SHAPE
+    gen = torch.Generator(device=device).manual_seed(820)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt, bdt in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)):
+        a, bx = rglru_inputs(B, T, W, dt, gen, device, bdt)
+        want = rglru_scan_plain(a, bx)
+        elems = lambda d: range(16 // torch.empty((), dtype=d)  # noqa: E731
+                                .element_size())
+        bad, routes = [], set()
+        for oa, ob, oo in itertools.product(elems(dt), elems(bdt), elems(dt)):
+            av, bv = offset_copy(a, oa), offset_copy(bx, ob)
+            first = None
+            for reuse in (1, 2, 4):
+                bb, bw, serial = rglru_tiles(KernelSchedule(
+                    reuse_factor=reuse), B, W)
+                # NaN in every output slot: a state of these inputs is none
+                out = offset_copy(torch.full_like(a, float("nan")), oo)
+                cuda.launch("rglru_scan", "rglru_scan", device,
+                            av.data_ptr(), int(dt == bf16), bv.data_ptr(),
+                            int(bdt == bf16), out.data_ptr(), B, T, W, bb, bw,
+                            int(serial))
+                torch.cuda.synchronize()
+                got = out.view(B, T, W)
+                first = got if first is None else first
+                if not (same_bits(got, want) and same_bits(got, first)):
+                    bad.append((oa, ob, oo, reuse))
+            model, card = rglru_layouts(av.view(B, T, W), bv.view(B, T, W),
+                                        out.view(B, T, W))
+            check(model == card, f"rglru_scan at offsets {(oa, ob, oo)}: "
+                  f"the launcher plans {card}, the model {model}")
+            routes.add("ring" if card.ring else f"window vec={card.vec}")
+        n = len(elems(dt)) ** 2 * len(elems(bdt))
+        print(f"check rglru_scan offsets ({B},{T},{W}) {str(dt)[6:]}/"
+              f"{str(bdt)[6:]}: {n} offsets of a / bx / out x R in 1, 2, 4, "
+              f"bit for bit equal to the plain version and to R=1 at "
+              f"{3 * n - len(bad)} of {3 * n}; routes {sorted(routes)}")
+        check(not bad, f"rglru_scan {dt}/{bdt}: differs at element offsets "
+              f"(a, bx, out, R) {bad[:8]}")
 
 
 def offset_copy(t, elems: int):
@@ -1916,6 +2016,8 @@ def phase_timing(device) -> tuple:
         elif c["name"] in PRODUCT_LIBS:
             (M, K), N = c["inputs"][0].shape, c["inputs"][1].shape[1]
             row["layout"] = product_layout(c["name"], M, K, N, reuse)
+        elif c["name"] == "rglru_scan":
+            row["layout"] = rglru_layouts(*c["inputs"], out)[1]._asdict()
         elif not own:
             row["rows_per_block"] = cuda.rows_per_block(BATCH)
         if str(tag).startswith(LM) or c["name"] in ("rglru_scan", "hadamard"):
@@ -2612,22 +2714,31 @@ def time_decode(device) -> dict:
     return out
 
 
+#: ``rglru_scan``'s timed cases (B, T, W, dtype, R): recurrentgemma-9b's
+#: width at R = 1 and 4, in bf16, and one sequence
+RGLRU_TIMED = ((RG_B, RG_T, RG_W, "float32", 1),
+               (RG_B, RG_T, RG_W, "float32", 4),
+               (RG_B, RG_T, RG_W, "bfloat16", 1),
+               (1, RG_T, RG_W, "float32", 1))
+
+
 def time_elementwise(device) -> dict:
-    """``--time-elementwise``: ``fixed_point`` at ``FXP_SHAPES`` x {f32,
-    bf16} x ``FP_GRID`` and ``hadamard`` at ``HADAMARD_SHAPES`` x {f32,
-    bf16}: CUDA-event ms over back-to-back calls, device ms from a trace,
-    and CUDA-event ms of calls that each find L2 cold, beside the library
-    call's (``fake_quantize_per_tensor_affine`` where it computes the same
+    """``--time-elementwise``: ``rglru_scan`` at ``RGLRU_TIMED``,
+    ``fixed_point`` at ``FXP_SHAPES`` x {f32, bf16} x ``FP_GRID`` and
+    ``hadamard`` at ``HADAMARD_SHAPES`` x {f32, bf16}: CUDA-event ms over
+    back-to-back calls, device ms from a trace, and CUDA-event ms of calls
+    that each find L2 cold, beside the library call's
+    (``fake_quantize_per_tensor_affine`` where it computes the same
     function, rnd / sat; ``torch.mul``) and the bytes bound, held against
-    the L2-cold time.  It times
-    whichever tree's ``repro_torch`` was imported (``--src``)."""
+    the L2-cold time.  It times whichever tree's ``repro_torch`` was
+    imported (``--src``)."""
     import torch
 
     from repro_torch.kernels import fixed_point as fx
     from repro_torch.kernels import hadamard as hd
 
     gen = torch.Generator(device=device).manual_seed(950)
-    rows = []
+    rows = rglru_rows(device)
 
     def row(name, shape, kern, lib, inputs, flops):
         with torch.inference_mode():
@@ -2670,6 +2781,54 @@ def time_elementwise(device) -> dict:
                 lambda x=x, y=y: hd.hadamard_kernel(x, y),
                 lambda x=x, y=y: torch.mul(x, y), (x, y), float(x.numel()))
     return {"kernels": rows}
+
+
+def rglru_rows(device) -> list:
+    """``rglru_scan`` at ``RGLRU_TIMED`` through its wrapper, with the tiles
+    ``ops.rglru_scan`` hands it at that R: device ms (trace), CUDA-event ms
+    L2 warm and L2 cold, the bytes bound and its share of the L2-cold time,
+    the launch layout (where the imported tree has a layout model), and
+    ``torch.mul(a, bx)`` on the same inputs: another function, only a
+    measured floor for the same bytes (two operands read, one written), not
+    a library call for the recurrence."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels.ops import rglru_tiles
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    gen = torch.Generator(device=device).manual_seed(960)
+    rows = []
+    for B, T, W, dt, reuse in RGLRU_TIMED:
+        dtype = getattr(torch, dt)
+        a, bx = rglru_inputs(B, T, W, dtype, gen, device)
+        bb, bw, serial = rglru_tiles(KernelSchedule(reuse_factor=reuse), B, W)
+        kern = lambda a=a, bx=bx, k=(bb, bw, serial): (  # noqa: E731
+            rg.rglru_scan_kernel(a, bx, block_batch=k[0], block_width=k[1],
+                                 serial_width=k[2]))
+        floor = lambda a=a, bx=bx: torch.mul(a, bx)  # noqa: E731
+        with torch.inference_mode():
+            out = kern()
+        r = {"name": "rglru_scan", "shape": f"({B},{T},{W}) {dt} R={reuse}",
+             "ms": time_ms(kern, 80),
+             "device_ms": per_call(kern, "rglru_scan", 20),
+             "cold_ms": time_cold_ms(kern, 20),
+             "same_bytes_mul_device_ms": per_call(floor, "other", 50),
+             "same_bytes_mul_cold_ms": time_cold_ms(floor, 50),
+             "bound_ms": bound((a, bx), out, 2.0 * B * T * W)[0],
+             "layout": (rg.layout_of(a, bx, out)._asdict()
+                        if hasattr(rg, "layout_of") else None)}
+        r["cold_share_of_bound"] = r["bound_ms"] / r["cold_ms"]
+        rows.append(r)
+        print(f"elementwise rglru_scan {r['shape']:30s}: device "
+              f"{r['device_ms']:.4f} ms, events {r['ms']:.4f} (L2 warm), L2 "
+              f"cold {r['cold_ms']:.4f}; HBM bytes bound "
+              f"{r['bound_ms']:.5f}, {r['cold_share_of_bound']:.1%} of the "
+              f"L2-cold time; torch.mul(a, bx) (same bytes, not the same "
+              f"function) device {r['same_bytes_mul_device_ms']:.4f}, L2 "
+              f"cold {r['same_bytes_mul_cold_ms']:.4f}; layout "
+              f"{r['layout']}")
+    return rows
 
 
 def no_nan(obj):
@@ -2789,7 +2948,7 @@ def main() -> int:
             "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": row["shape"], "card": card})
-        if name in PRODUCT_LIBS or name == "decode_matmul":
+        if name in PRODUCT_LIBS or name in ("decode_matmul", "rglru_scan"):
             kernels[-1]["layout"] = row["layout"]
             kernels[-1]["ptxas"] = ptxas_summary(ptxas, name)
         if name == "decode_matmul":

@@ -84,6 +84,8 @@ SIGNATURES = {
     "rglru_scan": {
         "rglru_scan": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                             _P]),
+        #: a, a_bf16, bx, bx_bf16, out, B, W, SMs, long long[6] out
+        "rglru_scan_layout": (_I, [_P, _I, _P, _I, _P, _I, _I, _I, _P]),
         "kernel_error_string": (ctypes.c_char_p, [_I]),
     },
     "hadamard": {

@@ -291,7 +291,8 @@ def test_build_needs_nvcc_and_names_libraries_by_source(monkeypatch,
                if fn not in ("kernel_error_string", "scan_rows_per_block",
                              "cluster_scan_resident",
                              "cluster_zx_scan_resident", "col_matmul_layout",
-                             "reuse_matmul_layout", "quant_matmul_layout")}
+                             "reuse_matmul_layout", "quant_matmul_layout",
+                             "rglru_scan_layout")}
     assert kernels == set(cuda.LAUNCHES) and len(kernels) == 13
     monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

@@ -209,6 +209,149 @@ def test_rglru_static_tiles(monkeypatch, B, W, kw, tiles):
 
 
 # ---------------------------------------------------------------------------
+# rglru_layout: the model of the kernel's launch layout
+# ---------------------------------------------------------------------------
+
+PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+#: small ragged shapes, and W = 1001: a row stride off the 16-byte grid
+LAYOUT_SHAPES = ((4, 12, 20), (9, 12, 200), (3, 37, 1001))
+
+
+def pid(pair):
+    return "/".join(str(d)[6:] for d in pair)
+
+
+def tile_kwargs(R, B, W):
+    """The tiles ``ops.rglru_scan`` hands the kernel at reuse factor R."""
+    bb, bw, serial = ops.rglru_tiles(KernelSchedule(reuse_factor=R), B, W)
+    return {"block_batch": bb, "block_width": bw, "serial_width": serial}
+
+
+def covered(lay, B, W):
+    """How often the kernel's blocks cover each (row, column): on the ring,
+    block k owns channels [c0, c0 + cols) (those below W) of row
+    k // ceil(W / cols), c0 = (k % ceil(W / cols)) * cols; on the register
+    window, thread i owns channels [c, c + vec) of row b, i = b * (W / vec)
+    + c / vec, and ids past B * W / vec idle."""
+    hits = np.zeros((B, W), np.int64)
+    if lay.ring:
+        col_blocks = -(-W // lay.cols)
+        for k in range(lay.blocks):
+            c0 = (k % col_blocks) * lay.cols
+            hits[k // col_blocks, c0:c0 + lay.cols] += 1
+        return hits
+    nv = W // lay.vec
+    ids = np.arange(lay.blocks * lay.threads)
+    ids = ids[ids < B * nv]
+    for i in range(lay.vec):
+        np.add.at(hits, (ids // nv, (ids % nv) * lay.vec + i), 1)
+    return hits
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=pid)
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=sid)
+def test_rglru_layout_covers_every_channel_once(shape, pair):
+    """At every R and at operand offsets on and off the 16-byte grid, the
+    blocks cover every (row, column) exactly once: on the ring where a
+    tensor map can describe a and bx, else on the register window with a
+    vector that W and every operand's offset allow."""
+    B, _, W = shape
+    sizes = [torch.empty((), dtype=d).element_size() for d in pair]
+    sizes.append(sizes[0])
+    routes = set()
+    for offsets in ((0, 0, 0), (0, 0, 8), (4, 0, 8), (2, 2, 2), (0, 6, 12)):
+        offsets = tuple(o - o % s for o, s in zip(offsets, sizes))
+        for R in (1, 2, 4):
+            lay = trg.rglru_layout(B, W, *pair, offsets=offsets,
+                                   **tile_kwargs(R, B, W))
+            ring = (offsets[0] == offsets[1] == 0
+                    and all(W * s % 16 == 0 for s in sizes))
+            assert lay.ring == ring
+            routes.add(lay.ring)
+            assert (covered(lay, B, W) == 1).all()
+            if ring:   # one block a row's run of cols channels
+                assert lay.blocks == B * -(-W // lay.cols)
+                assert lay.threads == lay.cols + trg.PRODUCER
+                assert lay.cols in (32, 64, 128) and lay.tc <= 256
+                assert lay.cols * min(sizes) % 16 == 0   # a TMA box row
+                assert lay.tc * lay.cols * sum(sizes[:2]) <= trg.STAGE_BYTES
+                assert lay.stages == trg.STAGES
+            else:      # no block idle: the last one holds work
+                assert (lay.blocks - 1) * lay.threads < B * W // lay.vec
+                assert W % lay.vec == 0 and lay.vec * max(sizes) <= 16
+                assert all(o % (lay.vec * s) == 0
+                           for o, s in zip(offsets, sizes))
+                assert lay.threads % 32 == 0
+                assert lay.threads <= trg.MAX_THREADS
+                assert (lay.stages, lay.smem_bytes) == (0, 0)
+    # a row stride off the 16-byte grid never takes the ring; an odd one
+    # leaves the window one element a thread
+    assert routes == ({0, 1} if W * max(sizes) % 16 == 0 and W * min(sizes)
+                      % 16 == 0 else {0})
+    if W % 2:
+        assert trg.rglru_layout(B, W, *pair).vec == 1
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=pid)
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES + ((8, 2048, 4096),
+                                                   (1, 2048, 4096)), ids=sid)
+def test_rglru_layout_is_one_at_every_r(shape, pair):
+    """R names the passes only: the tiles of R = 1, 2 and 4 give one
+    layout, which the wrapper's ``layout_of`` reads off the tensors."""
+    B, T, W = shape
+    lays = {trg.rglru_layout(B, W, *pair, **tile_kwargs(R, B, W))
+            for R in (1, 2, 4)}
+    assert len(lays) == 1
+    if T <= 64:
+        a = torch.rand(B, T, W).to(pair[0])
+        bx = torch.rand(B, T, W).to(pair[1])
+        assert trg.layout_of(a, bx, torch.empty_like(a)) == lays.pop()
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=pid)
+def test_rglru_layout_fills_the_card(pair):
+    """At recurrentgemma-9b's width (8, 2048, 4096) the ring gives every
+    one of the H100's 132 SMs blocks (256 of 128 channels, two an SM);
+    one sequence (B = 1) spreads over 128 blocks of 32 channels; so does
+    the register window at that width; no layout takes shared memory past
+    a block's 232,448 bytes."""
+    sa, sb = (torch.empty((), dtype=d).element_size() for d in pair)
+    # a stage of 32 KiB (24 KiB for a mixed pair: tc stays a power of two)
+    tc, tc1 = {8: (32, 128), 4: (64, 256), 6: (32, 128)}[sa + sb]
+    lay = trg.rglru_layout(8, 4096, *pair)
+    assert lay.ring and lay.blocks >= trg.SMS
+    assert (lay.cols, lay.tc, lay.stages, lay.threads, lay.blocks) == (
+        128, tc, 3, 160, 256)
+    assert lay.smem_bytes == 3 * (tc * 128 * (sa + sb) + 16)
+    one = trg.rglru_layout(1, 4096, *pair)
+    assert (one.cols, one.tc, one.stages, one.threads, one.blocks) == (
+        32, tc1, 3, 64, 128)
+    win = trg.rglru_layout(8, 4096, *pair, offsets=(2, 2, 2))
+    assert not win.ring and win.vec == 1 and win.blocks >= trg.SMS
+    for B, W in ((8, 4096), (1, 4096), (256, 4096), (4096, 4096), (3, 1001),
+                 (1, 8), (2, 16)):
+        for off in ((0, 0, 0), (2, 2, 2)):
+            lay = trg.rglru_layout(B, W, *pair, offsets=off)
+            assert lay.smem_bytes <= 232_448 and lay.smem_bytes <= trg.MAX_SMEM
+            if not lay.ring:
+                assert lay.unroll >= trg.GROUPS
+                assert lay.unroll % trg.GROUPS == 0
+    # the window's loads fit the register budget: 64 steps of one f32 each
+    assert trg.rglru_layout(8, 4096, offsets=(4, 4, 4)).unroll == 64
+    assert trg.rglru_layout(1024, 4096, offsets=(0, 0, 4)).vec == 1
+    wide = trg.rglru_layout(1024, 4096, offsets=(8, 8, 8))
+    assert (wide.vec, wide.unroll) == (2, 32)
+
+
+def test_rglru_layout_refuses_bad_shapes():
+    with pytest.raises(ValueError, match="rglru_layout"):
+        trg.rglru_layout(0, 8)
+    with pytest.raises(ValueError, match="rglru_layout"):
+        trg.rglru_layout(2, 8, block_width=0)
+
+
+# ---------------------------------------------------------------------------
 # ops.rglru_scan, fixed point
 # ---------------------------------------------------------------------------
 
