@@ -68,6 +68,27 @@ In order, it
                 pipeline at R = 1 and R = 4, and the hoist stage at
                 ``hoist_reuse = 2``;
        matmul   the scheduled matmul entry point ``ops.reuse_matmul``;
+       autotune  design targets: each tagger through
+                ``RNNServingEngine(cfg, params, device="cuda",
+                max_batch=256)`` for three targets (latency, max_dsp=600,
+                throughput >= 1e7 ev/s) x ``fp`` None, ap_fixed<16,6> and
+                ap_fixed<8,3> (PTQ'd weights): ``auto_schedule(target,
+                measure_top_k=3)``, whose ``measure_points`` must launch
+                the scan kernels of the explorer's top three on the card;
+                the selected point feasible and among them; 16
+                ``submit(target=...)`` requests flushed on one key and one
+                executor, and ``predict_one(target=...)``, bit for bit
+                equal to ``predict`` under that schedule (at the same rows
+                and shape) and within 3e-5 of ``backend="xla"``, and
+                16 requests without a schedule on the engine's new
+                default (the measured pick) likewise; a target
+                no tagger meets raises ``InfeasibleTargetError`` naming
+                the nearest point ``explore`` predicts; a point the space
+                prunes (an input width the cluster kernel cannot lay out)
+                is refused by the launcher on the card.  Each case prints
+                the selected key, its FPGA-model latency at 200 MHz (the
+                paper's model, not a time on the card), ``measure_points``'
+                walls on the card and the served p50s;
        static_wide  static ``ops.lstm_scan`` / ``ops.gru_scan`` at H = 256,
                 past the cluster kernel's H, at B = 8 and 256: one
                 ``col_matmul`` and one ``*_scan_hoisted`` a call, within
@@ -1567,6 +1588,270 @@ def drive_wide_scans(device) -> dict:
     return launches
 
 
+#: design targets of phase 3's ``autotune`` path (tests/test_autotune.py's
+#: three, which pick static R = 1, static at a higher R, and a pipeline or
+#: non-static point), each with ``fp`` None, ap_fixed<16,6> (emulated)
+#: and ap_fixed<8,3> (native int8), and one no tagger can meet
+AUTOTUNE_TARGETS = (("latency", {"objective": "latency"}),
+                    ("dsp600", {"max_dsp": 600}),
+                    ("throughput", {"min_throughput_eps": 1e7,
+                                    "objective": "throughput"}))
+AUTOTUNE_INFEASIBLE = ("latency<0.05us", {"max_latency_us": 0.05})
+AUTOTUNE_FPS = (None, FP_EMULATED, FP_NATIVE["int8"])
+AUTOTUNE_TOP_K = 3               # candidates measure_points times
+AUTOTUNE_REQUESTS = 16           # submit(target=...) requests a flush
+AUTOTUNE_ONE_CALLS = 4           # predict_one(target=...) calls
+FPGA_CLOCK_MHZ = 200.0           # the FPGA model's clock (paper Sec. 5)
+#: (H, in) of an LSTM whose input width leaves the cluster kernel no
+#: layout: the space prunes its static in-loop points
+WIDE_INPUT = (16, 1024)
+
+
+def scan_kernels_of(cell: str, schedule) -> set:
+    """The kernels a float scan of a tagger (H <= 128) under ``schedule``
+    launches on the card."""
+    if schedule.mode == "nonstatic":
+        return {"col_matmul"}
+    if schedule.mode == "pipeline":
+        return {f"{cell}_scan_pipeline"}
+    return {f"{cell}_scan_hoisted" if schedule.hoist_input
+            else f"{cell}_scan"}
+
+
+def check_pruned_point_refused(device) -> None:
+    """The point ``autotune.space`` prunes for an input width the cluster
+    kernel cannot lay out is one the card's launcher refuses (no launch),
+    and the hoisted point it keeps runs."""
+    import torch
+
+    from repro_torch import autotune
+    from repro_torch.config import ModelConfig, RNNConfig
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    H, fin = WIDE_INPUT
+    cfg = ModelConfig(name="wide-input",
+                      rnn=RNNConfig(cell="lstm", hidden=H, input_size=fin))
+    static = KernelSchedule(block_batch=8, backend="pallas_interpret")
+    hoist = static.replace(hoist_input=True)
+    space = [s.key() for s in autotune.enumerate_space(
+        cfg, autotune.SpaceSpec(reuse_factors=(1,)))]
+    check(static.key() not in space and hoist.key() in space,
+          f"wide-input space {space}")
+    gen = torch.Generator().manual_seed(11)
+    xs, W, U, b = (torch.randn(*shape, generator=gen).to(device) * 0.1
+                   for shape in ((8, 4, fin), (fin, 4 * H), (H, 4 * H),
+                                 (4 * H,)))
+    before = dict(cuda.LAUNCHES)
+    try:
+        ops.lstm_scan(xs, W, U, b, schedule=static)
+    except ValueError as err:
+        check("no cluster layout fits" in str(err), f"refusal: {err}")
+        print(f"autotune: pruned point {static.key()} at H={H} in={fin} "
+              f"refused on the card: {err}")
+    else:
+        check(False, f"{static.key()} at in={fin} launched on the card")
+    check(cuda.LAUNCHES == before, "the refused scan launched a kernel")
+    out = ops.lstm_scan(xs, W, U, b, schedule=hoist)
+    want = ops.lstm_scan(xs, W, U, b, schedule=hoist.replace(backend="xla"))
+    err, scale = max_err(out, want)
+    check(err <= TOL["float32"] * scale, f"wide-input hoisted: err {err}")
+
+
+def autotune_one(tag, eng, ref, x, what, target, measured) -> dict:
+    """One (tagger, target, fp) of the ``autotune`` path:
+    ``auto_schedule(target, measure_top_k=3)``, then requests that carry
+    the target; see :func:`phase_autotune`."""
+    from repro_torch import autotune
+
+    spec = eng._default_spec(target)
+    ex = autotune.explore(eng.cfg, target, spec)
+    fp = target.fp
+    fp_name = ("float" if fp is None
+               else f"ap_fixed<{fp.total_bits},{fp.integer_bits}>")
+    head = f"autotune {tag:20s} {what:14s} {fp_name:15s}"
+    row = {"tagger": tag, "target": what, "fp": fp_name,
+           "describe": target.describe()}
+    if not ex.feasible:
+        nearest = min(ex.points, key=lambda p: (
+            autotune.violation(p, target), p.latency_cycles, p.key))
+        try:
+            eng.auto_schedule(target, measure_top_k=AUTOTUNE_TOP_K)
+        except autotune.InfeasibleTargetError as err:
+            check(err.nearest.key == nearest.key,
+                  f"{head}: nearest {err.nearest.key}, explore: "
+                  f"{nearest.key}")
+            lat = err.nearest.latency_us(FPGA_CLOCK_MHZ)
+            v = autotune.violation(err.nearest, target)
+            print(f"{head}: infeasible, as explore predicts "
+                  f"(InfeasibleTargetError): nearest {err.nearest.key}, "
+                  f"FPGA model {lat:.3f} us at {FPGA_CLOCK_MHZ:g} MHz, "
+                  f"violation {v:.1%}")
+            row.update(infeasible=True, nearest=err.nearest.key,
+                       fpga_model_latency_us=lat, violation=v)
+            return row
+        check(False, f"{head}: explore finds no feasible point, but "
+              f"auto_schedule did not raise")
+    top = ex.feasible[:AUTOTUNE_TOP_K]
+    n = len(measured)
+    pt = eng.auto_schedule(target, measure_top_k=AUTOTUNE_TOP_K)
+    check(len(measured) == n + 1, f"{head}: measure_points ran "
+          f"{len(measured) - n} times")
+    walls, grew = measured[-1]
+    check(autotune.is_feasible(pt, target)
+          and pt.key in [p.key for p in top],
+          f"{head}: selected {pt.key}, top {[p.key for p in top]}")
+    check(sorted(walls) == sorted(p.key for p in top),
+          f"{head}: measured {sorted(walls)}")
+    cell = eng.cfg.rnn.cell
+    want = set().union(*(scan_kernels_of(cell, p.schedule) for p in top))
+    check(want <= {k for k, v in grew.items() if v > 0},
+          f"{head}: measure_points launched {grew}, expected {want}")
+    order = sorted(top, key=lambda p: (walls[p.key], p.dsp, p.key))
+    # a request's target resolves over the engine's spec, unmeasured
+    spt = eng.schedule_for_target(target)
+    reqs = [eng.submit(x[j], target=target) for j in range(len(x))]
+    eng.flush(force=True)
+    for q in reqs:
+        check(q.status == "answered",
+              f"{head}: request {q.req_id} {q.status}: {q.error!r}")
+    check({q.key for q in reqs} == {spt.key}
+          and eng.trace_count(spt.key) == 1,
+          f"{head}: keys {sorted({q.key for q in reqs})}, "
+          f"{eng.trace_count(spt.key)} executors")
+    got = np.stack([q.result for q in reqs])
+    # the same rows at the flush's shape (padded to max_batch): one launch
+    # shape, so one kernel computes both sides
+    padded = np.zeros((eng.max_batch,) + x.shape[1:], np.float32)
+    padded[:len(x)] = x
+    direct = eng.predict(padded, schedule=spt.schedule, fp=spt.fp)[:len(x)]
+    check(np.array_equal(got.view(np.int32), direct.view(np.int32)),
+          f"{head}: flush vs predict under {spt.key}")
+    unpadded = eng.predict(x, schedule=spt.schedule, fp=spt.fp)
+    ones = np.stack([eng.predict_one(x[j], target=target)
+                     for j in range(AUTOTUNE_ONE_CALLS)])
+    one_direct = np.stack([eng.predict(x[j:j + 1], schedule=spt.schedule,
+                                       fp=spt.fp)[0]
+                           for j in range(AUTOTUNE_ONE_CALLS)])
+    check(np.array_equal(ones.view(np.int32), one_direct.view(np.int32)),
+          f"{head}: predict_one vs predict under {spt.key}")
+    # the selected point is the engine's default: requests without a
+    # schedule run it (a request's target resolves unmeasured, above, and
+    # may land on another point)
+    dreqs = [eng.submit(x[j]) for j in range(len(x))]
+    eng.flush(force=True)
+    check({q.key for q in dreqs} == {pt.key}
+          and all(q.status == "answered" for q in dreqs)
+          and eng.trace_count(pt.key) == 1,
+          f"{head}: default queue keys {sorted({q.key for q in dreqs})}")
+    dgot = np.stack([q.result for q in dreqs])
+    ddirect = eng.predict(padded, schedule=pt.schedule, fp=pt.fp)[:len(x)]
+    check(np.array_equal(dgot.view(np.int32), ddirect.view(np.int32)),
+          f"{head}: default flush vs predict under {pt.key}")
+    want_out = ref.predict(x)
+    for what_out, g in (("flush", got), ("predict", unpadded),
+                        ("default flush", dgot)):
+        check_served(tag, f"autotune {what} {fp_name} {what_out}", g,
+                     want_out)
+    rep = eng.serve_report(FPGA_CLOCK_MHZ)[spt.key]
+    check(rep["analytical"] == spt.estimate.report_row(FPGA_CLOCK_MHZ),
+          f"{head}: analytical row")
+    row.update(
+        key=pt.key, served_key=spt.key,
+        fpga_model_latency_us=pt.latency_us(FPGA_CLOCK_MHZ),
+        fpga_model_ii_cycles=pt.ii_cycles, dsp=pt.dsp,
+        analytic_top=[p.key for p in top],
+        measure_points_ms={k: walls[k] * 1e3 for k in walls},
+        measured_order=[p.key for p in order],
+        pick_agrees=pt.key == top[0].key,
+        ranking_agrees=[p.key for p in order] == [p.key for p in top],
+        measure_launches=grew,
+        flush_p50_ms=rep["measured"]["latency_p50_s"] * 1e3,
+        predict_one_p50_ms=rep["fast_path"]["latency_p50_s"] * 1e3,
+        unpadded_bitwise=bool(np.array_equal(got.view(np.int32),
+                                             unpadded.view(np.int32))))
+    ms = ", ".join(f"{k} {v:.3f}" for k, v in
+                   row["measure_points_ms"].items())
+    print(f"{head}: selected {pt.key} (analytic #"
+          f"{[p.key for p in top].index(pt.key) + 1} of {len(top)}; "
+          f"measured ranking {'agrees' if row['ranking_agrees'] else 'differs'}"
+          f"); FPGA model {row['fpga_model_latency_us']:.3f} us at "
+          f"{FPGA_CLOCK_MHZ:g} MHz, II {pt.ii_cycles}, DSP {pt.dsp}; "
+          f"measure_points on the card (ms, batch 32): {ms}; target "
+          f"requests on {spt.key}: flush p50 {row['flush_p50_ms']:.3f} ms, "
+          f"predict_one p50 {row['predict_one_p50_ms']:.3f} ms; bitwise == "
+          f"predict at the flush's shape (unpadded: "
+          f"{row['unpadded_bitwise']}); default queue on {pt.key} bitwise "
+          f"== predict")
+    return row
+
+
+def phase_autotune(device) -> tuple:
+    """Phase 3's ``autotune`` path: each tagger at its published widths
+    through ``RNNServingEngine(cfg, params, device="cuda", max_batch=256)``
+    under every ``AUTOTUNE_TARGETS`` target and ``AUTOTUNE_FPS`` config:
+    ``auto_schedule(target, measure_top_k=3)`` (``measure_points`` times
+    the explorer's top three on the card: the scan kernels of each must
+    launch), the selected point feasible and among them; 16 requests by
+    ``submit(target=...)`` + ``flush`` on one key and one executor, and
+    ``predict_one(target=...)``, bit for bit equal to ``predict`` under
+    that schedule and within 3e-5 of ``backend="xla"``.  The infeasible
+    target raises ``InfeasibleTargetError`` naming the nearest point
+    ``explore`` predicts.  Returns (launches, one row per case)."""
+    import torch
+
+    from repro_torch.autotune import DesignTarget, explorer
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.ptq import ptq_quantize_model
+    from repro_torch.kernels import cuda
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    check_pruned_point_refused(device)
+    measured = []                   # (walls, launches grown) per call
+    real = explorer.measure_points
+
+    def measure(*args, **kw):
+        before = dict(cuda.LAUNCHES)
+        walls = real(*args, **kw)
+        measured.append((walls, {k: n - before.get(k, 0)
+                                 for k, n in cuda.LAUNCHES.items()
+                                 if n > before.get(k, 0)}))
+        return walls
+
+    def run():
+        rows = []
+        for i, tag in enumerate(TAGGERS):
+            cfg = get_config(tag)
+            rnn = cfg.rnn
+            params = init_params(param_specs(cfg),
+                                 torch.Generator().manual_seed(i), "cpu")
+            x = np.random.RandomState(100 + i).randn(
+                AUTOTUNE_REQUESTS, rnn.seq_len,
+                rnn.input_size).astype(np.float32)
+            for spec in AUTOTUNE_FPS:
+                fp = None if spec is None else fixed_point_config(spec)
+                # a fixed-point design serves its PTQ'd weights
+                w = params if fp is None else ptq_quantize_model(params, fp)
+                eng = RNNServingEngine(cfg, w, device=device,
+                                       max_batch=BATCH)
+                ref = RNNServingEngine(cfg, w, impl="xla", fp=fp,
+                                       device=device)
+                for what, kw in AUTOTUNE_TARGETS + (AUTOTUNE_INFEASIBLE,):
+                    rows.append(autotune_one(
+                        tag, eng, ref, x, what, DesignTarget(fp=fp, **kw),
+                        measured))
+        return rows
+
+    explorer.measure_points = measure
+    try:
+        launches, rows = drive("autotune", run, ())
+    finally:
+        explorer.measure_points = real
+    return launches, rows
+
+
 FP_ONE_CALLS = 4                 # predict_one calls per fixed-point engine
 
 
@@ -2922,6 +3207,7 @@ def main() -> int:
 
     errs = phase_kernels(device)
     launches = phase_serving(device)
+    launches["autotune"], autotune_rows = phase_autotune(device)
     launches.update(phase_fixed_point(device))
     launches["lm_decode"], lm = phase_lm_decode(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
@@ -2932,7 +3218,8 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "timings": rows, "nonstatic_scans": scans,
-         "lm_decode": lm, "launches": launches, "max_abs_err": errs},
+         "lm_decode": lm, "autotune": autotune_rows, "launches": launches,
+         "max_abs_err": errs},
         indent=1))
 
     kernels = []

@@ -10,7 +10,16 @@ carries a :class:`KernelSchedule`, and the engine
     key runs at one shape;
   * shares batches across ragged (variable seq_len) streams, either by
     length-bucketing sub-batches or by a pad-and-mask scan;
-  * reports, per schedule key, the measured latency and batch counters.
+  * reports, per schedule key, the measured latency and batch counters
+    next to ``core.hls.estimate_schedule`` of the SAME schedule object
+    (the ``analytical`` column: the paper's FPGA model at ``clock_mhz``,
+    not a time on the card);
+  * resolves :class:`~repro_torch.autotune.DesignTarget`\\ s to schedules
+    through the Pareto explorer (``auto_schedule`` /
+    ``submit(target=...)``): a queue can be opened with a latency /
+    resource budget instead of an explicit ``KernelSchedule``, and
+    ``measure_top_k`` re-ranks the top candidates by their scans' time on
+    the engine's device.
 
 One difference from the JAX package's engine: ``impl`` defaults to
 ``"pallas"``, so the normal entry point runs the CUDA kernels; the JAX
@@ -23,13 +32,14 @@ cells; the key of a request names its (schedule, fp) pair.  The engine
 runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
 float32 weights there from construction on.
 
-Not in this slice of the port: design targets and auto-scheduling, HLS
-pricing (the ``analytical`` column of ``serve_report``) and the persistent
-compile cache (ROADMAP.md, modules to port).
+Not in this slice of the port (ROADMAP.md, modules to port): the
+persistent compile cache, ``warmup`` / ``prewarm`` and the ``compile``
+column of ``serve_report`` (module item 9), and ``benchmark()`` (item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
@@ -37,7 +47,11 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.autotune import DesignTarget, SpaceSpec
+from repro_torch.autotune import select as autotune_select
 from repro_torch.config import FixedPointConfig, ModelConfig
+from repro_torch.core.hls import (DesignPoint, HLSDesign, RNNDesignPoint,
+                                  estimate_design, estimate_schedule)
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY, KernelSchedule,
                                           schedule_key)
 from repro_torch.models.rnn_tagger import RNNTagger
@@ -75,6 +89,8 @@ class RNNServingEngine:
     _key_specs: Dict[str, Tuple[KernelSchedule, Optional[FixedPointConfig]]] \
         = field(default_factory=dict, repr=False)
     _traces: Dict[str, int] = field(default_factory=dict, repr=False)
+    _target_points: Dict[Tuple, DesignPoint] \
+        = field(default_factory=dict, repr=False)
     # batch-1 fast path: its own executors + counters
     _one_cache: Dict[str, Callable] = field(default_factory=dict, repr=False)
     _one_traces: Dict[str, int] = field(default_factory=dict, repr=False)
@@ -118,6 +134,79 @@ class RNNServingEngine:
         """(schedule, fp) a request with these overrides actually executes."""
         return (schedule if schedule is not None else self.resolved_schedule,
                 fp if fp is not None else self.fp)
+
+    # -- target-driven auto-scheduling ---------------------------------------
+
+    def _default_spec(self, target: DesignTarget) -> SpaceSpec:
+        """The slice of schedule space this engine can execute: its backend
+        family (keys as a JAX-package engine with the same ``impl``), one
+        block_batch, the full legal R / mode / hoist axes.  Callers needing
+        other axes pass an explicit spec."""
+        backend = "xla" if self.impl == "xla" else "pallas_interpret"
+        return SpaceSpec(backends=(backend,),
+                         block_batches=(min(8, self.max_batch),))
+
+    def schedule_for_target(self, target: DesignTarget, *,
+                            spec: Optional[SpaceSpec] = None,
+                            measure_top_k: int = 0) -> DesignPoint:
+        """Resolve a DesignTarget to the priced point this engine will run.
+
+        Memoized per (target, spec, measure_top_k), all frozen / hashable:
+        a stream of same-target requests resolves the explorer once and
+        then co-batches on the selected schedule's key, while the same
+        target under another spec resolves independently.  With
+        ``measure_top_k`` > 0 the top candidates are timed on the engine's
+        device.  Raises ``InfeasibleTargetError`` (naming the
+        nearest-to-feasible point) when the budget cannot be met.
+        """
+        memo = (target, spec, measure_top_k)
+        pt = self._target_points.get(memo)
+        if pt is None:
+            eff = target
+            if eff.fp is None and self.fp is not None:
+                # price with the fp the engine will actually serve with
+                eff = dataclasses.replace(eff, fp=self.fp)
+            pt = autotune_select(self.cfg, eff,
+                                 spec or self._default_spec(target),
+                                 measure_top_k=measure_top_k,
+                                 device=self.device)
+            self._target_points[memo] = pt
+        return pt
+
+    def auto_schedule(self, target: DesignTarget, *,
+                      spec: Optional[SpaceSpec] = None,
+                      measure_top_k: int = 0,
+                      warmup: bool = True) -> DesignPoint:
+        """Make a DesignTarget this engine's default design point: later
+        ``predict`` / ``submit`` calls without a schedule execute it (and
+        the default queue reports it).  ``warmup`` runs one padded zero
+        batch of the selected key, so that its first request builds
+        nothing."""
+        pt = self.schedule_for_target(target, spec=spec,
+                                      measure_top_k=measure_top_k)
+        self.schedule = pt.schedule
+        self.mode = None                 # the schedule is now authoritative
+        self.impl = "pallas" if pt.schedule.use_pallas else "xla"
+        if target.fp is not None:
+            self.fp = pt.fp
+        if warmup:
+            r = self.cfg.rnn
+            key = self._ensure_key(*self.resolve())
+            self._predict_padded(key, np.zeros((1, r.seq_len, r.input_size),
+                                               np.float32))
+        return pt
+
+    def _with_target(self, target: Optional[DesignTarget],
+                     schedule: Optional[KernelSchedule],
+                     fp: Optional[FixedPointConfig]
+                     ) -> Tuple[Optional[KernelSchedule],
+                                Optional[FixedPointConfig]]:
+        """A request's (schedule, fp) with its ``target`` resolved, where it
+        carries a target and no schedule."""
+        if target is not None and schedule is None:
+            pt = self.schedule_for_target(target)
+            return pt.schedule, fp if fp is not None else pt.fp
+        return schedule, fp
 
     def _ensure_key(self, sched: KernelSchedule,
                     fp: Optional[FixedPointConfig]) -> str:
@@ -168,10 +257,13 @@ class RNNServingEngine:
 
     def predict(self, x: np.ndarray,
                 schedule: Optional[KernelSchedule] = None,
-                fp: Optional[FixedPointConfig] = None) -> np.ndarray:
+                fp: Optional[FixedPointConfig] = None,
+                target: Optional[DesignTarget] = None) -> np.ndarray:
         """[b, T, in] -> [b, n_outputs] under the request's schedule and
-        fixed-point config."""
+        fixed-point config (or the schedule auto-picked for its
+        ``target``)."""
         self._check_open()
+        schedule, fp = self._with_target(target, schedule, fp)
         key = self._ensure_key(*self.resolve(schedule, fp))
         return self._predict_key(key, x)
 
@@ -204,12 +296,15 @@ class RNNServingEngine:
 
     def predict_one(self, x: np.ndarray,
                     schedule: Optional[KernelSchedule] = None,
-                    fp=None) -> np.ndarray:
+                    fp=None,
+                    target: Optional[DesignTarget] = None) -> np.ndarray:
         """Single-event inference: ``[T, in] -> [n_outputs]``, skipping the
-        batcher (no queueing, no pad to ``max_batch``).  Steady-state
-        wall-clock is recorded per key and reported by ``serve_report`` as
-        the ``fast_path`` column."""
+        batcher (no queueing, no pad to ``max_batch``), under the request's
+        schedule or its ``target``'s.  Steady-state wall-clock is recorded
+        per key and reported by ``serve_report`` as the ``fast_path``
+        column."""
         self._check_open()
+        schedule, fp = self._with_target(target, schedule, fp)
         sched, fpr = self.resolve(schedule, fp)
         key = self._ensure_key(sched, fpr)   # registers specs for reporting
         fn = self._one_cache.get(key)
@@ -254,9 +349,14 @@ class RNNServingEngine:
 
     def submit(self, x: np.ndarray,
                schedule: Optional[KernelSchedule] = None,
-               fp=None, now: Optional[float] = None) -> Request:
-        """Enqueue one request ([T, in] payload) on its schedule's queue."""
+               fp=None, target: Optional[DesignTarget] = None,
+               now: Optional[float] = None) -> Request:
+        """Enqueue one request ([T, in] payload) on its schedule's queue.
+        A request may carry a ``target`` instead of a schedule: the engine
+        resolves it through the explorer (memoized), so a stream of
+        same-target requests lands on one auto-picked queue."""
         self._check_open()
+        schedule, fp = self._with_target(target, schedule, fp)
         sched, fpr = self.resolve(schedule, fp)
         key = self._ensure_key(sched, fpr)
         return self.batcher.submit(x, now=now, key=key, schedule=sched,
@@ -312,14 +412,17 @@ class RNNServingEngine:
         self.flush(now=now, force=True)
         return reqs
 
-    # -- measured serving, per schedule key ---------------------------------
+    # -- measured vs analytical, per schedule key ---------------------------
 
-    def serve_report(self) -> Dict[str, Dict]:
+    def serve_report(self, clock_mhz: float = 200.0) -> Dict[str, Dict]:
         """Per schedule key: the schedule, the executor builds and the
         measured serving counters of the batcher (plus the batch-1 fast
-        path's, where it ran).  Requests served on the bare
-        DEFAULT_SCHEDULE_KEY queue report the resolved schedule and point at
-        its ``resolved_key``, which owns the build count."""
+        path's, where it ran), next to ``estimate_schedule`` of the SAME
+        schedule object (``analytical``: the paper's FPGA model at
+        ``clock_mhz``, not a time on the card).  Requests served on the
+        bare DEFAULT_SCHEDULE_KEY queue report the resolved schedule with
+        its estimate and point at its ``resolved_key``, which owns the
+        build count."""
         specs = dict(self._key_specs)
         resolved_from: Dict[str, str] = {}
         if (DEFAULT_SCHEDULE_KEY in self.batcher.stats
@@ -329,14 +432,46 @@ class RNNServingEngine:
             resolved_from[DEFAULT_SCHEDULE_KEY] = schedule_key(sched, fpr)
         report: Dict[str, Dict] = {}
         for key, (sched, fpr) in specs.items():
+            est = estimate_schedule(sched, self.cfg.rnn, fpr)
             report[key] = {
                 "schedule": sched,
                 "fp": fpr,
                 "traces": 0 if key in resolved_from else self.trace_count(key),
                 "measured": self.batcher.key_stats(key).summary(),
+                "analytical": est.report_row(clock_mhz),
             }
             if key in resolved_from:
                 report[key]["resolved_key"] = resolved_from[key]
             if key in self._one_stats:
                 report[key]["fast_path"] = self._one_stats[key].summary()
         return report
+
+    # -- paired FPGA design point -------------------------------------------
+
+    def fpga_design(self, reuse_kernel: int = 1, reuse_recurrent: int = 1,
+                    strategy: str = "latency", part: str = "xcku115"
+                    ) -> HLSDesign:
+        """The table-calibrated FPGA design of this engine's model, fixed
+        point and mode (``core.hls.estimate_design``)."""
+        return estimate_design(RNNDesignPoint(
+            self.cfg, self.fp or FixedPointConfig(),
+            reuse_kernel, reuse_recurrent, self.resolved_mode,
+            strategy, part))
+
+
+def format_serve_report(report: Dict[str, Dict],
+                        clock_mhz: float = 200.0) -> str:
+    """Render serve_report() as the measured-vs-analytical table: measured
+    request latency on the engine's device beside the FPGA model's
+    latency, II and DSPs.  The JAX package's cold/warm compile columns
+    wait for the port's compile cache (ROADMAP.md module item 9)."""
+    lines = [f"{'schedule key':38s} {'served':>6s} {'meas p50':>10s} "
+             f"{'meas p99':>10s} {'est lat':>9s} {'est II':>8s} {'DSP':>6s}"]
+    for key, row in report.items():
+        m, a = row["measured"], row["analytical"]
+        lines.append(
+            f"{key:38s} {int(m['served']):6d} "
+            f"{m['latency_p50_s'] * 1e3:8.2f}ms "
+            f"{m['latency_p99_s'] * 1e3:8.2f}ms "
+            f"{a['latency_us']:7.2f}us {a['ii_cycles']:8d} {a['dsp']:6d}")
+    return "\n".join(lines)

@@ -26,11 +26,14 @@ of each row's logits on the host (``np.argmax``), as ``jnp.argmax`` does.
 decoded tokens over decode wall-clock (tokens/s) and the tick latency.
 The first tick of a key builds and loads its kernels and is left out of
 tokens/s and tick latency, as ``repro`` leaves out the tick that traced.
+A scheduled key's row pairs them with ``estimate_lm_decode`` of the SAME
+schedule object (``analytical``: the paper's FPGA model at
+``clock_mhz``, not a time on the card); the einsum key stays
+estimate-less.
 
 Not in this slice (``ROADMAP.md``): speculative decode (``SpecConfig``,
 ``decode_steps`` / ``kv_trim``), the persistent compile cache and
-``prewarm``, the ``analytical`` column (``estimate_lm_decode``), and every
-family but the dense decoder.
+``prewarm``, and every family but the dense decoder.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.hls import estimate_lm_decode
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
                                           KernelSchedule, schedule_key)
 from repro_torch.models.decode import (decode_step, init_cache,
@@ -249,11 +253,14 @@ class LMServingEngine:
                 break
         return out
 
-    def serve_report(self) -> Dict[str, Dict]:
+    def serve_report(self, clock_mhz: float = 200.0) -> Dict[str, Dict]:
         """Measured serving stats per schedule key: request latency, decoded
         tokens over decode wall-clock (tokens/s) and steady-state tick
         latency (host clock around a step that ends in its logits on the
-        host)."""
+        host).  A scheduled key, whose step runs the ``decode_matmul``
+        kernel, pairs them with ``estimate_lm_decode`` of the SAME
+        schedule object; the einsum key's ``analytical`` is None: an
+        estimate must never describe kernels that did not run."""
         report: Dict[str, Dict] = {}
         for key, dec in self._decoders.items():
             measured = dec.stats.summary()
@@ -266,8 +273,14 @@ class LMServingEngine:
                 "ticks": float(dec.ticks),
                 "tick_latency_p50_s": ticks["latency_p50_s"],
                 "tick_latency_p99_s": ticks["latency_p99_s"]})
+            analytical = None
+            if dec.schedule is not None:
+                analytical = estimate_lm_decode(
+                    dec.schedule, self.cfg).report_row(clock_mhz)
+                analytical["scheduled_kernels"] = True
             report[key] = {"schedule": dec.schedule, "fp": None,
-                           "traces": dec.traces, "measured": measured}
+                           "traces": dec.traces, "measured": measured,
+                           "analytical": analytical}
         return report
 
     # -- lifecycle -----------------------------------------------------------

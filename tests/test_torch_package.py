@@ -3,8 +3,9 @@
   * No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax``
     or any module of ``repro`` (checked in a fresh interpreter, and in the
     sources' import statements).
-  * Entry points run on ``"cuda"`` unless told otherwise, and raise where
-    there is no CUDA device instead of carrying on on the CPU.
+  * Entry points (the engines, ``autotune.measure_points`` and a measured
+    ``autotune.select``) run on ``"cuda"`` unless told otherwise, and raise
+    where there is no CUDA device instead of carrying on on the CPU.
   * The kernel backends run every float schedule (static, non-static,
     pipeline, ``hoist_reuse`` > 1) and the fixed-point datapaths;
     ``backend="xla"`` runs every mode.
@@ -99,6 +100,31 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RNNServingEngine(cfg, params, device="cuda")
     assert RNNServingEngine(cfg, params, device="cpu").impl == "pallas"
+
+
+def test_measurement_asks_for_cuda(monkeypatch):
+    """``measure_points`` and a measured ``select`` time on "cuda" unless
+    told otherwise, and raise where there is no CUDA device instead of
+    timing the plain versions on the CPU."""
+    from repro_torch import autotune as at
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, _ = _tagger()
+    target = at.DesignTarget(objective="latency")
+    spec = at.SpaceSpec(reuse_factors=(1,))
+    top = at.explore(cfg, target, spec).feasible[:2]
+    before = dict(cuda.LAUNCHES)
+    for call in (lambda: at.measure_points(cfg, top),
+                 lambda: at.measure_points(cfg, top, device="cuda"),
+                 lambda: at.select(cfg, target, spec, measure_top_k=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert cuda.LAUNCHES == before
+    # the analytic selection needs no device; the CPU is asked for by name
+    assert at.select(cfg, target, spec).key == top[0].key
+    walls = at.measure_points(cfg, top, batch=2, iters=1, device="cpu")
+    assert sorted(walls) == sorted(p.key for p in top)
+    assert cuda.LAUNCHES == before
 
 
 def test_kernel_wrapper_never_falls_back():
