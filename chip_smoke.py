@@ -78,14 +78,19 @@ In order, it
                 the selected point feasible and among them; 16
                 ``submit(target=...)`` requests flushed on one key and one
                 executor, and ``predict_one(target=...)``, bit for bit
-                equal to ``predict`` under that schedule (at the same rows
-                and shape) and within 3e-5 of ``backend="xla"``, and
-                16 requests without a schedule on the engine's new
-                default (the measured pick) likewise; a target
+                equal to ``predict`` of the batch and of one row under
+                that schedule (batch-invariant) and within 3e-5 of
+                ``backend="xla"``, and 16 requests without a schedule on
+                the engine's new default (the measured pick) likewise; a
+                target
                 no tagger meets raises ``InfeasibleTargetError`` naming
                 the nearest point ``explore`` predicts; a point the space
                 prunes (an input width the cluster kernel cannot lay out)
-                is refused by the launcher on the card.  Each case prints
+                is refused by the launcher on the card, and every static
+                and pipeline point of the six taggers' space, kept or
+                pruned, gets the same answer from the launcher's
+                ``card_layout`` as from ``space._card_legal``.  Each case
+                prints
                 the selected key, its FPGA-model latency at 200 MHz (the
                 paper's model, not a time on the card), ``measure_points``'
                 walls on the card and the served p50s;
@@ -100,6 +105,29 @@ In order, it
                 equal to the same engine on ``backend="xla"``; then
                 ``fp=ap_fixed<16,6>`` on the emulation cells (no kernel);
        ops_fixed_point  ``ops.fixed_point`` on a CUDA tensor;
+       robustness  batch invariance: for the six taggers, every float
+                mode (static, static + hoist, pipeline, non-static) and
+                ``ap_fixed<16,6>`` / ``<8,3>`` at R in {1, 4},
+                ``predict_one(x) == predict(x[None])[0] == predict(X)[i]
+                == submit + flush`` of 256, bit for bit
+                (``--batch-invariance`` prints the same report, launch by
+                launch, for any tree without failing); the compile cache
+                (``RNNServingEngine(cache_dir=...)``): each tagger cold,
+                then a second engine over the same directory warm (no
+                launch in ``prewarm``, no ``nvcc``, no residency query, no
+                executor build, the same answers), each entry naming every
+                library and C entry point of a real run; QuickDraw LSTM in
+                fresh processes, cold then warm, with the first request's
+                wall; a corrupted cache: one warning, one quarantine, a
+                correct cold serve; the router: 3 replicas of flavor
+                tagging's LSTM on the card with a crash, a straggler and a
+                flapping replica armed, every request in exactly one
+                terminal state, exact accounting, every answer bit for bit
+                ``predict_one``; streaming: top tagging's GRU through
+                ``StreamingPipeline`` over a 3-rung degradation ladder, a
+                2x burst then a 0.5x tail in ``VirtualClock`` time, down
+                the ladder and back, exact ``KeyCounts``, rung-0 answers
+                bit for bit direct ``predict``;
        lm_decode  gemma-2b at its published width and depth (18 layers,
                 d_model 2048, bf16, seeded weights drawn on the card)
                 served through ``LMServingEngine(device="cuda")``: 4
@@ -109,7 +137,8 @@ In order, it
                 layouts launch) and the default key (einsum); R = 1 and
                 R = 4 give the same tokens and first-step logits bit for
                 bit, the einsum logits agree within 2e-2; one executor per
-                key;
+                key; the R = 1 key's ``prewarm`` before the first tick
+                (no launch);
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -188,6 +217,13 @@ steps, f32 and bf16, every ``FP_GRID`` config) and ``hadamard``
 an L2 flush, beside ``fake_quantize_per_tensor_affine`` (rnd / sat
 configs) and ``torch.mul``, and the bytes bound held against the L2-cold
 time.
+
+    python3 chip_smoke.py --batch-invariance [--src DIR]
+
+builds the kernels and prints, for every case of phase 3's batch
+invariance check, the largest difference between one event's answers in
+every batch shape and launch by launch (the hoist's zx, the scan's final
+h, the head's logits), for any tree, without failing on a difference.
 """
 
 from __future__ import annotations
@@ -1536,6 +1572,551 @@ def phase_serving(device) -> dict:
     return launches
 
 
+#: batch invariance: the float modes and reuse factors checked for every
+#: tagger, and the fixed-point configs (static, R in INVARIANCE_REUSES)
+INVARIANCE_MODES = (("static", {}), ("static_hoist", {"hoist_input": True}),
+                    ("pipeline", {"mode": "pipeline"}),
+                    ("nonstatic", {"mode": "nonstatic"}))
+INVARIANCE_REUSES = (1, 4)
+INVARIANCE_FPS = (FP_EMULATED, FP_NATIVE["int8"])
+#: the rows of a 256-row batch each case follows through every batch shape
+INVARIANCE_ROWS = (0, 1, 137, BATCH - 1)
+
+
+def bit_diff(a, b) -> float:
+    """Largest |a - b| (0.0 where both are bit for bit equal; inf where
+    the bits differ but the values do not, as +0.0 / -0.0)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    if np.array_equal(a.view(np.int32), b.view(np.int32)):
+        return 0.0
+    d = float(np.abs(a - b).max())
+    return d if d > 0 else float("inf")
+
+
+def batch_invariance(device, strict: bool) -> dict:
+    """One event's answer in every batch shape: for each tagger (seeded
+    weights, ``RNNServingEngine(impl="pallas", max_batch=256)``), each
+    float mode of ``INVARIANCE_MODES`` x R in ``INVARIANCE_REUSES`` and
+    each fixed-point config of ``INVARIANCE_FPS`` at static R in the same,
+    row i of ``INVARIANCE_ROWS`` as ``predict_one(X[i])``,
+    ``predict(X[i:i+1])[0]``, ``predict(X)[i]`` (B = 256) and
+    ``submit`` x 256 + ``flush``.  For the float cases it also prints the
+    largest |difference| launch by launch, one row against its row of
+    B = 256: the hoist's zx (``ops._hoist_stage``, where the schedule
+    hoists), the scan's final h (``rnn_layer``) and the head's logits.
+    ``strict``: every answer must be bit for bit equal (phase 3
+    ``robustness``); otherwise only report (``--batch-invariance``, which
+    also runs on an older tree)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rnn.layer import rnn_layer
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.schedule import KernelSchedule
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    rows = []
+    for i, tag in enumerate(TAGGERS):
+        cfg = get_config(tag)
+        rnn = cfg.rnn
+        params = init_params(param_specs(cfg),
+                             torch.Generator().manual_seed(i), "cpu")
+        eng = RNNServingEngine(cfg, params, impl="pallas", device=device,
+                               max_batch=BATCH)
+        X = np.random.RandomState(900 + i).randn(
+            BATCH, rnn.seq_len, rnn.input_size).astype(np.float32)
+        Xt = torch.from_numpy(X).to(device)
+        wts = eng.model.weights
+        W, U, b = (wts[f"rnn/{n}"] for n in ("kernel", "recurrent", "bias"))
+        cases = [(m, R, kw, None) for m, kw in INVARIANCE_MODES
+                 for R in INVARIANCE_REUSES]
+        cases += [("static", R, {}, spec) for spec in INVARIANCE_FPS
+                  for R in INVARIANCE_REUSES]
+        for mode, R, kw, spec in cases:
+            fp = None if spec is None else fixed_point_config(spec)
+            fp_name = ("float" if fp is None else
+                       f"ap_fixed<{fp.total_bits},{fp.integer_bits}>")
+            sched = KernelSchedule(reuse_factor=R, **kw)
+            full = eng.predict(X, schedule=sched, fp=fp)
+            reqs = [eng.submit(X[j], schedule=sched, fp=fp)
+                    for j in range(BATCH)]
+            eng.flush(force=True)
+            check(all(q.status == "answered" for q in reqs),
+                  f"{tag} {mode}: a request was not answered")
+            flushed = np.stack([q.result for q in reqs])
+            row = {"tagger": tag, "mode": mode, "R": R, "fp": fp_name,
+                   "one_vs_full": 0.0, "one_vs_p1": 0.0,
+                   "flush_vs_full": 0.0}
+            for j in INVARIANCE_ROWS:
+                one = eng.predict_one(X[j], schedule=sched, fp=fp)
+                p1 = eng.predict(X[j:j + 1], schedule=sched, fp=fp)[0]
+                for k, d in (("one_vs_full", bit_diff(one, full[j])),
+                             ("one_vs_p1", bit_diff(one, p1)),
+                             ("flush_vs_full",
+                              bit_diff(flushed[j], full[j]))):
+                    row[k] = max(row[k], d)
+            if fp is None:
+                launch = {"zx": None, "h": 0.0, "logits": 0.0}
+                hoists = sched.hoist_input or mode == "pipeline"
+                with torch.inference_mode():
+                    for j in INVARIANCE_ROWS:
+                        x1 = Xt[j:j + 1]
+                        if hoists and mode != "nonstatic":
+                            one = ops._hoist_stage(
+                                ops._pad_axis(x1, 0, 8), W,
+                                sched)[0]
+                            many = ops._hoist_stage(Xt, W, sched)[j]
+                            launch["zx"] = max(launch["zx"] or 0.0,
+                                               bit_diff(one.cpu(),
+                                                        many.cpu()))
+                        for k, fn in (
+                                ("h", lambda x: rnn_layer(
+                                    rnn, x, W, U, b, impl="pallas",
+                                    schedule=sched)),
+                                ("logits", lambda x: eng.model(
+                                    x, impl="pallas", schedule=sched,
+                                    return_logits=True))):
+                            launch[k] = max(launch[k], bit_diff(
+                                fn(x1)[0].cpu(), fn(Xt)[j].cpu()))
+                row["launch"] = launch
+            row["bitwise"] = (row["one_vs_full"] == row["one_vs_p1"]
+                              == row["flush_vs_full"] == 0.0)
+            rows.append(row)
+            per_launch = ("" if fp is not None else
+                          "; launch by launch: zx " + (
+                              "-" if row["launch"]["zx"] is None
+                              else f"{row['launch']['zx']:.3e}")
+                          + f", final h {row['launch']['h']:.3e}, logits "
+                          f"{row['launch']['logits']:.3e}")
+            print(f"batch_invariance {tag:20s} {mode:12s} R{R} "
+                  f"{fp_name:15s}: predict_one vs predict(X)[i] "
+                  f"{row['one_vs_full']:.3e}, vs predict(x[None])[0] "
+                  f"{row['one_vs_p1']:.3e}, flush vs predict(X) "
+                  f"{row['flush_vs_full']:.3e}{per_launch}: "
+                  f"{'bit for bit' if row['bitwise'] else 'DIFFERS'}")
+            if strict:
+                check(row["bitwise"], f"batch invariance: {tag} {mode} R{R} "
+                      f"{fp_name} differs across batch shapes: {row}")
+    n = sum(r["bitwise"] for r in rows)
+    print(f"batch_invariance: {n} of {len(rows)} cases bit for bit equal "
+          f"across predict_one, predict(x[None]), predict(X) and flush of "
+          f"{BATCH}")
+    return {"cases": len(rows), "bitwise": n, "rows": rows}
+
+
+#: phase 3 ``robustness``: where the compile cache keeps its entries (made
+#: anew each run, under the checkout's build directory), the tagger timed
+#: cold against warm in fresh processes, the router's replicas and
+#: requests, and the streaming replay's events
+CACHE_ROOT = ROOT / "build" / "robustness_cache"
+CACHE_CHILD_TAGGER = "quickdraw-lstm"
+ROUTER_TAGGER = "flavor-tagging-lstm"
+ROUTER_REPLICAS = 3
+ROUTER_REQUESTS = 24
+STREAM_TAGGER = "top-tagging-gru"
+STREAM_EVENTS = (300, 400)        # the 2x burst, then the 0.5x tail
+
+
+def tagger_engine(tag, device, **kw):
+    """(cfg, params, engine) of one tagger with the seeded weights phase 3
+    gives it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.init import init_params
+    from repro_torch.models.rnn_tagger import param_specs
+    from repro_torch.serving import RNNServingEngine
+
+    cfg = get_config(tag)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(
+        TAGGERS.index(tag)), "cpu")
+    return cfg, params, RNNServingEngine(cfg, params, impl="pallas",
+                                         device=device, **kw)
+
+
+def tagger_events(cfg, n, seed):
+    r = cfg.rnn
+    return np.random.RandomState(seed).randn(
+        n, r.seq_len, r.input_size).astype(np.float32)
+
+
+def serve_flush(eng, x):
+    reqs = eng.serve(list(x))
+    check(all(q.status == "answered" for q in reqs),
+          f"{eng.cfg.name}: a flushed request was not answered")
+    return np.stack([q.result for q in reqs])
+
+
+def counts_since(before: dict, now: dict) -> dict:
+    """The calls of ``now`` (a ``cuda.LAUNCHES`` / ``cuda.ENTRIES``
+    snapshot) made since ``before``, nonzero only."""
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v - before.get(k, 0)}
+
+
+def answer_digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a, np.float32).tobytes()
+                          ).hexdigest()[:16]
+
+
+def cache_child(cache_dir: str, tag: str) -> int:
+    """``--cache-child DIR TAGGER``: a fresh process's first request over
+    the compile cache in DIR: ``prewarm`` (launches counted), then one
+    flush of ``BATCH`` events, timed from engine construction (the CUDA
+    context is made first, untimed); prints one JSON line (counts,
+    first-request wall, an answer digest)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.schedule import schedule_key
+
+    device = torch.device("cuda", 0)
+    x = tagger_events(get_config(tag), BATCH, 300 + TAGGERS.index(tag))
+    torch.zeros(1, device=device)           # the CUDA context, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, eng = tagger_engine(tag, device, cache_dir=cache_dir)
+    pre = eng.prewarm()
+    prewarm_launches = sum(cuda.LAUNCHES.values())
+    got = serve_flush(eng, x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    key = schedule_key(eng.resolved_schedule)
+    row = eng.serve_report()[key]["compile"]
+    print(json.dumps({
+        "tagger": tag, "key": key, "prewarm": pre[key]["status"],
+        "prewarm_launches": prewarm_launches,
+        "first_request_s": wall, "cold": row["cold"], "warm": row["warm"],
+        "trace_count": eng.trace_count(key), "nvcc": cuda.COUNTS["nvcc"],
+        "residency_queries": cuda.COUNTS["residency"],
+        "launches": dict(cuda.LAUNCHES), "digest": answer_digest(got)}))
+    return 0
+
+
+def run_cache_child(root, cache_dir, tag) -> dict:
+    """:func:`cache_child` in a fresh process, from the checkout at
+    ``root`` (its ``src`` and its ``build/kernels``)."""
+    out = subprocess.run(
+        [sys.executable, str(Path(root) / "chip_smoke.py"), "--cache-child",
+         str(cache_dir), tag], capture_output=True, text=True, timeout=300,
+        cwd=root)
+    check(out.returncode == 0, f"cache child failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def check_compile_cache(device) -> dict:
+    """One engine per float tagger starts cold over a fresh cache; a second
+    engine over the same directory readies its key warm (no launch, no
+    ``nvcc``, no residency query, no executor build) and answers bit for
+    bit as the first; each entry names every library and C entry point a
+    real run of its key calls.  Then one tagger in fresh processes, cold
+    and warm, with the first request's wall, and warm in a copy of the
+    checkout with no ``build/kernels`` (its libraries come from the
+    entry's copies, no ``nvcc``); then a corrupted cache: one warning,
+    one quarantine, a correct cold serve."""
+    import shutil
+    import warnings
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.schedule import schedule_key
+    from repro_torch.serving import corrupt_cache_entries
+    from repro_torch.serving.compile_cache import CACHE_SUFFIX
+
+    shutil.rmtree(CACHE_ROOT, ignore_errors=True)
+    shared = CACHE_ROOT / "shared"
+    lib_of = {fn: lib for lib, fns in cuda.SIGNATURES.items() for fn in fns}
+    firsts = {}
+    for i, tag in enumerate(TAGGERS):
+        cfg, _, cold = tagger_engine(tag, device, cache_dir=shared)
+        x = tagger_events(cfg, BATCH, 300 + i)
+        key = schedule_key(cold.resolved_schedule)
+        before = dict(cuda.ENTRIES)
+        firsts[tag] = serve_flush(cold, x)
+        used = counts_since(before, cuda.ENTRIES)
+        crow = cold.serve_report()[key]["compile"]
+        check(crow["cold"] == 1 and crow["warm"] == 0
+              and cold.trace_count(key) == 1,
+              f"{tag}: cold engine compile row {crow}")
+        entry = next(p for p in shared.glob(f"{key[:48]}-*{CACHE_SUFFIX}")
+                     if json.loads(p.read_text())["meta"]["cfg"]
+                     == repr(cfg))
+        doc = json.loads(entry.read_text())
+        check(used and set(used) <= set(doc["entries"])
+              and {lib_of[e] for e in used} <= set(doc["libraries"]),
+              f"{tag}: entry declares {doc['libraries']} / "
+              f"{doc['entries']}, a real run called {used}")
+        _, _, warm = tagger_engine(tag, device, cache_dir=shared)
+        counts, before = dict(cuda.COUNTS), dict(cuda.LAUNCHES)
+        pre = warm.prewarm()[key]
+        grew = counts_since(before, cuda.LAUNCHES)
+        check(pre["status"] == "warm" and not grew
+              and cuda.COUNTS == counts,
+              f"{tag}: warm prewarm {pre}, launches {grew}, "
+              f"counts {cuda.COUNTS} (before {counts})")
+        again = serve_flush(warm, x)
+        wrow = warm.serve_report()[key]["compile"]
+        check(wrow["warm"] == 1 and wrow["cold"] == 0
+              and warm.trace_count(key) == 0 and cuda.COUNTS == counts,
+              f"{tag}: warm engine compile row {wrow}, "
+              f"{warm.trace_count(key)} builds, counts {cuda.COUNTS}")
+        check(np.array_equal(again.view(np.int32),
+                             firsts[tag].view(np.int32)),
+              f"{tag}: the warm engine's answers differ from the cold one's")
+        print(f"robustness compile cache {tag:20s} {key}: cold engine "
+              f"{crow['first_compile_s'] * 1e3:.1f} ms first flush "
+              f"(libraries {sorted(doc['libraries'])}, "
+              f"{len(doc['layouts'])} launch layouts); warm engine: prewarm "
+              f"{pre['status']}, 0 launches, 0 nvcc, 0 residency queries, "
+              f"0 builds, answers bit for bit the cold engine's")
+
+    fresh = CACHE_ROOT / "fresh"
+    cold_p = run_cache_child(ROOT, fresh, CACHE_CHILD_TAGGER)
+    warm_p = run_cache_child(ROOT, fresh, CACHE_CHILD_TAGGER)
+    bare = CACHE_ROOT / "bare"
+    shutil.copytree(ROOT / "src" / "repro_torch", bare / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", bare / "chip_smoke.py")
+    bare_p = run_cache_child(bare, fresh, CACHE_CHILD_TAGGER)
+    copied = sorted(p.name for p in (bare / "build" / "kernels").glob("*.so"))
+    check(cold_p["prewarm"] == "cold" and cold_p["trace_count"] == 1
+          and cold_p["prewarm_launches"] == 0,
+          f"fresh cold process: {cold_p}")
+    check(warm_p["prewarm"] == "warm" and warm_p["cold"] == 0
+          and warm_p["trace_count"] == 0 and warm_p["nvcc"] == 0
+          and warm_p["residency_queries"] == 0
+          and warm_p["prewarm_launches"] == 0
+          and warm_p["digest"] == cold_p["digest"]
+          == answer_digest(firsts[CACHE_CHILD_TAGGER]),
+          f"fresh warm process: {warm_p} (cold: {cold_p})")
+    check(bare_p["prewarm"] == "warm" and bare_p["cold"] == 0
+          and bare_p["trace_count"] == 0 and bare_p["nvcc"] == 0
+          and bare_p["residency_queries"] == 0
+          and bare_p["digest"] == cold_p["digest"] and copied,
+          f"warm process in a checkout without build/kernels: {bare_p}, "
+          f"libraries {copied}")
+    print(f"robustness compile cache, fresh processes, "
+          f"{CACHE_CHILD_TAGGER}: first request (engine construction to "
+          f"the flush of {BATCH} answered) cold "
+          f"{cold_p['first_request_s'] * 1e3:.1f} ms ({cold_p['nvcc']} "
+          f"nvcc, {cold_p['residency_queries']} residency queries), warm "
+          f"{warm_p['first_request_s'] * 1e3:.1f} ms (0 nvcc, 0 residency "
+          f"queries, 0 builds, 0 launches in prewarm); warm in a checkout "
+          f"with no build/kernels {bare_p['first_request_s'] * 1e3:.1f} ms "
+          f"(0 nvcc: {copied} loaded from the entry's copies); answers bit "
+          f"for bit equal")
+
+    n = corrupt_cache_entries(shared)
+    tag = TAGGERS[0]
+    cfg, _, eng = tagger_engine(tag, device, cache_dir=shared)
+    key = schedule_key(eng.resolved_schedule)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = serve_flush(eng, tagger_events(cfg, BATCH, 300))
+    unusable = [w for w in caught if "unusable" in str(w.message)]
+    row = eng.serve_report()[key]["compile"]
+    check(n >= len(TAGGERS) and len(unusable) == 1
+          and "quarantined" in str(unusable[0].message)
+          and row["errors"] == 1 and row["cold"] == 1 and eng.trace_count(key) == 1
+          and np.array_equal(got.view(np.int32), firsts[tag].view(np.int32)),
+          f"corrupted cache: {n} entries, {len(unusable)} warnings, "
+          f"compile row {row}")
+    print(f"robustness compile cache: {n} entries corrupted; {tag} served "
+          f"with {len(unusable)} warning, 1 quarantined entry, 1 cold build, "
+          f"answers bit for bit the first engine's")
+    return {"cold_process": cold_p, "warm_process": warm_p,
+            "warm_bare_checkout": bare_p, "corrupted": n}
+
+
+def check_router(device) -> dict:
+    """``ROUTER_REPLICAS`` replicas of one tagger on the card with a crash,
+    a straggler and a flapping replica armed: every request reaches
+    exactly one terminal state, the accounting is exact, and every
+    answer is bit for bit a single engine's ``predict_one``."""
+    from repro_torch.serving import (ReplicaPool, Router, RouterPolicy,
+                                     crash_replica, flapping,
+                                     format_router_report, slow_replica)
+
+    cfg, params, oracle = tagger_engine(ROUTER_TAGGER, device)
+    pool = ReplicaPool.build(cfg, params, ROUTER_REPLICAS, device=device)
+    router = Router(pool, policy=RouterPolicy(
+        timeout_s=0.01, hedge_after_s=1e-3, max_retries=2,
+        consecutive_failures=2, probe_successes=2))
+    crash_replica(pool.get("r0"), after=2, times=3)
+    slow_replica(pool.get("r1"), 0.05, after=1, times=2)
+    flapping(pool.get("r2"), period=2, times=3)
+    x = tagger_events(cfg, ROUTER_REQUESTS, 400)
+    reqs = [router.submit(x[i], now=i * 1e-3, defer=i % 3 == 2)
+            for i in range(ROUTER_REQUESTS)]
+    router.probe(now=0.5)
+    router.flush(now=1.0)
+    acc = router.verify_router_accounting()
+    statuses = [q.status for q in reqs]
+    check(all(s in ("answered", "failed", "shed") for s in statuses)
+          and sum(a["in_flight"] for a in acc.values()) == 0
+          and sum(a["submitted"] for a in acc.values()) == ROUTER_REQUESTS,
+          f"router: statuses {statuses}, accounting {acc}")
+    fired = sum(len(rep.faults.fired) for rep in pool)
+    check(fired > 0, "router: no armed fault fired")
+    for i, q in enumerate(reqs):
+        if q.status == "answered":
+            check(sum(a.outcome == "ok" for a in q.attempts) == 1
+                  and np.array_equal(np.asarray(q.result).view(np.int32),
+                                     oracle.predict_one(x[i]).view(
+                                         np.int32)),
+                  f"router: request {q.req_id} differs from predict_one")
+    n = {s: statuses.count(s) for s in ("answered", "failed", "shed")}
+    c = next(iter(router.counts.values()))
+    print(f"robustness router {ROUTER_TAGGER}: {ROUTER_REPLICAS} replicas "
+          f"on one card, crash / straggler / flapping armed ({fired} "
+          f"faults fired); {ROUTER_REQUESTS} requests: {n}, retries "
+          f"{c.retries}, timeouts {c.timeouts}, hedges {c.hedges} (wins "
+          f"{c.hedge_wins}), events {router.events}; accounting exact, "
+          f"every answer bit for bit predict_one")
+    print(format_router_report(router))
+    return {"statuses": n, "faults_fired": fired, "events": router.events}
+
+
+def check_streaming(device) -> dict:
+    """A ``StreamingPipeline`` over one tagger on the card with a 3-rung
+    ladder (``autotune.degradation_ladder``): a 2x burst in
+    ``VirtualClock`` time drives it down the ladder, a 0.5x tail back to
+    rung 0; exactly one terminal state per event, exact ``KeyCounts``,
+    and the rung-0 answers bit for bit direct ``predict``."""
+    import warnings
+
+    from repro_torch import autotune
+    from repro_torch.serving import StreamingPipeline, VirtualClock
+
+    cfg, _, eng = tagger_engine(STREAM_TAGGER, device, max_batch=8)
+    spec = autotune.SpaceSpec(backends=("pallas_interpret",),
+                              block_batches=(8,))
+    base = autotune.select(cfg, autotune.DesignTarget(
+        max_dsp=400, objective="latency"), spec)
+    ladder = autotune.degradation_ladder(cfg, base, spec=spec, max_rungs=3)
+    clk = VirtualClock()
+    pipe = StreamingPipeline(eng, ladder, deadline_us=50.0, clock=clk,
+                             prewarm=True)
+    rate = pipe._rung_rate(0)
+    reqs, rungs_seen = [], set()
+    x = tagger_events(cfg, sum(STREAM_EVENTS), 500)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        j = 0
+        for n, mult in zip(STREAM_EVENTS, (2.0, 0.5)):
+            for _ in range(n):
+                t = clk.advance(1.0 / (mult * rate)) if j else clk.t
+                reqs.append(pipe.push(x[j], now=t))
+                pipe.pump(now=t)
+                rungs_seen.add(pipe.rung)
+                j += 1
+        pipe.drain()
+    acc = pipe.verify_accounting()
+    check(pipe.downgrades >= 1 and pipe.recoveries >= 1 and pipe.rung == 0
+          and max(rungs_seen) >= 1,
+          f"streaming: downgrades {pipe.downgrades}, recoveries "
+          f"{pipe.recoveries}, rung {pipe.rung}")
+    check(pipe.in_flight() == 0 and all(
+        q.status in ("answered", "shed", "failed") for q in reqs),
+          "streaming: a request has no terminal state")
+    for key, c in acc.items():
+        for s in ("answered", "shed", "failed"):
+            check(c[s] == sum(1 for q in reqs if q.key == key
+                              and q.status == s),
+                  f"streaming: {key} {s} count {c[s]} disagrees")
+    rung0 = [(i, q) for i, q in enumerate(reqs)
+             if q.status == "answered" and q.rung == 0]
+    idx = [i for i, _ in rung0]
+    want = eng.predict(x[idx], schedule=ladder[0].schedule, fp=ladder[0].fp)
+    got = np.stack([q.result for _, q in rung0])
+    check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+          "streaming: rung-0 answers differ from direct predict")
+    tot = {s: sum(c[s] for c in acc.values())
+           for s in ("answered", "shed", "failed")}
+    print(f"robustness streaming {STREAM_TAGGER}: ladder "
+          f"{[p.key for p in ladder]}; {len(reqs)} events (2x then 0.5x): "
+          f"{tot}, downgrades {pipe.downgrades}, recoveries "
+          f"{pipe.recoveries}; {len(rung0)} rung-0 answers bit for bit "
+          f"direct predict; accounting exact")
+    return {"events": len(reqs), **tot, "downgrades": pipe.downgrades,
+            "recoveries": pipe.recoveries}
+
+
+def check_card_legal(device) -> dict:
+    """``autotune.space._card_legal`` (a model of the card's residency)
+    and the launcher's ``card_layout`` (the card's answer) agree on every
+    static and pipeline point of the six taggers' space, kept or pruned,
+    and on the wide-input point the space prunes."""
+    from repro_torch.autotune import space
+    from repro_torch.config import ModelConfig, RNNConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.hls import gate_count
+    from repro_torch.kernels import scan_layout as sl
+
+    H, fin = WIDE_INPUT
+    cfgs = [get_config(t) for t in TAGGERS] + [ModelConfig(
+        name="wide-input", rnn=RNNConfig(cell="lstm", hidden=H,
+                                         input_size=fin))]
+    kept = pruned = 0
+    for cfg in cfgs:
+        rnn = cfg.rnn
+        gate_dim = gate_count(rnn.cell) * rnn.hidden
+        for s in space._raw_points(gate_dim, space.SpaceSpec()):
+            if (s.mode == "nonstatic"
+                    or sl.scan_route(rnn.hidden) != "cluster"):
+                continue
+            hoisted = s.hoist_input or s.mode == "pipeline"
+            reuse = 1 if s.mode == "pipeline" else s.effective_reuse(
+                gate_dim)
+            try:
+                sl.card_layout(s.block_batch, rnn.hidden,
+                               0 if hoisted else rnn.input_size, rnn.cell,
+                               reuse, False, device.index, hoisted)
+                card = True
+            except ValueError:
+                card = False
+            model = space._card_legal(s, cfg)
+            check(card == model, f"{cfg.name} {s.key()}: the space says "
+                  f"{model}, the card's launcher {card}")
+            kept += card
+            pruned += not card
+    print(f"card_legal: {kept} kept and {pruned} pruned static / pipeline "
+          f"points of the six taggers and the wide-input LSTM (H={H}, "
+          f"in={fin}): card_layout on the card agrees with the space on "
+          f"every one")
+    return {"kept": kept, "pruned": pruned}
+
+
+def phase_robustness(device) -> tuple:
+    """Phase 3 ``robustness``: batch invariance, the compile cache, the
+    router and the streaming pipeline, driven with the counts set to 0.
+    Returns (launches, report)."""
+    def run():
+        t0 = time.perf_counter()
+        rep = {"batch_invariance": batch_invariance(device, strict=True)}
+        rep["batch_invariance_s"] = time.perf_counter() - t0
+        rep["compile_cache"] = check_compile_cache(device)
+        rep["router"] = check_router(device)
+        rep["streaming"] = check_streaming(device)
+        rep["seconds"] = time.perf_counter() - t0
+        return rep
+
+    launches, rep = drive("robustness", run, ("lstm_scan", "gru_scan",
+                                              "lstm_scan_hoisted",
+                                              "gru_scan_hoisted",
+                                              "lstm_scan_pipeline",
+                                              "gru_scan_pipeline",
+                                              "col_matmul", "quant_matmul"))
+    print(f"robustness: {rep['seconds']:.1f} s (batch invariance "
+          f"{rep['batch_invariance_s']:.1f} s)")
+    return launches, rep
+
+
 def drive_wide_scans(device) -> dict:
     """Static ``ops.lstm_scan`` / ``ops.gru_scan`` at H = 256, past the
     cluster kernel's H, at B in ``WIDE_BATCHES``, driven with the counts set
@@ -1720,20 +2301,20 @@ def autotune_one(tag, eng, ref, x, what, target, measured) -> dict:
           f"{head}: keys {sorted({q.key for q in reqs})}, "
           f"{eng.trace_count(spt.key)} executors")
     got = np.stack([q.result for q in reqs])
-    # the same rows at the flush's shape (padded to max_batch): one launch
-    # shape, so one kernel computes both sides
-    padded = np.zeros((eng.max_batch,) + x.shape[1:], np.float32)
-    padded[:len(x)] = x
-    direct = eng.predict(padded, schedule=spt.schedule, fp=spt.fp)[:len(x)]
-    check(np.array_equal(got.view(np.int32), direct.view(np.int32)),
-          f"{head}: flush vs predict under {spt.key}")
+    # one event's answer has the same bits in every batch shape: the flush
+    # (padded to max_batch), predict of the unpadded rows, predict_one and
+    # predict of one row
     unpadded = eng.predict(x, schedule=spt.schedule, fp=spt.fp)
+    check(np.array_equal(got.view(np.int32), unpadded.view(np.int32)),
+          f"{head}: flush vs predict under {spt.key}")
     ones = np.stack([eng.predict_one(x[j], target=target)
                      for j in range(AUTOTUNE_ONE_CALLS)])
     one_direct = np.stack([eng.predict(x[j:j + 1], schedule=spt.schedule,
                                        fp=spt.fp)[0]
                            for j in range(AUTOTUNE_ONE_CALLS)])
-    check(np.array_equal(ones.view(np.int32), one_direct.view(np.int32)),
+    check(np.array_equal(ones.view(np.int32), one_direct.view(np.int32))
+          and np.array_equal(ones.view(np.int32),
+                             unpadded[:AUTOTUNE_ONE_CALLS].view(np.int32)),
           f"{head}: predict_one vs predict under {spt.key}")
     # the selected point is the engine's default: requests without a
     # schedule run it (a request's target resolves unmeasured, above, and
@@ -1745,7 +2326,7 @@ def autotune_one(tag, eng, ref, x, what, target, measured) -> dict:
           and eng.trace_count(pt.key) == 1,
           f"{head}: default queue keys {sorted({q.key for q in dreqs})}")
     dgot = np.stack([q.result for q in dreqs])
-    ddirect = eng.predict(padded, schedule=pt.schedule, fp=pt.fp)[:len(x)]
+    ddirect = eng.predict(x, schedule=pt.schedule, fp=pt.fp)
     check(np.array_equal(dgot.view(np.int32), ddirect.view(np.int32)),
           f"{head}: default flush vs predict under {pt.key}")
     want_out = ref.predict(x)
@@ -1767,9 +2348,7 @@ def autotune_one(tag, eng, ref, x, what, target, measured) -> dict:
         ranking_agrees=[p.key for p in order] == [p.key for p in top],
         measure_launches=grew,
         flush_p50_ms=rep["measured"]["latency_p50_s"] * 1e3,
-        predict_one_p50_ms=rep["fast_path"]["latency_p50_s"] * 1e3,
-        unpadded_bitwise=bool(np.array_equal(got.view(np.int32),
-                                             unpadded.view(np.int32))))
+        predict_one_p50_ms=rep["fast_path"]["latency_p50_s"] * 1e3)
     ms = ", ".join(f"{k} {v:.3f}" for k, v in
                    row["measure_points_ms"].items())
     print(f"{head}: selected {pt.key} (analytic #"
@@ -1779,10 +2358,9 @@ def autotune_one(tag, eng, ref, x, what, target, measured) -> dict:
           f"{FPGA_CLOCK_MHZ:g} MHz, II {pt.ii_cycles}, DSP {pt.dsp}; "
           f"measure_points on the card (ms, batch 32): {ms}; target "
           f"requests on {spt.key}: flush p50 {row['flush_p50_ms']:.3f} ms, "
-          f"predict_one p50 {row['predict_one_p50_ms']:.3f} ms; bitwise == "
-          f"predict at the flush's shape (unpadded: "
-          f"{row['unpadded_bitwise']}); default queue on {pt.key} bitwise "
-          f"== predict")
+          f"predict_one p50 {row['predict_one_p50_ms']:.3f} ms; flush, "
+          f"predict_one and predict of one row bit for bit predict of the "
+          f"batch; default queue on {pt.key} likewise")
     return row
 
 
@@ -1809,6 +2387,7 @@ def phase_autotune(device) -> tuple:
     from repro_torch.serving import RNNServingEngine
 
     check_pruned_point_refused(device)
+    check_card_legal(device)
     measured = []                   # (walls, launches grown) per call
     real = explorer.measure_points
 
@@ -1963,6 +2542,7 @@ def phase_lm_decode(device) -> tuple:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.schedule import KernelSchedule
     from repro_torch.models.decode import decode_step, init_cache
     from repro_torch.models.model import build_model
@@ -1987,6 +2567,20 @@ def phase_lm_decode(device) -> tuple:
     prompts = np.random.RandomState(0).randint(
         2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).tolist()
     ids = {k: [] for k in ("default", *scheds)}
+    # the R = 1 key's decode step readied before its first tick, launching
+    # nothing
+    before = dict(cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    pre = eng.prewarm(schedules=[scheds["R1"]])
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    r1_key = scheds["R1"].key()
+    check(pre[r1_key]["status"] == "cold" and cuda.LAUNCHES == before
+          and eng.trace_count(r1_key) == 1,
+          f"{LM}: prewarm {pre}, launches {cuda.LAUNCHES} (before "
+          f"{before})")
+    print(f"{LM}: prewarm of {r1_key} before the first tick: "
+          f"{pre[r1_key]['status']}, {prewarm_s * 1e3:.1f} ms, no launch")
 
     def serve():
         for k in ids:
@@ -2603,13 +3197,25 @@ def time_engine(tag, eng, x, one_calls: int, flushes: int) -> dict:
     return row
 
 
+def report_batch_invariance(device) -> dict:
+    """``--batch-invariance``: build the kernels, then
+    :func:`batch_invariance` in report mode."""
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    cuda.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    return batch_invariance(device, strict=False)
+
+
 def time_scans(device) -> dict:
     """``--time-scans``: the in-loop static scans (``lstm_scan`` /
     ``gru_scan``) of every tagger, float32, at B = 8 (R = 1) and B = 256
     (R = 1 and 4): device time per call from a trace and CUDA events,
     with cuDNN's for the same function beside them; the hoisted and
     pipeline scans likewise (:func:`time_hoisted_scans`); and the engines'
-    ``predict_one`` p50 / p99 and flush-of-256 p50 (host clock).  It times
+    ``predict_one`` p50 / p99 and flush-of-256 p50 (host clock), on the
+    default static schedule and on pipeline R = 1.  It times
     whichever tree's ``repro_torch`` was imported: with
     ``--src`` an older tree (an unpacked parent commit) is timed the same
     way, so two trees are compared in one call by running the script
@@ -2619,6 +3225,7 @@ def time_scans(device) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import gru_scan as gs
     from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels.schedule import KernelSchedule
     from repro_torch.models.init import init_params
     from repro_torch.models.rnn_tagger import param_specs
     from repro_torch.serving import RNNServingEngine
@@ -2653,11 +3260,14 @@ def time_scans(device) -> dict:
         out["hoisted"].extend(time_hoisted_scans(tag, r, device, 700 + i))
         params = init_params(param_specs(cfg),
                              torch.Generator().manual_seed(i), "cpu")
-        eng = RNNServingEngine(cfg, params, impl="pallas", device=device)
         x = np.random.RandomState(750 + i).randn(
             BATCH, r.seq_len, r.input_size).astype(np.float32)
-        out["engines"].append({"engine": tag, **time_engine(
-            tag, eng, x, SCAN_ONE_CALLS, SCAN_FLUSHES)})
+        for what, sched in (("", None),
+                            (" pipeline", KernelSchedule(mode="pipeline"))):
+            eng = RNNServingEngine(cfg, params, impl="pallas",
+                                   device=device, schedule=sched)
+            out["engines"].append({"engine": tag + what, **time_engine(
+                tag + what, eng, x, SCAN_ONE_CALLS, SCAN_FLUSHES)})
     return out
 
 
@@ -3144,17 +3754,25 @@ def main() -> int:
     what.add_argument("--time-elementwise", action="store_true",
                       help="only time fixed_point and hadamard beside their "
                       "library calls (see time_elementwise)")
-    ap.add_argument("--src", help="with a --time-* option: import "
+    what.add_argument("--batch-invariance", action="store_true",
+                      help="only report one event's answer across batch "
+                      "shapes, launch by launch (see batch_invariance)")
+    ap.add_argument("--cache-child", nargs=2, metavar=("DIR", "TAGGER"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--src", help="with a --time-* or --batch-invariance "
+                    "option: import "
                     "repro_torch from this directory (default: this "
                     "checkout's src)")
     opts = ap.parse_args()
     timing = {"time_scans": time_scans, "time_products": time_products,
               "time_decode": time_decode,
-              "time_elementwise": time_elementwise}
+              "time_elementwise": time_elementwise,
+              "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
         if not only:
-            ap.error("--src goes with a --time-* option")
+            ap.error("--src goes with a --time-* or --batch-invariance "
+                     "option")
         sys.path.insert(0, str(Path(opts.src).resolve()))
     import torch
 
@@ -3164,6 +3782,8 @@ def main() -> int:
         return 2
     from repro_torch.kernels import cuda
 
+    if opts.cache_child:
+        return cache_child(*opts.cache_child)
     # f32 parity: no TF32 in cuBLAS (hoist stage, references) or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3208,6 +3828,7 @@ def main() -> int:
     errs = phase_kernels(device)
     launches = phase_serving(device)
     launches["autotune"], autotune_rows = phase_autotune(device)
+    launches["robustness"], robustness = phase_robustness(device)
     launches.update(phase_fixed_point(device))
     launches["lm_decode"], lm = phase_lm_decode(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
@@ -3218,7 +3839,8 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "timings": rows, "nonstatic_scans": scans,
-         "lm_decode": lm, "autotune": autotune_rows, "launches": launches,
+         "lm_decode": lm, "autotune": autotune_rows,
+         "robustness": robustness, "launches": launches,
          "max_abs_err": errs},
         indent=1))
 

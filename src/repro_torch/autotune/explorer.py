@@ -22,8 +22,6 @@ the achievable curve.
 The port's copy of the JAX package's ``autotune/explorer.py``: the same
 pricing, frontiers, selections and errors; ``measure_points`` times the
 port's kernels on ``device`` ("cuda" unless the caller asks for "cpu").
-``Exploration.prewarm`` waits for the engine's ``prewarm`` (ROADMAP.md
-module item 9).
 """
 
 from __future__ import annotations
@@ -198,6 +196,23 @@ class Exploration:
 
     def frontier_table(self) -> List[dict]:
         return [p.report_row() for p in self.frontier]
+
+    def prewarm(self, engine, k: Optional[int] = None) -> Dict[str, dict]:
+        """Zero-warmup hook: ready the engine's serving executors for the
+        top-``k`` feasible points (the whole Pareto frontier when the
+        exploration had no target, or ``k=None`` for all of them).
+
+        An engine started over a warm ``cache_dir`` loads every frontier
+        entry instead of building: the first request on ANY frontier queue
+        then builds nothing, which is what makes a target re-resolve (new
+        tenant, redeploy) a routing decision instead of a latency cliff.
+        Returns the engine's per-key ``{"status", "compile_s"}`` prewarm
+        report."""
+        pts = list(self.feasible if self.feasible else self.frontier)
+        if k is not None:
+            pts = pts[:k]
+        return engine.prewarm(schedules=[p.schedule for p in pts],
+                              fps=[p.fp for p in pts])
 
 
 def _finish(cfg: ModelConfig, target: Optional[DesignTarget],

@@ -39,8 +39,8 @@ class DesignTarget:
                         FPGA part (``core.hls.FPGA_PARTS`` key)
     replicas            data-parallel replica count the throughput floor is
                         read against: K replicas of one design sustain K x
-                        its priced events/s (replica pools and the router
-                        are ROADMAP.md module item 9 of the port),
+                        its priced events/s (``serving.ReplicaPool``
+                        and ``serving.Router``),
                         so ``min_throughput_eps`` resolves to the design
                         whose throughput x replicas clears the floor
     clock_mhz           clock the latency/throughput constraints are read at

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.config import FixedPointConfig, RNNConfig
 from repro_torch.core.quant.fixed_point import quantize
+from repro_torch.kernels.ref import matmul, sigmoid
 from repro_torch.models.init import ParamSpec, ParamSpecs
 
 
@@ -37,17 +38,17 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor,
                  reuse: int = 1) -> torch.Tensor:
     """x @ w computed as ``reuse`` sequential column tiles: the cell-level
     realization of the schedule's reuse factor.  Column tiles are
-    independent, so any R agrees with R=1 up to fp accumulation order."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    x, w = x.to(dt), w.to(dt)
+    independent, so any R agrees with R=1 up to fp accumulation order
+    (on the CPU, whose :func:`~repro_torch.kernels.ref.matmul` sums each
+    output in k order, bit for bit)."""
     if reuse <= 1:
-        return x @ w
+        return matmul(x, w)
     n = w.shape[-1]
     if n % reuse:
         raise ValueError(f"reuse {reuse} does not divide {n} columns")
     ns = n // reuse
-    return torch.cat([x @ w[:, r * ns:(r + 1) * ns] for r in range(reuse)],
-                     dim=-1)
+    return torch.cat([matmul(x, w[:, r * ns:(r + 1) * ns])
+                      for r in range(reuse)], dim=-1)
 
 
 def lstm_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
@@ -63,10 +64,10 @@ def lstm_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
     h_prev, c_prev = state
     hdim = h_prev.shape[-1]
     z = (zx if zx is not None else mm(x_t, W)) + mm(h_prev, U) + b
-    i = torch.sigmoid(z[..., :hdim])
-    f = torch.sigmoid(z[..., hdim:2 * hdim])
+    i = sigmoid(z[..., :hdim])
+    f = sigmoid(z[..., hdim:2 * hdim])
     g = torch.tanh(z[..., 2 * hdim:3 * hdim])
-    o = torch.sigmoid(z[..., 3 * hdim:])
+    o = sigmoid(z[..., 3 * hdim:])
     c_t = f * c_prev + i * g                         # Hadamard products
     h_t = o * torch.tanh(c_t)
     return h_t, (h_t, c_t)
@@ -85,8 +86,8 @@ def gru_cell(x_t, state, W, U, b, *, reuse: int = 1, matmul=None,
     zh = mm(h_prev, U) + b_rec
     zxz, zxr, zxh = torch.chunk(zx, 3, dim=-1)
     zhz, zhr, zhh = torch.chunk(zh, 3, dim=-1)
-    z = torch.sigmoid(zxz + zhz)
-    r = torch.sigmoid(zxr + zhr)
+    z = sigmoid(zxz + zhz)
+    r = sigmoid(zxr + zhr)
     hh = torch.tanh(zxh + r * zhh)                   # Hadamard inside tanh
     h_t = z * h_prev + (1.0 - z) * hh                # Hadamard combine
     return h_t, h_t
@@ -118,10 +119,10 @@ def lstm_cell_quantized(x_t, state, W, U, b, fp: FixedPointConfig, *,
     z = _q(mm(x_t, W) + mm(h_prev, U) + b, fp)
     i, f, g, o = (z[..., :hdim], z[..., hdim:2 * hdim],
                   z[..., 2 * hdim:3 * hdim], z[..., 3 * hdim:])
-    i = _q(torch.sigmoid(i), fp)
-    f = _q(torch.sigmoid(f), fp)
+    i = _q(sigmoid(i), fp)
+    f = _q(sigmoid(f), fp)
     g = _q(torch.tanh(g), fp)
-    o = _q(torch.sigmoid(o), fp)
+    o = _q(sigmoid(o), fp)
     c_t = _q(_q(f * c_prev, fp) + _q(i * g, fp), fp)
     h_t = _q(o * _q(torch.tanh(c_t), fp), fp)
     return h_t, (h_t, c_t)
@@ -137,8 +138,8 @@ def gru_cell_quantized(x_t, state, W, U, b, fp: FixedPointConfig, *,
     zh = _q(mm(h_prev, U) + b[1], fp)
     zxz, zxr, zxh = torch.chunk(zx, 3, dim=-1)
     zhz, zhr, zhh = torch.chunk(zh, 3, dim=-1)
-    z = _q(torch.sigmoid(zxz + zhz), fp)
-    r = _q(torch.sigmoid(zxr + zhr), fp)
+    z = _q(sigmoid(zxz + zhz), fp)
+    r = _q(sigmoid(zxr + zhr), fp)
     hh = _q(torch.tanh(_q(zxh + _q(r * zhh, fp), fp)), fp)
     h_t = _q(_q(z * h_prev, fp) + _q((1.0 - z) * hh, fp), fp)
     return h_t, h_t

@@ -29,6 +29,7 @@ from repro_torch.core.quant.fixed_point import is_native_int
 from repro_torch.core.rnn.cells import (gru_cell, gru_cell_quantized,
                                         initial_state, lstm_cell,
                                         lstm_cell_quantized)
+from repro_torch.kernels.ref import matmul
 from repro_torch.kernels.schedule import KernelSchedule
 
 
@@ -88,8 +89,7 @@ def rnn_layer(
 
     zx_all = None
     if schedule.hoist_input and fp is None:
-        dt = torch.promote_types(xs.dtype, W.dtype)
-        zx_all = torch.einsum("btf,fg->btg", xs.to(dt), W.to(dt))
+        zx_all = matmul(xs, W)
     for t in range(xs.shape[1]):
         if zx_all is None:
             _, state = cell(xs[:, t], state, W, U, b)

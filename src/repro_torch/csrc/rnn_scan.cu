@@ -114,8 +114,10 @@
 //      0.5 us a QuickDraw step at B = 256; the kernel's step is several
 //      times that, set by the chain above (times: PERF.md, chip_smoke.py).
 //    - Numerics: f32 FMA on CUDA cores.  A pre-activation is KS chains over
-//      interleaved k, summed in a butterfly order (every lane of a unit
-//      gets the same bits).  3xTF32 on mma.sync was not taken: a CTA's
+//      interleaved k, summed in one tree whatever ROWS (reduce_scatter),
+//      so every lane of a unit gets the same bits, and a batch row gets
+//      the same bits at every B (predict_one's B = 8 and a flush's 256
+//      take ROWS = 1 and 8).  3xTF32 on mma.sync was not taken: a CTA's
 //      step is at most 8 rows against 16 units' G columns, one mma tile, and
 //      splitting h into big and small parts every step costs about what
 //      the tensor cores save; plain TF32 does not hold the f32 tolerance
@@ -401,21 +403,26 @@ __device__ __forceinline__ void halve(float (&v)[ROWS][kGateSlots], int s) {
 // Sum the ROWS x G partial products over the KS lanes of a unit and
 // scatter them: lane s of the unit ends with the sums of rows
 // [(s % L) * N, (s % L + 1) * N) in v[0..N), N = ROWS / L, L =
-// min(KS, ROWS).  Halving levels first, then, for KS > ROWS, butterfly
-// levels (lanes s and s ^ ROWS end alike).  Every lane of the warp takes
-// part.
+// min(KS, ROWS).  Butterfly levels first, for KS > ROWS (lanes s and
+// s ^ m end alike), then the halving levels.  Either kind of level adds
+// the partial sums of lanes s and s ^ m, and the distance m falls from
+// KS / 2 to 1 at every ROWS: so every row's sum is one tree over the KS
+// lanes ((s, s ^ KS/2) first), and a row has the same bits at ROWS = 1
+// and 8, i.e. in a batch of any size.  Every lane of the warp takes part.
 template <int G, int KS, int ROWS>
 __device__ __forceinline__ void reduce_scatter(float (&v)[ROWS][kGateSlots],
                                                int s) {
   constexpr int L = KS < ROWS ? KS : ROWS;
+#pragma unroll
+  for (int m = KS / 2; m >= ROWS; m /= 2)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        v[r][g] += __shfl_xor_sync(0xffffffffu, v[r][g], m);
   if constexpr (L >= 2) halve<G, L / 2, ROWS>(v, s);
   if constexpr (L >= 4) halve<G, L / 4, ROWS / 2>(v, s);
   if constexpr (L >= 8) halve<G, L / 8, ROWS / 4>(v, s);
-#pragma unroll
-  for (int m = ROWS; m < KS; m *= 2)
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      v[0][g] += __shfl_xor_sync(0xffffffffu, v[0][g], m);
 }
 
 // xs [B,T,fin]; W [fin,G*H], U [H,G*H] f32 row-major; bias LSTM [4H], GRU

@@ -12,11 +12,19 @@ launches its kernel, and nowhere else, so a caller can show that a run went
 through the kernels; :data:`ENTRIES` counts the same calls by C entry
 point, which tells a kernel's routes apart (the hoisted and pipeline
 scans on the cluster kernel or, past its H, ``*_block`` on the block
-kernel).
+kernel).  :data:`COUNTS` counts the ``nvcc`` runs and the card's
+residency queries (``scan_layout.card_resident``): what a warm compile
+cache entry spares a first request.
+
+:func:`recording` notes, for the serving compile cache, which libraries
+and C entry points a run launches and which launch layouts it resolves;
+``recording(dry=True)`` builds and loads each library a launch needs but
+launches nothing and counts nothing (the cache's cold warm-up).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -104,6 +112,55 @@ LAUNCHES: Dict[str, int] = {
 #: C entry point -> calls since the last :func:`reset_launches`
 ENTRIES: Dict[str, int] = {}
 
+#: ``nvcc`` runs and residency queries of the card, since import
+COUNTS: Dict[str, int] = {"nvcc": 0, "residency": 0}
+
+
+class Recording:
+    """What the runs inside one :func:`recording` used: libraries, C entry
+    points and launch layouts (``scan_layout.launch_layout``'s arguments
+    -> layout)."""
+
+    def __init__(self, dry: bool):
+        self.dry = dry
+        self.libraries: set = set()
+        self.entries: set = set()
+        self.layouts: Dict[tuple, tuple] = {}
+
+
+_RECORDINGS: List[Recording] = []
+
+
+@contextlib.contextmanager
+def recording(dry: bool = False) -> Iterator[Recording]:
+    """Record the libraries, C entry points and launch layouts of every
+    launch inside the block; ``dry``: build and load each library, resolve
+    each layout, but launch nothing (and count nothing in
+    :data:`LAUNCHES`)."""
+    rec = Recording(dry)
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.remove(rec)
+
+
+def record_layout(args: tuple, layout: tuple) -> None:
+    """Note a launch layout resolved for ``args`` in every recording."""
+    for rec in _RECORDINGS:
+        rec.layouts[args] = tuple(layout)
+
+
+def sources_digest() -> str:
+    """Hash of every CUDA source and header, the flags, and the launch
+    layout model (``kernels/scan_layout.py``): what a compile cache entry's
+    libraries and layouts were made from."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")) + [Path(__file__).with_name(
+            "scan_layout.py")]:
+        h.update(f.name.encode() + f.read_bytes())
+    return h.hexdigest()[:16]
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: (library, function) -> the resolved ctypes function
@@ -150,6 +207,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n in todo:
+        COUNTS["nvcc"] += 1
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
         log = open(paths[n].with_suffix(".log"), "w")
         procs[n] = (subprocess.Popen(
@@ -202,8 +260,17 @@ def launch(lib_name: str, kernel: str, device: torch.device, *args,
     on PyTorch's current stream of ``device``, raise if it returned a CUDA
     error (a refused launch never runs, and a later synchronise would not
     report it), and count the launch under ``count_as`` (default: the C
-    function's name) and the C function in :data:`ENTRIES`."""
-    rc = function(lib_name, kernel)(*args, stream_ptr(device))
+    function's name) and the C function in :data:`ENTRIES`.  Inside a
+    :func:`recording` the library and entry point are noted; inside a dry
+    one nothing is launched or counted."""
+    fn = function(lib_name, kernel)
+    if _RECORDINGS:
+        for rec in _RECORDINGS:
+            rec.libraries.add(lib_name)
+            rec.entries.add(kernel)
+        if any(rec.dry for rec in _RECORDINGS):
+            return
+    rc = fn(*args, stream_ptr(device))
     if rc != 0:
         msg = library(lib_name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import matmul, sigmoid
 from repro_torch.kernels.reuse_matmul import col_matmul_kernel
 from repro_torch.kernels.scan_layout import (launch_hoisted_scan, launch_scan,
                                              scan_route)
@@ -32,8 +33,8 @@ def _gate_update(zx: torch.Tensor, zh: torch.Tensor, h: torch.Tensor,
                  hidden: int) -> torch.Tensor:
     """zx, zh: [bt, 3h] input-/recurrent-side pre-activations (z|r|hh),
     h: [bt, h] -> h_new."""
-    z = torch.sigmoid(zx[:, :hidden] + zh[:, :hidden])
-    rg = torch.sigmoid(zx[:, hidden:2 * hidden] + zh[:, hidden:2 * hidden])
+    z = sigmoid(zx[:, :hidden] + zh[:, :hidden])
+    rg = sigmoid(zx[:, hidden:2 * hidden] + zh[:, hidden:2 * hidden])
     hh = torch.tanh(zx[:, 2 * hidden:] + rg * zh[:, 2 * hidden:])
     return z * h + (1.0 - z) * hh
 
@@ -49,7 +50,7 @@ def _plain_scan(zx_fn, U, b_rec, B, T, reuse, out_dtype, device):
         for r in range(reuse):
             cols = slice(r * gw, (r + 1) * gw)
             zx.append(zx_fn(t, cols))
-            zh.append(h @ U[:, cols] + b_rec[cols])
+            zh.append(matmul(h, U[:, cols]) + b_rec[cols])
         h = _gate_update(torch.cat(zx, dim=-1), torch.cat(zh, dim=-1), h,
                          hidden)
     return h.to(out_dtype)
@@ -59,7 +60,8 @@ def gru_scan_plain(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
     """Plain version of :func:`gru_scan_kernel`."""
     B, T, _ = xs.shape
     x32 = xs.float()
-    return _plain_scan(lambda t, cols: x32[:, t] @ W[:, cols] + b[0, cols],
+    return _plain_scan(lambda t, cols: matmul(x32[:, t], W[:, cols])
+                       + b[0, cols],
                        U, b[1], B, T, reuse, xs.dtype, xs.device)
 
 

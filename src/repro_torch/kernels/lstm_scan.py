@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import matmul, sigmoid
 from repro_torch.kernels.reuse_matmul import col_matmul_kernel
 from repro_torch.kernels.scan_layout import (launch_hoisted_scan, launch_scan,
                                              scan_route)
@@ -32,10 +33,10 @@ from repro_torch.kernels.scan_layout import (launch_hoisted_scan, launch_scan,
 
 def _gate_update(z: torch.Tensor, c: torch.Tensor, hidden: int):
     """z: [bt, 4h] pre-activations, c: [bt, h] -> (h_new, c_new)."""
-    i = torch.sigmoid(z[:, :hidden])
-    f = torch.sigmoid(z[:, hidden:2 * hidden])
+    i = sigmoid(z[:, :hidden])
+    f = sigmoid(z[:, hidden:2 * hidden])
     g = torch.tanh(z[:, 2 * hidden:3 * hidden])
-    o = torch.sigmoid(z[:, 3 * hidden:])
+    o = sigmoid(z[:, 3 * hidden:])
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new
 
@@ -51,7 +52,7 @@ def _plain_scan(zx_fn, U, b, B, T, reuse, out_dtype, device):
         tiles = []
         for r in range(reuse):
             cols = slice(r * gw, (r + 1) * gw)
-            tiles.append((zx_fn(t, cols) + h @ U[:, cols]) + b[cols])
+            tiles.append((zx_fn(t, cols) + matmul(h, U[:, cols])) + b[cols])
         h, c = _gate_update(torch.cat(tiles, dim=-1), c, hidden)
     return h.to(out_dtype)
 
@@ -60,8 +61,8 @@ def lstm_scan_plain(xs, W, U, b, *, reuse: int = 1) -> torch.Tensor:
     """Plain version of :func:`lstm_scan_kernel`."""
     B, T, _ = xs.shape
     x32 = xs.float()
-    return _plain_scan(lambda t, cols: x32[:, t] @ W[:, cols], U, b, B, T,
-                       reuse, xs.dtype, xs.device)
+    return _plain_scan(lambda t, cols: matmul(x32[:, t], W[:, cols]), U, b,
+                       B, T, reuse, xs.dtype, xs.device)
 
 
 def lstm_scan_hoisted_plain(zx, U, b, *, reuse: int = 1,

@@ -13,9 +13,8 @@ RG-LRU recurrence and the reuse-tiled matmul through one
                issue their R column tiles of h U together.
 
 With ``hoist_input`` the input projection xW for all timesteps runs first
-as one batched [B*T, fin] @ [fin, G*h] product in f32 (through
-``col_matmul`` when ``hoist_reuse`` > 1) and only hU stays in the
-recurrence.
+as one batched [B*T, fin] @ [fin, G*h] product in f32 on ``col_matmul``
+(``hoist_reuse`` column tiles) and only hU stays in the recurrence.
 
 ``rglru_scan`` (a, bx [B, T, W] -> all states) is matmul-free and already
 in hoisted form (the caller's dense gates are the hoist stage), so
@@ -201,15 +200,17 @@ def _gate_mm(x: torch.Tensor, w: torch.Tensor, reuse: int) -> torch.Tensor:
 def _hoist_stage(xs: torch.Tensor, W: torch.Tensor,
                  schedule: KernelSchedule) -> torch.Tensor:
     """The hoisted input projection: ONE batched [B*T, fin] @ [fin, G*h]
-    product in f32, no bias.  At ``hoist_reuse`` > 1 it runs as sequential
-    column tiles on ``col_matmul``; otherwise it is a cuBLAS f32 product on
-    the card (full f32 as long as TF32 matmuls are off, PyTorch's default),
-    as ``repro`` leaves it to XLA."""
+    product in f32, no bias, on ``col_matmul`` in ``hoist_reuse``
+    sequential column tiles (one at R = 1).  ``repro`` leaves R = 1 to
+    XLA; the port keeps it on the kernel, whose every output is one
+    k-ascending chain at any M, so a row's zx has the same bits in a batch
+    of 1 and of 256 (cuBLAS picks its kernel, and so its order, by M)."""
     B, T, fin = xs.shape
-    flat = xs.reshape(B * T, fin)
+    flat = xs.reshape(B * T, fin).float().contiguous()
     hr = math.gcd(schedule.hoist_reuse, W.shape[-1])
-    zx = _gate_mm(flat, W, hr) if hr > 1 else flat.float() @ W
-    return zx.reshape(B, T, W.shape[-1])
+    # no row padding: the kernel masks a ragged M, and rows are independent
+    return col_matmul_kernel(flat, W.float().contiguous(),
+                             reuse=hr).reshape(B, T, W.shape[-1])
 
 
 def _static_scan(cell: str, xs, W, U, b, schedule: KernelSchedule):

@@ -5,6 +5,20 @@ They follow the JAX package's ``lax.scan`` references step for step,
 including its type promotion: a product of a bfloat16 and a float32 operand
 is taken in float32, a product of two bfloat16 operands in bfloat16, and
 the pre-activations are cast to float32 before the gates.
+
+Batch invariance: a row's result must not depend on the other rows of its
+batch (``predict_one(x) == predict(X)[i]`` bit for bit, as ``repro``
+holds).  On the CPU two PyTorch calls break that: MKL's ``matmul`` rounds a
+row differently at different M, and ``torch.sigmoid`` runs a vectorised and
+a scalar formula, chosen by where an element falls in the flattened
+tensor.  So every product of the plain versions, the cells and the dense
+head goes through :func:`matmul`, and every sigmoid through
+:func:`sigmoid`: on CPU tensors both compute each element in one fixed
+order.  A CUDA tensor takes cuBLAS and ``torch.sigmoid`` here (plain
+versions held against the kernels within tolerance); the serving path's
+float and native-int products run on the kernels there, and the ap_fixed
+emulation's on cuBLAS, whose sums of grid values the card showed equal in
+every batch shape (``chip_smoke.py`` phase 3 ``robustness``).
 """
 
 from __future__ import annotations
@@ -12,10 +26,37 @@ from __future__ import annotations
 import torch
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w`` in the promoted type of the two operands, as jnp's ``@``."""
+def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` ([..., K] @ [K, N]) in the promoted type of the two
+    operands, as jnp's ``@``.  On CPU tensors every output is the
+    k-ascending sum of its K products, each product and each sum rounded
+    (bfloat16 operands summed in float32, then rounded once), so a row's
+    bits do not depend on M; on other devices ``torch.matmul``."""
     dt = torch.promote_types(a.dtype, w.dtype)
-    return a.to(dt) @ w.to(dt)
+    a, w = a.to(dt), w.to(dt)
+    if a.device.type != "cpu" or not dt.is_floating_point:
+        return a @ w
+    K, N = w.shape
+    lead = a.shape[:-1]
+    acc_dt = dt if dt in (torch.float32, torch.float64) else torch.float32
+    cols = a.reshape(-1, K).to(acc_dt).t().contiguous()   # [K, M]
+    w = w.to(acc_dt)
+    acc = torch.zeros(cols.shape[1], N, dtype=acc_dt)
+    term = torch.empty_like(acc)
+    for k in range(K):
+        torch.mul(cols[k, :, None], w[k], out=term)
+        acc.add_(term)
+    return acc.to(dt).reshape(*lead, N)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``.  On CPU tensors as three elementwise calls
+    whose bits do not depend on an element's position (``torch.sigmoid``'s
+    do); on other devices ``torch.sigmoid``."""
+    if x.device.type != "cpu":
+        return torch.sigmoid(x)
+    return torch.reciprocal(torch.exp(-x) + 1.0)
+
 
 
 def lstm_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
@@ -26,11 +67,11 @@ def lstm_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
     hp = torch.zeros(B, h, dtype=torch.float32, device=xs.device)
     cp = torch.zeros_like(hp)
     for t in range(T):
-        z = (_mm(xs[:, t], W) + _mm(hp, U) + b).float()
-        i = torch.sigmoid(z[:, :h])
-        f = torch.sigmoid(z[:, h:2 * h])
+        z = (matmul(xs[:, t], W) + matmul(hp, U) + b).float()
+        i = sigmoid(z[:, :h])
+        f = sigmoid(z[:, h:2 * h])
         g = torch.tanh(z[:, 2 * h:3 * h])
-        o = torch.sigmoid(z[:, 3 * h:])
+        o = sigmoid(z[:, 3 * h:])
         cp = f * cp + i * g
         hp = o * torch.tanh(cp)
     return hp.to(xs.dtype)
@@ -43,10 +84,10 @@ def gru_scan_ref(xs: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
     h = U.shape[0]
     hp = torch.zeros(B, h, dtype=torch.float32, device=xs.device)
     for t in range(T):
-        zx = (_mm(xs[:, t], W) + b[0]).float()
-        zh = (_mm(hp, U) + b[1]).float()
-        z = torch.sigmoid(zx[:, :h] + zh[:, :h])
-        r = torch.sigmoid(zx[:, h:2 * h] + zh[:, h:2 * h])
+        zx = (matmul(xs[:, t], W) + b[0]).float()
+        zh = (matmul(hp, U) + b[1]).float()
+        z = sigmoid(zx[:, :h] + zh[:, :h])
+        r = sigmoid(zx[:, h:2 * h] + zh[:, h:2 * h])
         hh = torch.tanh(zx[:, 2 * h:] + r * zh[:, 2 * h:])
         hp = z * hp + (1.0 - z) * hh
     return hp.to(xs.dtype)
@@ -72,7 +113,7 @@ def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
 
 def reuse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated in float32, result in x's dtype."""
-    return (x.float() @ w.float()).to(x.dtype)
+    return matmul(x.float(), w.float()).to(x.dtype)
 
 
 def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

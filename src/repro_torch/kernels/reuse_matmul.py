@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda
+from repro_torch.kernels.ref import matmul
 
 
 def col_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -30,7 +31,8 @@ def col_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     """Plain version of :func:`col_matmul_kernel`."""
     ns = w.shape[1] // reuse
     x32 = x.float()
-    tiles = [x32 @ w[:, r * ns:(r + 1) * ns].float() for r in range(reuse)]
+    tiles = [matmul(x32, w[:, r * ns:(r + 1) * ns].float())
+             for r in range(reuse)]
     return torch.cat(tiles, dim=-1).to(x.dtype)
 
 
@@ -42,7 +44,7 @@ def reuse_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                       device=x.device)
     for r in range(reuse):
         k = slice(r * ks, (r + 1) * ks)
-        acc += x[:, k].float() @ w[k].float()
+        acc += matmul(x[:, k].float(), w[k].float())
     return acc.to(x.dtype)
 
 

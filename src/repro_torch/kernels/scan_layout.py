@@ -36,7 +36,7 @@ cluster kernel's goes to the block kernel) and launches it.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -203,6 +203,7 @@ def card_resident(cell: str, bf16: bool, reuse: int,
     that layout; ``hoisted``: the zx mode, ``bf16`` its output's type; at
     ``reuse`` 1 the one-pass instance, which the pipeline scan runs)."""
     lib = cuda.library("rnn_scan")
+    cuda.COUNTS["residency"] += 1
     query = (lib.cluster_zx_scan_resident if hoisted
              else lib.cluster_scan_resident)
     n = query(int(cell == "gru"), int(bf16), reuse, *lay[:5])
@@ -227,11 +228,28 @@ def card_layout(B: int, hidden: int, fin: int, cell: str, reuse: int,
                        hoisted=hoisted)
 
 
+#: launch layouts loaded from compile cache entries: :func:`card_layout`'s
+#: arguments -> layout (a warm serving executor asks the card nothing)
+SEEDED: Dict[tuple, ScanLayout] = {}
+
+
+def launch_layout(*args) -> ScanLayout:
+    """The layout a launch takes: a seeded one (:data:`SEEDED`), else
+    :func:`card_layout` of the same arguments; noted in every
+    ``cuda.recording``."""
+    lay = SEEDED.get(args)
+    if lay is None:
+        lay = card_layout(*args)
+    cuda.record_layout(args, lay)
+    return lay
+
+
 def launch_scan(cell: str, xs: torch.Tensor, W: torch.Tensor,
                 U: torch.Tensor, b: torch.Tensor, reuse: int) -> torch.Tensor:
     """Launch ``lstm_scan`` / ``gru_scan`` on CUDA tensors (shapes checked
     by the caller) at :func:`scan_layout`'s layout for this card (computed
-    once per shape and device)."""
+    once per shape and device, or loaded from a compile cache entry:
+    :func:`launch_layout`)."""
     kernel = f"{cell}_scan"
     dev = cuda.require(kernel, xs.dtype, xs=xs, W=W, U=U, b=b)
     B, T, fin = xs.shape
@@ -239,7 +257,8 @@ def launch_scan(cell: str, xs: torch.Tensor, W: torch.Tensor,
     out = torch.empty(B, hidden, dtype=xs.dtype, device=dev)
     if B:
         bf16 = xs.dtype == torch.bfloat16
-        lay = card_layout(B, hidden, fin, cell, reuse, bf16, dev.index)
+        lay = launch_layout(B, hidden, fin, cell, reuse, bf16, dev.index,
+                            False)
         cuda.launch("rnn_scan", kernel, dev, xs.data_ptr(), int(bf16),
                     W.data_ptr(), U.data_ptr(), b.data_ptr(),
                     out.data_ptr(), B, T, fin, hidden, reuse, *lay[:5])
@@ -271,8 +290,8 @@ def launch_hoisted_scan(kernel: str, zx: torch.Tensor, U: torch.Tensor,
             int(bf16), B, T, hidden, reuse)
     if scan_route(hidden) == "cluster":
         lay_reuse = 1 if kernel.endswith("_pipeline") else reuse
-        lay = card_layout(B, hidden, 0, cell, lay_reuse, bf16, dev.index,
-                          True)
+        lay = launch_layout(B, hidden, 0, cell, lay_reuse, bf16, dev.index,
+                            True)
         cuda.launch("rnn_scan", kernel, dev, *args, *lay[:5])
     else:
         cuda.launch("rnn_scan", f"{kernel}_block", dev, *args,

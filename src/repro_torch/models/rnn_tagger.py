@@ -20,9 +20,11 @@ import torch
 from torch import nn
 
 from repro_torch.config import FixedPointConfig, ModelConfig
-from repro_torch.core.quant.fixed_point import quantize
+from repro_torch.core.quant.fixed_point import is_native_int, quantize
 from repro_torch.core.rnn.cells import rnn_param_specs
 from repro_torch.core.rnn.layer import rnn_layer
+from repro_torch.kernels.ref import matmul, sigmoid
+from repro_torch.kernels.reuse_matmul import col_matmul_kernel
 from repro_torch.models.init import ParamSpec, ParamSpecs, Params, init_params
 
 Device = Union[str, torch.device]
@@ -109,7 +111,11 @@ class RNNTagger(nn.Module):
         batch through the masked-scan ragged path.  ``fp`` quantizes the
         recurrent layer and every point of the dense head to the ap_fixed
         grid, as hls4ml does; the softmax takes unquantized logits (its LUT
-        gets extra precision in hls4ml, paper Sec. 5.1)."""
+        gets extra precision in hls4ml, paper Sec. 5.1).  Where the layer
+        runs on the kernels (``impl="pallas"``, float or native int ``fp``)
+        the head's products run on ``col_matmul``, so a row's answer has
+        the same bits in every batch; the ap_fixed emulation keeps its
+        head on the reference product, as its cells."""
         rnn = self.cfg.rnn
         p = self.weights
         h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
@@ -119,13 +125,24 @@ class RNNTagger(nn.Module):
         def q(t):
             return t if fp is None else quantize(t, fp)
 
+        on_kernel = impl == "pallas" and (fp is None or is_native_int(fp))
+
+        def dense(a, w):
+            # the kernel path (float, native int) runs the head on
+            # col_matmul, each output one k-ascending chain whatever the
+            # batch; the reference and the ap_fixed emulation on
+            # ref.matmul.  Both sum in k order on the CPU
+            if on_kernel:
+                return col_matmul_kernel(a.contiguous(), w.contiguous())
+            return matmul(a, w)
+
         h = q(h.float())
         for i in range(len(rnn.dense_sizes)):
-            h = q(h @ q(p[f"dense{i}/w"]) + q(p[f"dense{i}/b"]))
+            h = q(dense(h, q(p[f"dense{i}/w"])) + q(p[f"dense{i}/b"]))
             h = q(torch.relu(h))
-        logits = h @ q(p["head/w"]) + q(p["head/b"])
+        logits = dense(h, q(p["head/w"])) + q(p["head/b"])
         if return_logits:
             return logits
         if rnn.output_activation == "sigmoid":
-            return torch.sigmoid(q(logits))
+            return sigmoid(q(logits))
         return torch.softmax(logits.float(), dim=-1)

@@ -8,6 +8,15 @@ carries a :class:`KernelSchedule`, and the engine
   * builds ONE executor per schedule key; flushed batches are padded to the
     key's ``max_batch`` (zero rows are row-wise inert), so every flush of a
     key runs at one shape;
+  * keeps a row's answer the same bits in every batch shape:
+    ``predict_one(x) == predict(x[None])[0] == predict(X)[i]`` == the
+    flushed result (every product of the path sums each output in one
+    fixed order: kernels/ref.py, csrc/rnn_scan.cu);
+  * readies each (key, batch shape) through a persistent compile cache
+    (``cache_dir``; serving/compile_cache.py): a warm directory serves the
+    first request of a FRESH engine with no ``nvcc``, no residency query
+    of the card and no executor build, and ``warmup`` / ``prewarm`` ready
+    keys before traffic arrives, launching nothing;
   * shares batches across ragged (variable seq_len) streams, either by
     length-bucketing sub-batches or by a pad-and-mask scan;
   * reports, per schedule key, the measured latency and batch counters
@@ -32,9 +41,8 @@ cells; the key of a request names its (schedule, fp) pair.  The engine
 runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
 float32 weights there from construction on.
 
-Not in this slice of the port (ROADMAP.md, modules to port): the
-persistent compile cache, ``warmup`` / ``prewarm`` and the ``compile``
-column of ``serve_report`` (module item 9), and ``benchmark()`` (item 13).
+Not in this slice of the port (ROADMAP.md, modules to port):
+``benchmark()`` (item 13).
 """
 
 from __future__ import annotations
@@ -53,10 +61,12 @@ from repro_torch.config import FixedPointConfig, ModelConfig
 from repro_torch.core.hls import (DesignPoint, HLSDesign, RNNDesignPoint,
                                   estimate_design, estimate_schedule)
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY, KernelSchedule,
-                                          schedule_key)
+                                          cache_meta, schedule_key)
 from repro_torch.models.rnn_tagger import RNNTagger
 from repro_torch.serving.batcher import (KeyStats, MicroBatcher, Request,
                                          _pad_stack)
+from repro_torch.serving.compile_cache import (ArgSpec, CachedExecutor,
+                                               CompileCache)
 
 RAGGED_POLICIES = ("bucket", "mask")
 
@@ -85,6 +95,10 @@ class RNNServingEngine:
     ragged: str = "bucket"                # bucket | mask (one padded batch)
     pad_batches: bool = True              # pad flushes to max_batch
     device: Union[str, torch.device] = "cuda"
+    cache_dir: Optional[str] = None       # persistent compile cache; a warm
+                                          # dir serves the first request of
+                                          # a FRESH engine with no build (N
+                                          # replicas may share it)
     _infer_cache: Dict[str, Callable] = field(default_factory=dict, repr=False)
     _key_specs: Dict[str, Tuple[KernelSchedule, Optional[FixedPointConfig]]] \
         = field(default_factory=dict, repr=False)
@@ -108,6 +122,7 @@ class RNNServingEngine:
         self.model = RNNTagger(self.cfg, self.params, device=self.device)
         self.params = dict(self.model.weights)
         self.batcher = MicroBatcher(max_batch=self.max_batch)
+        self.compile_cache = CompileCache(self.cache_dir, self.device)
 
     # -- schedule resolution -------------------------------------------------
 
@@ -179,9 +194,9 @@ class RNNServingEngine:
                       warmup: bool = True) -> DesignPoint:
         """Make a DesignTarget this engine's default design point: later
         ``predict`` / ``submit`` calls without a schedule execute it (and
-        the default queue reports it).  ``warmup`` runs one padded zero
-        batch of the selected key, so that its first request builds
-        nothing."""
+        the default queue reports it).  ``warmup`` readies the selected
+        key's serving shape (:meth:`warmup`), so that its first request
+        builds nothing."""
         pt = self.schedule_for_target(target, spec=spec,
                                       measure_top_k=measure_top_k)
         self.schedule = pt.schedule
@@ -190,10 +205,7 @@ class RNNServingEngine:
         if target.fp is not None:
             self.fp = pt.fp
         if warmup:
-            r = self.cfg.rnn
-            key = self._ensure_key(*self.resolve())
-            self._predict_padded(key, np.zeros((1, r.seq_len, r.input_size),
-                                               np.float32))
+            self.warmup()
         return pt
 
     def _with_target(self, target: Optional[DesignTarget],
@@ -217,14 +229,28 @@ class RNNServingEngine:
                                                       "_traces")
         return key
 
+    def _executor_meta(self, kind: str, sched: KernelSchedule,
+                       fp: Optional[FixedPointConfig]) -> Dict:
+        """Content identity of one serving executor: the model config plus
+        the EXHAUSTIVE schedule / fp axes (``cache_meta``, not the routing
+        key: a future schedule axis must invalidate entries, not silently
+        share them).  The toolchain and card axes are appended by the
+        CompileCache itself; argument shapes by the executor."""
+        return {"kind": kind, "cfg": repr(self.cfg),
+                **cache_meta(sched, fp)}
+
     def _make_infer(self, key: str, sched: KernelSchedule,
                     fp: Optional[FixedPointConfig], counter: str) -> Callable:
-        """The executor of one schedule key; building it is counted in
-        ``counter`` (one build per key)."""
+        """The executor of one schedule key, readied per batch shape
+        through the compile cache; its build is counted in ``counter``
+        once, at its first cold signature (a warm start builds nothing,
+        so the count stays 0)."""
         traces = getattr(self, counter)
-        traces[key] = traces.get(key, 0) + 1
         impl = "pallas" if sched.use_pallas else "xla"
         model = self.model
+
+        def built():
+            traces[key] = traces.get(key, 0) + 1
 
         def infer(x: np.ndarray, lengths=None) -> np.ndarray:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
@@ -237,7 +263,12 @@ class RNNServingEngine:
                             lengths=lengths)
             return out.cpu().numpy()
 
-        return infer
+        one = counter == "_one_traces"
+        return CachedExecutor(
+            infer, self.compile_cache, key,
+            self._executor_meta("rnn_one" if one else "rnn_infer", sched,
+                                fp),
+            name_hint=f"{key}-one" if one else key, on_build=built)
 
     def trace_count(self, key: str) -> int:
         return self._traces.get(key, 0)
@@ -292,6 +323,49 @@ class RNNServingEngine:
                 out[i] = res[j]
         return out                           # type: ignore[return-value]
 
+    def warmup(self, schedule: Optional[KernelSchedule] = None,
+               fp: Optional[FixedPointConfig] = None) -> Dict[str, Dict]:
+        """Ready ONE (schedule, fp) pair's serving shape: from the
+        persistent cache when possible, else build-and-store."""
+        return self.prewarm(schedules=[schedule], fps=[fp])
+
+    def prewarm(self, targets: Optional[List[DesignTarget]] = None,
+                schedules: Optional[List[Optional[KernelSchedule]]] = None,
+                fps: Optional[List[Optional[FixedPointConfig]]] = None
+                ) -> Dict[str, Dict]:
+        """Zero-warmup entry point: ready the serving shape of a list of
+        targets and/or schedules BEFORE traffic arrives.
+
+        Each (schedule, fp) pair (targets resolved through the explorer
+        first) is readied at the key's serving shape (``max_batch`` rows
+        x the config's sequence, as an :class:`ArgSpec`) with no kernel
+        launch: over a warm ``cache_dir`` its entry is loaded (no
+        ``nvcc``, no residency query, no executor build); a cold one runs
+        the executor once on zeros without launching (libraries built and
+        loaded, layouts resolved) and is stored for the next engine /
+        replica.  Returns per key ``{"status": "hot"|"warm"|"cold",
+        "compile_s": ...}``.
+        """
+        pairs: List[Tuple[Optional[KernelSchedule],
+                          Optional[FixedPointConfig]]] = []
+        for t in (targets or ()):
+            pt = self.schedule_for_target(t)
+            pairs.append((pt.schedule, pt.fp))
+        if schedules is not None:
+            fps = fps if fps is not None else [None] * len(schedules)
+            pairs.extend(zip(schedules, fps))
+        if not pairs:
+            pairs.append((None, None))   # the engine's resolved default
+        r = self.cfg.rnn
+        out: Dict[str, Dict] = {}
+        for sched, fp in pairs:
+            key = self._ensure_key(*self.resolve(sched, fp))
+            mb, _ = self.batcher.policy(key)
+            rows = mb if self.pad_batches else 1
+            x = ArgSpec((rows, r.seq_len, r.input_size), "float32")
+            out[key] = self._infer_cache[key].warm(x, None)
+        return out
+
     # -- batch-1 latency fast path ------------------------------------------
 
     def predict_one(self, x: np.ndarray,
@@ -308,13 +382,13 @@ class RNNServingEngine:
         sched, fpr = self.resolve(schedule, fp)
         key = self._ensure_key(sched, fpr)   # registers specs for reporting
         fn = self._one_cache.get(key)
-        first = fn is None
-        if first:
+        if fn is None:
             fn = self._one_cache[key] = self._make_infer(key, sched, fpr,
                                                          "_one_traces")
+        readied = fn.compiled_signatures()
         t0 = time.perf_counter()
         out = fn(np.asarray(x)[None])[0]
-        if not first:                        # steady state
+        if fn.compiled_signatures() == readied:   # steady state
             self._one_stats.setdefault(key, KeyStats()).record_one(
                 time.perf_counter() - t0)
         return out
@@ -419,7 +493,9 @@ class RNNServingEngine:
         measured serving counters of the batcher (plus the batch-1 fast
         path's, where it ran), next to ``estimate_schedule`` of the SAME
         schedule object (``analytical``: the paper's FPGA model at
-        ``clock_mhz``, not a time on the card).  Requests served on the
+        ``clock_mhz``, not a time on the card), and the ``compile``
+        column: the persistent cache's cold / warm split for the key (hit
+        rate, the first cold signature's seconds).  Requests served on the
         bare DEFAULT_SCHEDULE_KEY queue report the resolved schedule with
         its estimate and point at its ``resolved_key``, which owns the
         build count."""
@@ -439,6 +515,7 @@ class RNNServingEngine:
                 "traces": 0 if key in resolved_from else self.trace_count(key),
                 "measured": self.batcher.key_stats(key).summary(),
                 "analytical": est.report_row(clock_mhz),
+                "compile": self.compile_cache.report_row(key),
             }
             if key in resolved_from:
                 report[key]["resolved_key"] = resolved_from[key]
@@ -463,15 +540,19 @@ def format_serve_report(report: Dict[str, Dict],
                         clock_mhz: float = 200.0) -> str:
     """Render serve_report() as the measured-vs-analytical table: measured
     request latency on the engine's device beside the FPGA model's
-    latency, II and DSPs.  The JAX package's cold/warm compile columns
-    wait for the port's compile cache (ROADMAP.md module item 9)."""
+    latency, II and DSPs, and the compile cache's cold / warm builds and
+    hit rate."""
     lines = [f"{'schedule key':38s} {'served':>6s} {'meas p50':>10s} "
-             f"{'meas p99':>10s} {'est lat':>9s} {'est II':>8s} {'DSP':>6s}"]
+             f"{'meas p99':>10s} {'est lat':>9s} {'est II':>8s} {'DSP':>6s} "
+             f"{'cold/warm':>9s} {'hit':>5s}"]
     for key, row in report.items():
         m, a = row["measured"], row["analytical"]
+        c = row.get("compile", {})
+        cw = f"{int(c.get('cold', 0))}/{int(c.get('warm', 0))}"
         lines.append(
             f"{key:38s} {int(m['served']):6d} "
             f"{m['latency_p50_s'] * 1e3:8.2f}ms "
             f"{m['latency_p99_s'] * 1e3:8.2f}ms "
-            f"{a['latency_us']:7.2f}us {a['ii_cycles']:8d} {a['dsp']:6d}")
+            f"{a['latency_us']:7.2f}us {a['ii_cycles']:8d} {a['dsp']:6d} "
+            f"{cw:>9s} {c.get('hit_rate', 0.0):4.0%}")
     return "\n".join(lines)

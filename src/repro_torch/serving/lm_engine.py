@@ -22,8 +22,13 @@ full-width pack is larger than the residency cache keeps).
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu")
 and raises without a CUDA device.  Greedy sampling takes the FIRST maximum
 of each row's logits on the host (``np.argmax``), as ``jnp.argmax`` does.
+Each key's step executor is readied through the persistent compile cache
+(``cache_dir``, serving/compile_cache.py): ``prewarm`` readies a key's
+step before its first tick without launching anything, and a warm
+directory spares a fresh engine the build.
 ``serve_report`` gives per key the measured columns: request latency,
-decoded tokens over decode wall-clock (tokens/s) and the tick latency.
+decoded tokens over decode wall-clock (tokens/s) and the tick latency,
+and the ``compile`` column (cold / warm builds, hit rate).
 The first tick of a key builds and loads its kernels and is left out of
 tokens/s and tick latency, as ``repro`` leaves out the tick that traced.
 A scheduled key's row pairs them with ``estimate_lm_decode`` of the SAME
@@ -32,8 +37,7 @@ schedule object (``analytical``: the paper's FPGA model at
 estimate-less.
 
 Not in this slice (``ROADMAP.md``): speculative decode (``SpecConfig``,
-``decode_steps`` / ``kv_trim``), the persistent compile cache and
-``prewarm``, and every family but the dense decoder.
+``decode_steps`` / ``kv_trim``), and every family but the dense decoder.
 """
 
 from __future__ import annotations
@@ -48,11 +52,13 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.hls import estimate_lm_decode
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
-                                          KernelSchedule, schedule_key)
+                                          KernelSchedule, cache_meta,
+                                          schedule_key)
 from repro_torch.models.decode import (decode_step, init_cache,
                                        pack_decode_params)
 from repro_torch.models.transformer import require_dense
 from repro_torch.serving.batcher import KeyStats, _now
+from repro_torch.serving.compile_cache import CachedExecutor, CompileCache
 from repro_torch.serving.engine import EngineClosedError
 
 
@@ -69,14 +75,18 @@ class Slot:
 
 class _KeyedDecoder:
     """One schedule key's continuous-batching state: slot pool, KV cache,
-    the key's single executor of the decode step, serving counters.  A
-    scheduled key runs over the engine's packed weight layout."""
+    the key's single executor of the decode step (readied through the
+    compile cache), serving counters.  A scheduled key runs over the
+    engine's packed weight layout."""
 
     def __init__(self, cfg: ModelConfig, key: str,
                  schedule: Optional[KernelSchedule], *, max_batch: int,
                  max_seq: int, cache_dtype: str, params: Dict,
-                 packed: Optional[Dict], device: torch.device):
+                 packed: Optional[Dict], device: torch.device,
+                 compile_cache: Optional[CompileCache] = None):
         self.key = key
+        self.cfg = cfg
+        self.cache_dtype = cache_dtype
         self.schedule = schedule
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -85,22 +95,46 @@ class _KeyedDecoder:
         self.cache = init_cache(cfg, max_batch, max_seq, cache_dtype, device)
         self.stats = KeyStats()          # request latency
         self.tick_stats = KeyStats()     # steady-state tick latency
-        self.traces = 0                  # executors built (one per key)
+        self.traces = 0                  # executor builds (cold: one a key)
         self.ticks = 0
         self.tokens = 0                  # decoded tokens (per-key tokens/s)
         self.decode_s = 0.0              # wall-clock spent in decode steps
         self.packed = packed
-        self._step = self._build(cfg, params)
+        self._step = self._build(cfg, params, compile_cache or CompileCache(
+            device=device))
 
-    def _build(self, cfg: ModelConfig, params: Dict) -> Callable:
-        self.traces += 1
+    def _build(self, cfg: ModelConfig, params: Dict,
+               compile_cache: CompileCache) -> Callable:
         schedule, packed = self.schedule, self.packed
+
+        def built():
+            self.traces += 1
 
         def step(cache, tokens, pos):
             with torch.inference_mode():
                 return decode_step(cfg, params, cache, tokens, pos,
                                    schedule=schedule, packed=packed)
-        return step
+
+        meta = {"kind": "lm_decode_step", "cfg": repr(cfg),
+                "max_batch": self.max_batch, "max_seq": self.max_seq,
+                "cache_dtype": self.cache_dtype,
+                **cache_meta(schedule, None)}
+        return CachedExecutor(step, compile_cache, self.key, meta,
+                              name_hint=f"lm-{self.key}", on_build=built)
+
+    def warm_step(self) -> Dict:
+        """Ready this key's decode step at the shapes ``_tick_decoder``
+        calls it with, without ticking: the KV cache is untouched (a cold
+        signature runs once, launching nothing, on a zero cache of the
+        same shapes), warm over a persistent cache, build-and-store when
+        cold."""
+        tokens = torch.zeros((self.max_batch, 1), dtype=torch.int64,
+                             device=self.device)
+        pos = torch.zeros((self.max_batch,), dtype=torch.int64,
+                          device=self.device)
+        cache = init_cache(self.cfg, self.max_batch, self.max_seq,
+                           self.cache_dtype, self.device)
+        return self._step.warm(cache, tokens, pos)
 
     @property
     def any_active(self) -> bool:
@@ -118,7 +152,8 @@ class LMServingEngine:
                  *, max_batch: int = 4, max_seq: int = 256,
                  cache_dtype: str = "float32",
                  schedule: Optional[KernelSchedule] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 cache_dir: Optional[str] = None):
         require_dense(cfg, "LMServingEngine")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -131,6 +166,7 @@ class LMServingEngine:
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.schedule = schedule            # default-request schedule
+        self.compile_cache = CompileCache(cache_dir, self.device)
         self._decoders: Dict[str, _KeyedDecoder] = {}
         self._packed: Optional[Dict] = None  # shared by the scheduled keys
         self._next_req = 0
@@ -152,8 +188,20 @@ class LMServingEngine:
                 max_seq=self.max_seq, cache_dtype=self.cache_dtype,
                 params=self.params,
                 packed=None if sched is None else self._packed,
-                device=self.device)
+                device=self.device, compile_cache=self.compile_cache)
         return dec
+
+    def prewarm(self, schedules: Optional[List[Optional[KernelSchedule]]]
+                = None) -> Dict[str, Dict]:
+        """Zero-warmup for the decode path: build each schedule's keyed
+        decoder and ready its step before the first tick, launching
+        nothing: loaded from a warm ``cache_dir`` (no build) or built once
+        and stored.  No schedules: the engine default."""
+        out: Dict[str, Dict] = {}
+        for sched in (schedules if schedules is not None else [None]):
+            dec = self._decoder_for(sched)
+            out[dec.key] = dec.warm_step()
+        return out
 
     def keys(self) -> List[str]:
         return list(self._decoders)
@@ -280,7 +328,8 @@ class LMServingEngine:
                 analytical["scheduled_kernels"] = True
             report[key] = {"schedule": dec.schedule, "fp": None,
                            "traces": dec.traces, "measured": measured,
-                           "analytical": analytical}
+                           "analytical": analytical,
+                           "compile": self.compile_cache.report_row(key)}
         return report
 
     # -- lifecycle -----------------------------------------------------------

@@ -340,11 +340,20 @@ def test_auto_schedule_serves_like_predict_and_repro(name, ti, fi,
     np.testing.assert_array_equal(
         auto, eng.predict(x, schedule=pt.schedule, fp=pt.fp))
     assert_close(auto, jeng.predict(x))
-    # a request's target resolves over the engine's own spec
+    # a request's target resolves over the engine's own spec, and one
+    # event's answer has the same bits in every batch shape: predict_one,
+    # predict of one row, of the whole batch, and a padded flush
     sp = eng.schedule_for_target(t)
-    np.testing.assert_array_equal(
-        eng.predict_one(x[0], target=t),
-        eng.predict(x[:1], schedule=sp.schedule, fp=sp.fp)[0])
+    full = eng.predict(x, schedule=sp.schedule, fp=sp.fp)
+    reqs = [eng.submit(x[i], target=t) for i in range(len(x))]
+    eng.flush(force=True)
+    for i in range(len(x)):
+        for got in (eng.predict_one(x[i], target=t),
+                    eng.predict(x[i:i + 1], schedule=sp.schedule,
+                                fp=sp.fp)[0],
+                    reqs[i].result):
+            np.testing.assert_array_equal(np.asarray(got).view(np.int32),
+                                          full[i].view(np.int32))
 
 
 @pytest.mark.parametrize("name", TAGGERS)

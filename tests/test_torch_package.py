@@ -85,6 +85,42 @@ def test_sources_import_no_jax_or_repro(path):
                 f"{path.name} imports {n}"
 
 
+#: serving robustness: the modules the port keeps beside its engines
+ROBUSTNESS = ("compile_cache", "faults", "replica", "router", "streaming")
+#: repro.serving's speculative-decode exports (not in the port yet)
+SPECULATIVE = {"CacheTable", "RowAdvance", "SpecConfig",
+               "SpeculativeDecoder", "accept_chunk", "speculative_generate"}
+
+
+@pytest.mark.parametrize("name", ROBUSTNESS)
+def test_robustness_module_imports_alone_without_jax(name):
+    code = (f"import sys\nimport repro_torch.serving.{name}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serving_exports_what_repro_exports():
+    """``repro_torch.serving`` exports every public name of
+    ``repro.serving`` (speculative decode aside)."""
+    import types
+
+    import repro.serving as jserving
+
+    import repro_torch.serving as tserving
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    missing = public(jserving) - SPECULATIVE - public(tserving)
+    assert not missing, sorted(missing)
+
+
 def _tagger(name="top-tagging-gru"):
     cfg = get_config(name)
     specs = param_specs(cfg)
