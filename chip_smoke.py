@@ -150,6 +150,25 @@ In order, it
                 ``ap_fixed<8,3>`` equal in value to the emulation; then
                 ``ops.hadamard`` at (16384, 4096) bf16 (one ``hadamard``
                 launch, bit for bit equal to ``torch.mul``);
+       train    the taggers trained on the card through the port's trainer
+                (``repro_torch.launch.train``; forward and backward on the
+                reference path, as ``repro`` trains): top tagging's GRU
+                and LSTM for 150 steps of 128 at lr 5e-3 to a held-out AUC
+                > 0.9 (1000 events, seed 99) on the reference and on
+                ``RNNServingEngine(device="cuda")`` (within 3e-5; the
+                cluster scan and ``col_matmul`` launched), PTQ'd to
+                ap_fixed<16,6> (AUC ratio > 0.98) and <6,6> (AUC down by
+                more than 0.02), and the native <8,3> engine on
+                ``quant_matmul`` bit for bit equal to the emulation;
+                flavor tagging and QuickDraw, LSTM and GRU, 40 steps each
+                (the mean loss of the last 5 below the first 5), served on
+                the kernels within 3e-5; a run saved at step 3, restored
+                and continued bit for bit equal to the uninterrupted one;
+                ``grad_accum=2`` against the full batch; one run with
+                compressed gradients; then, outside the counts, the
+                port's conformance harness (``repro_torch.testing``) on
+                the card and each tagger's training step timed (host
+                clock, synchronised) and traced;
      and checks that every kernel of each path was launched (``static``:
      each tagger's hoisted flush on the cluster kernel; ``modes``: every
      tagger's two pipelines and the hoisted scans on it; ``static_wide``:
@@ -917,17 +936,18 @@ KERNEL_GROUPS = (("cluster_scan_kernel", "cluster scan kernels"),
                  ("rnn_scan_kernel", "scan kernels"))
 
 
-def device_trace(fn, calls: int = 1) -> dict:
+def device_trace(fn, calls: int = 1, inference: bool = True) -> dict:
     """Read ``calls`` calls of ``fn`` from a ``torch.profiler`` trace of the
     device: the span from the first device event to the last, the time
     some device event ran (the union of their intervals) and its idle
     share, and per group of kernels the launches and their device time.
-    Empty where the trace holds no device event."""
+    Empty where the trace holds no device event.  ``inference=False``
+    leaves autograd on (a training step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2829,6 +2849,376 @@ def phase_rglru(device) -> dict:
     return launches
 
 
+TRAIN_TOP = ("top-tagging-gru", "top-tagging-lstm")
+TRAIN_OTHERS = ("flavor-tagging-lstm", "flavor-tagging-gru",
+                "quickdraw-lstm", "quickdraw-gru")
+TRAIN_STEPS = 150                # repro's tests/test_system.py: steps,
+TRAIN_BATCH = 128                # batch and learning rate of the top
+TRAIN_LR = 5e-3                  # tagger it trains to AUC > 0.9
+TRAIN_SHORT = 40                 # steps of the other four taggers
+HELD_OUT = (1000, 99)            # top tagging's held-out events, seed
+LOW_PRECISION = (500, 98)        # events, seed of the ap_fixed<6,6> check
+AUC_MIN = 0.9
+AUC_RATIO_MIN = 0.98             # ap_fixed<16,6> / float
+AUC_DROP_MIN = 0.02              # float - ap_fixed<6,6>
+TIMED_STEPS = 10                 # synchronised steps timed per tagger
+RESTART_TAGGERS = ("top-tagging-gru", "flavor-tagging-lstm")
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+SWEEP_MODES = (("static", {}), ("static_hoist", {"hoist_input": True}),
+               ("nonstatic", {"mode": "nonstatic"}),
+               ("pipeline", {"mode": "pipeline"}))
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tagger_dataset(arch: str, n: int, seed: int):
+    """(x, y) of ``arch``'s task from the port's generators."""
+    from repro_torch.launch.train import RNN_DATA
+
+    return next(fn for key, fn in RNN_DATA.items() if key in arch)(n, seed)
+
+
+def train_setup(arch: str, steps: int, **train_kw):
+    """The model, optimizer config and step of ``launch.train.train``'s
+    loop for ``steps`` steps (``train_kw`` into its ``TrainConfig``)."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.registry import get_config
+    from repro_torch.training import make_train_step
+
+    m = build_model(get_config(arch))
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, steps // 5 + 1),
+                          total_steps=steps, weight_decay=0.01)
+    return m, opt, make_train_step(m, TrainConfig(optimizer=opt, **train_kw))
+
+
+def train_losses(arch: str, device, steps: int = TRAIN_SHORT, **train_kw):
+    """``train``'s loop from its seeded init over its batches, keeping
+    every step's loss: (params, losses)."""
+    import torch
+
+    from repro_torch.launch.train import _rnn_batches
+    from repro_torch.training import adamw_init
+
+    m, opt, step = train_setup(arch, steps, **train_kw)
+    params = m.init(torch.Generator().manual_seed(0), device=device)
+    st = adamw_init(params, opt)
+    batches = _rnn_batches(m.cfg, TRAIN_BATCH, device=device)
+    losses = []
+    for _ in range(steps):
+        params, st, metrics = step(params, st, next(batches))
+        losses.append(metrics["loss"])
+    return params, [float(v) for v in losses]
+
+
+def serve_trained(cfg, params, x, device) -> tuple:
+    """The trained weights on the kernels (``RNNServingEngine``, default
+    schedule) and on the reference forward: (served, reference, launches
+    of the served call)."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.models.rnn_tagger import forward
+    from repro_torch.serving import RNNServingEngine
+
+    eng = RNNServingEngine(cfg, params, device=device)
+    before = dict(cuda.LAUNCHES)
+    got = eng.predict(x)
+    sync(device)
+    launched = counts_since(before, dict(cuda.LAUNCHES))
+    with torch.inference_mode():
+        want = forward(cfg, params, torch.from_numpy(x).to(device))
+    want = want.cpu().numpy()
+    check_served(cfg.name, "trained weights", got, want)
+    return got, want, launched
+
+
+def check_top_tagger(arch: str, device) -> dict:
+    """``launch.train.train`` at ``repro``'s system-test settings, then the
+    paper's pipeline on what it learned: AUC on the reference and on the
+    kernels, PTQ to <16,6> and <6,6>, the native <8,3> engine."""
+    import torch
+
+    from repro_torch.config import FixedPointConfig
+    from repro_torch.core.quant.ptq import binary_auc, ptq_quantize_model
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import train
+    from repro_torch.models.rnn_tagger import forward
+    from repro_torch.registry import get_config
+    from repro_torch.serving import RNNServingEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params, loss = train(arch, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                         lr=TRAIN_LR, log_every=50, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    xt, yt = tagger_dataset(arch, *HELD_OUT)
+    got, want, launched = serve_trained(cfg, params, xt, device)
+    auc = {"reference": binary_auc(want[:, 0], yt),
+           "kernels": binary_auc(got[:, 0], yt)}
+    check(min(auc.values()) > AUC_MIN, f"{arch}: held-out AUC {auc}")
+
+    def auc_at(params_, x, y, fp):
+        with torch.inference_mode():
+            p = forward(cfg, params_, torch.from_numpy(x).to(device), fp=fp)
+        return binary_auc(p.cpu().numpy()[:, 0], y)
+
+    fp16 = FixedPointConfig(16, 6)
+    auc["ap16_6"] = auc_at(ptq_quantize_model(params, fp16), xt, yt, fp16)
+    ratio = auc["ap16_6"] / auc["reference"]
+    check(ratio > AUC_RATIO_MIN, f"{arch}: <16,6> AUC ratio {ratio}")
+    xl, yl = tagger_dataset(arch, *LOW_PRECISION)
+    fp66 = FixedPointConfig(6, 6)
+    auc["float_500"] = auc_at(params, xl, yl, None)
+    auc["ap6_6"] = auc_at(ptq_quantize_model(params, fp66), xl, yl, fp66)
+    check(auc["ap6_6"] < auc["float_500"] - AUC_DROP_MIN,
+          f"{arch}: <6,6> kept AUC {auc['ap6_6']} of {auc['float_500']}")
+
+    fp8 = fixed_point_config(FP_NATIVE["int8"])
+    q8 = ptq_quantize_model(params, fp8)
+    before = dict(cuda.LAUNCHES)
+    native = RNNServingEngine(cfg, q8, fp=fp8, device=device).predict(xt)
+    sync(device)
+    native_launched = counts_since(before, dict(cuda.LAUNCHES))
+    emulated = RNNServingEngine(cfg, q8, fp=fp8, impl="xla",
+                                device=device).predict(xt)
+    check(np.array_equal(native.view(np.int32), emulated.view(np.int32)),
+          f"{arch}: native <8,3> differs from the emulation by "
+          f"{float(np.abs(native - emulated).max())}")
+    auc["ap8_3_native"] = binary_auc(native[:, 0], yt)
+    rep = {"train_s": wall, "last_loss": loss, "auc": auc,
+           "ap16_6_ratio": ratio, "served_max_abs_err":
+           float(np.abs(got - want).max()), "served_launches": launched,
+           "native_launches": native_launched}
+    print(f"train {arch}: {TRAIN_STEPS} steps of {TRAIN_BATCH} at lr "
+          f"{TRAIN_LR} in {wall:.1f} s (launch.train.train); held-out AUC "
+          f"{auc['reference']:.4f} reference, {auc['kernels']:.4f} on the "
+          f"kernels (max |diff| {rep['served_max_abs_err']:.2e}, launches "
+          f"{launched}); <16,6> ratio {ratio:.4f}; <6,6> {auc['ap6_6']:.4f} "
+          f"vs float {auc['float_500']:.4f}; native <8,3> AUC "
+          f"{auc['ap8_3_native']:.4f}, bit for bit equal to the emulation "
+          f"(launches {native_launched})")
+    return rep
+
+
+def check_short_training(arch: str, device, **train_kw) -> dict:
+    """``TRAIN_SHORT`` steps of ``train``'s loop: the mean loss of the last
+    5 steps below that of the first 5; the result served on the kernels
+    within 3e-5 of the reference."""
+    from repro_torch.registry import get_config
+
+    params, losses = train_losses(arch, device, **train_kw)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    what = "compressed grads" if train_kw else "loss"
+    check(last < first, f"{arch} ({what}): loss {first} -> {last}")
+    x, _ = tagger_dataset(arch, BATCH, HELD_OUT[1])
+    got, want, launched = serve_trained(get_config(arch), params, x, device)
+    rep = {"first5_loss": first, "last5_loss": last,
+           "served_max_abs_err": float(np.abs(got - want).max()),
+           "served_launches": launched}
+    print(f"train {arch}{' (compress_grads)' if train_kw else ''}: "
+          f"{TRAIN_SHORT} steps, mean loss of the first 5 {first:.4f} -> "
+          f"last 5 {last:.4f}; served on the kernels within "
+          f"{rep['served_max_abs_err']:.2e} of the reference (launches "
+          f"{launched})")
+    return rep
+
+
+def same_tensors(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        same_bits(got[k], want[k]) for k in want)
+
+
+def check_restart(arch: str, device) -> dict:
+    """Save at step 3, restore into a fresh state on ``device``, continue:
+    bit for bit the uninterrupted 6 steps (parameters and moments), as
+    ``repro``'s ``tests/test_system.py`` holds."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.registry import get_config
+    from repro_torch.training import adamw_init, make_train_step
+
+    m = build_model(get_config(arch))
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=20,
+                          weight_decay=0.0)
+    step = make_train_step(m, TrainConfig(optimizer=opt))
+    x, y = tagger_dataset(arch, 256, 0)
+
+    def run(params, st, steps):
+        for i in steps:
+            idx = np.random.RandomState(100 + i).randint(0, len(x), 32)
+            params, st, _ = step(params, st, {
+                "x": torch.from_numpy(x[idx]).to(device),
+                "y": torch.from_numpy(y[idx]).to(device)})
+        return params, st
+
+    p0 = m.init(torch.Generator().manual_seed(0), device=device)
+    pa, sa = run(p0, adamw_init(p0, opt), range(6))
+    pb, sb = run(p0, adamw_init(p0, opt), range(3))
+    ckpt = TRAIN_CKPT / arch
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(3, pb, sb)
+    _, pr, o = mgr.restore(device=device)
+    sr = adamw_init(pr, opt)._replace(
+        step=torch.tensor(o["step"], dtype=torch.int32, device=device),
+        m=o["m"], v=o["v"])
+    pc, sc = run(pr, sr, range(3, 6))
+    check(same_tensors(pc, pa) and same_tensors(sc.m, sa.m)
+          and same_tensors(sc.v, sa.v) and int(sc.step) == int(sa.step),
+          f"{arch}: the restarted run differs from the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"train {arch}: saved at step 3, restored on {device}, 3 more "
+          f"steps: parameters and moments bit for bit the uninterrupted 6")
+    return {"bit_for_bit": True}
+
+
+def check_grad_accum(device) -> dict:
+    """``grad_accum=2`` against one step on the full batch (rtol 1e-4, as
+    ``repro``'s ``tests/test_optimizer.py`` holds it)."""
+    import torch
+
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.registry import get_config
+    from repro_torch.training import adamw_init, make_train_step
+
+    m = build_model(get_config("top-tagging-gru"))
+    tc = TrainConfig(optimizer=OptimizerConfig(
+        lr=1e-2, warmup_steps=0, total_steps=10, grad_clip=0,
+        weight_decay=0))
+    x, y = tagger_dataset("top-tagging-gru", TRAIN_BATCH, HELD_OUT[1])
+    batch = {"x": torch.from_numpy(x).to(device),
+             "y": torch.from_numpy(y).to(device)}
+    p = m.init(torch.Generator().manual_seed(0), device=device)
+    st = adamw_init(p, tc.optimizer)
+    p1, _, m1 = make_train_step(m, tc, grad_accum=1)(p, st, batch)
+    p2, _, m2 = make_train_step(m, tc, grad_accum=2)(p, st, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(abs(l1 - l2) <= 1e-5 * abs(l1), f"accum 2 loss {l2} vs {l1}")
+    worst = 0.0
+    for k in p1:
+        a, b = p1[k].cpu().numpy(), p2[k].cpu().numpy()
+        check(bool(np.all(np.abs(a - b) <= 1e-5 + 1e-4 * np.abs(b))),
+              f"accum 2 {k}: differs by {float(np.abs(a - b).max())}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    print(f"train top-tagging-gru: grad_accum=2 matches the full batch of "
+          f"{TRAIN_BATCH} (loss {l1:.6f} vs {l2:.6f}, params within "
+          f"{worst:.2e})")
+    return {"loss": [l1, l2], "max_abs_diff": worst}
+
+
+def train_path(device) -> dict:
+    """Phase 3 ``train``'s path: the six taggers trained on ``device`` and
+    served on the kernels, the restart, microbatches and compression."""
+    rep = {a: check_top_tagger(a, device) for a in TRAIN_TOP}
+    rep.update({a: check_short_training(a, device) for a in TRAIN_OTHERS})
+    rep["restart"] = {a: check_restart(a, device) for a in RESTART_TAGGERS}
+    rep["grad_accum"] = check_grad_accum(device)
+    rep["compress_grads"] = check_short_training(
+        "flavor-tagging-gru", device, compress_grads=True)
+    return rep
+
+
+def conformance_sweep(device) -> dict:
+    """The port's ``testing.assert_schedule_conformance`` on ``device``:
+    lstm and gru in every float mode at R in {1, 4}, rglru and
+    reuse_matmul at R in {1, 4}, float32 and bfloat16."""
+    from repro_torch.kernels.schedule import KernelSchedule
+    from repro_torch.testing import assert_schedule_conformance
+
+    worst: dict = {}
+    cells = 0
+    for dtype in ("float32", "bfloat16"):
+        for kernel in ("lstm", "gru", "rglru", "reuse_matmul"):
+            modes = SWEEP_MODES if kernel in ("lstm", "gru") else \
+                SWEEP_MODES[:1]
+            for what, kw in modes:
+                for reuse in REUSES:
+                    err = assert_schedule_conformance(
+                        kernel, KernelSchedule(reuse_factor=reuse, **kw),
+                        dtype=dtype, device=device)
+                    key = f"{kernel} {dtype}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    cells += 1
+    print(f"conformance harness on {device}: {cells} cells within "
+          f"CONFORMANCE_TOL; max abs err {worst}")
+    return {"cells": cells, "max_abs_err": worst}
+
+
+def step_timing(arch: str, device) -> dict:
+    """One tagger's training step on the card: ``TIMED_STEPS`` steps, each
+    on the host clock around a call that ends synchronised, after two
+    warm-up steps; and the device kernels of one step from a
+    ``torch.profiler`` trace."""
+    import torch
+
+    from repro_torch.training import adamw_init
+
+    m, opt, step = train_setup(arch, TRAIN_STEPS)
+    params = m.init(torch.Generator().manual_seed(0), device=device)
+    st = adamw_init(params, opt)
+    x, y = tagger_dataset(arch, TRAIN_BATCH, 7)
+    batch = {"x": torch.from_numpy(x).to(device),
+             "y": torch.from_numpy(y).to(device)}
+    walls = []
+    for i in range(TIMED_STEPS + 2):
+        t0 = time.perf_counter()
+        params, st, _ = step(params, st, batch)
+        sync(device)
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    trace = device_trace(lambda: step(params, st, batch), inference=False)
+    kernels = sum(g["launches"] for g in trace.get("kernels", {}).values())
+    rep = {"ms_per_step": float(np.median(walls)), "ms_min": min(walls),
+           "ms_max": max(walls), "trace": trace, "device_kernels": kernels}
+    print(f"train {arch}: {float(np.median(walls)):.2f} ms/step (median of "
+          f"{TIMED_STEPS}, {min(walls):.2f}-{max(walls):.2f}; batch "
+          f"{TRAIN_BATCH}, host clock, synchronised); one step: {kernels} "
+          f"device kernels, busy {trace.get('busy_ms', float('nan')):.3f} of "
+          f"{trace.get('span_ms', float('nan')):.3f} ms (idle "
+          f"{trace.get('idle_share', float('nan')):.1%}); {card_line()}")
+    return rep
+
+
+def phase_train(device) -> tuple:
+    """Phase 3 ``train``, driven with the counts set to 0: the taggers
+    trained on the card through the port's trainer and served on the
+    kernels (``train_path``).  Then, outside the counts, the conformance
+    harness on the card and each tagger's training step timed and traced.
+    Returns (launches, report)."""
+    t0 = time.perf_counter()
+    launches, rep = drive("train", lambda: train_path(device),
+                          ("lstm_scan", "gru_scan", "col_matmul",
+                           "quant_matmul"))
+    for arch in (*TRAIN_TOP, *TRAIN_OTHERS):
+        served = rep[arch]["served_launches"]
+        scan = "lstm_scan" if arch.endswith("lstm") else "gru_scan"
+        check(served.get(scan, 0) > 0 and served.get("col_matmul", 0) > 0,
+              f"{arch}: the trained weights were not served on {scan} and "
+              f"col_matmul: {served}")
+    for arch in TRAIN_TOP:
+        check(rep[arch]["native_launches"].get("quant_matmul", 0) > 0,
+              f"{arch}: native <8,3> launched {rep[arch]['native_launches']}")
+    rep["conformance"] = conformance_sweep(device)
+    rep["steps"] = {a: step_timing(a, device)
+                    for a in (*TRAIN_TOP, *TRAIN_OTHERS)}
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"train: {rep['seconds']:.1f} s")
+    return launches, rep
+
+
 def phase_timing(device) -> tuple:
     """Kernel, plain and library times and the bound at B = 256, and whole
     scans end to end."""
@@ -3833,6 +4223,7 @@ def main() -> int:
     launches["lm_decode"], lm = phase_lm_decode(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
     launches.update(phase_rglru(device))
+    launches["train"], train_rep = phase_train(device)
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
@@ -3840,7 +4231,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "timings": rows, "nonstatic_scans": scans,
          "lm_decode": lm, "autotune": autotune_rows,
-         "robustness": robustness, "launches": launches,
+         "robustness": robustness, "train": train_rep,
+         "launches": launches,
          "max_abs_err": errs},
         indent=1))
 

@@ -1,14 +1,15 @@
-"""Configuration dataclasses of the paper's taggers and the dense LMs.
+"""Configuration dataclasses of the paper's taggers, the dense LMs and
+training.
 
-The port's copy of the parts of ``repro.config`` that the LSTM/GRU taggers
-and the dense decoder's single-step decode use.  Configs are frozen
-(hashable) so they can key caches and embed schedules.
+The port's copy of the parts of ``repro.config`` that the LSTM/GRU taggers,
+the dense decoder's single-step decode and the trainer use.  Configs are
+frozen (hashable) so they can key caches and embed schedules.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from repro_torch.kernels.schedule import KernelSchedule
@@ -74,6 +75,7 @@ class ModelConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    grad_accum: int = 1                # microbatch steps inside train_step
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
@@ -112,6 +114,33 @@ class ModelConfig:
             prev = h
         n += prev * r.n_outputs + r.n_outputs
         return n
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    state_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    grad_accum: int = 1
+    loss_dtype: str = "float32"
+    z_loss: float = 1e-4
+    compress_grads: bool = False       # int8 gradient compression
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

@@ -23,4 +23,5 @@ CONFIG = ModelConfig(
     logits_softcap=30.0,
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
+    grad_accum=4,     # 256k-vocab f32 logits: keep microbatch loss under HBM
 )

@@ -26,27 +26,55 @@ from __future__ import annotations
 import torch
 
 
+def _k_ordered(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ [K, N] of CPU tensors of one floating dtype: every output
+    the k-ascending sum of its K products, each product and each sum
+    rounded (bfloat16 operands summed in float32, then rounded once)."""
+    dt = a.dtype
+    N = w.shape[1]
+    acc_dt = dt if dt in (torch.float32, torch.float64) else torch.float32
+    cols = a.to(acc_dt).t().contiguous()                  # [K, M]
+    w = w.to(acc_dt)
+    acc = torch.zeros(cols.shape[1], N, dtype=acc_dt)
+    term = torch.empty_like(acc)
+    for k in range(cols.shape[0]):
+        torch.mul(cols[k, :, None], w[k], out=term)
+        acc.add_(term)
+    return acc.to(dt)
+
+
+class _KOrderedMatmul(torch.autograd.Function):
+    """:func:`_k_ordered` with its gradients: ``grad @ wᵀ`` and
+    ``aᵀ @ grad``, each through :func:`matmul` again (k-ordered, and
+    differentiable once more)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _k_ordered(a, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        ga = matmul(grad, w.t()) if ctx.needs_input_grad[0] else None
+        gw = matmul(a.t(), grad) if ctx.needs_input_grad[1] else None
+        return ga, gw
+
+
 def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` ([..., K] @ [K, N]) in the promoted type of the two
     operands, as jnp's ``@``.  On CPU tensors every output is the
     k-ascending sum of its K products, each product and each sum rounded
     (bfloat16 operands summed in float32, then rounded once), so a row's
-    bits do not depend on M; on other devices ``torch.matmul``."""
+    bits do not depend on M; its gradients are taken the same way.  On
+    other devices ``torch.matmul``."""
     dt = torch.promote_types(a.dtype, w.dtype)
     a, w = a.to(dt), w.to(dt)
     if a.device.type != "cpu" or not dt.is_floating_point:
         return a @ w
     K, N = w.shape
     lead = a.shape[:-1]
-    acc_dt = dt if dt in (torch.float32, torch.float64) else torch.float32
-    cols = a.reshape(-1, K).to(acc_dt).t().contiguous()   # [K, M]
-    w = w.to(acc_dt)
-    acc = torch.zeros(cols.shape[1], N, dtype=acc_dt)
-    term = torch.empty_like(acc)
-    for k in range(K):
-        torch.mul(cols[k, :, None], w[k], out=term)
-        acc.add_(term)
-    return acc.to(dt).reshape(*lead, N)
+    return _KOrderedMatmul.apply(a.reshape(-1, K), w).reshape(*lead, N)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

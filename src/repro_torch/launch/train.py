@@ -1,0 +1,147 @@
+"""Trainer entry point: ``python -m repro_torch.launch.train --arch <id>
+[options]``.
+
+The port of ``repro.launch.train`` for the paper's taggers: seeded
+parameters + AdamW train step + checkpoint manager + straggler hook, on
+``--device`` (``cuda`` unless the caller asks for ``cpu``).  The forward and
+backward run on the reference path (``kernels/ref.py``), as ``repro``
+trains on its ``lax.scan`` reference; the trained parameters are served on
+the kernels by ``RNNServingEngine``.  The LM family (a sequence forward and
+``lm_loss``) is ROADMAP.md module item 10; a mesh is module item 12.
+
+As in ``repro``, ``resume`` restores the parameters and the optimizer
+state of the latest checkpoint and starts the batch stream again at its
+first batch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.config import OptimizerConfig, TrainConfig
+from repro_torch.data import (flavor_tagging_dataset, quickdraw_dataset,
+                              top_tagging_dataset)
+from repro_torch.ft import StragglerPolicy
+from repro_torch.models.model import build_model
+from repro_torch.registry import get_config
+from repro_torch.testing import tiny_config
+from repro_torch.training import adamw_init, make_train_step
+
+RNN_DATA = {
+    "top-tagging": top_tagging_dataset,
+    "flavor-tagging": flavor_tagging_dataset,
+    "quickdraw": quickdraw_dataset,
+}
+
+
+def _rnn_batches(cfg, batch, seed=0, device="cuda"):
+    for key, fn in RNN_DATA.items():
+        if key in cfg.name:
+            x, y = fn(4096, seed=seed)
+            step = 0
+            while True:
+                idx = np.random.RandomState(step).randint(0, len(x), batch)
+                yield {"x": torch.from_numpy(x[idx]).to(device),
+                       "y": torch.from_numpy(y[idx]).to(device)}
+                step += 1
+    raise KeyError(cfg.name)
+
+
+def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
+          seq_len: int = 128, mesh_shape: Optional[tuple] = None,
+          checkpoint_dir: Optional[str] = None, resume: bool = False,
+          tiny: bool = False, log_every: int = 10,
+          device: Union[str, torch.device] = "cuda"):
+    """Train ``arch`` for ``steps`` steps; returns (params, last logged
+    loss), the parameters as tensors on ``device`` that need no gradient."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "train(device='cuda'): no CUDA device is available; pass "
+            "device='cpu' to train on the CPU")
+    if mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape={mesh_shape}: the port has no mesh yet (ROADMAP.md "
+            f"module item 12)")
+    cfg = get_config(arch)
+    if tiny:
+        cfg = tiny_config(cfg)
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    if cfg.family != "rnn":
+        raise NotImplementedError(
+            f"train({arch!r}): the port trains the taggers; the LM's "
+            f"sequence forward and lm_loss are ROADMAP.md module item 10 "
+            f"(seq_len={seq_len} unused)")
+    model = build_model(cfg)
+
+    opt_cfg = OptimizerConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
+                              total_steps=steps, weight_decay=0.01)
+    tc = TrainConfig(optimizer=opt_cfg)
+    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    straggler = StragglerPolicy()
+
+    # drawn on a CPU generator: the same weights on every device
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    opt_state = adamw_init(params, opt_cfg)
+    start = 0
+    if ckpt and resume and ckpt.latest_step() is not None:
+        start, params, opt = ckpt.restore(device=device)
+        if opt:
+            opt_state = opt_state._replace(
+                step=torch.tensor(opt["step"], dtype=torch.int32,
+                                  device=device),
+                m=opt["m"], v=opt["v"])
+        print(f"[train] resumed from step {start}")
+
+    step_fn = make_train_step(model, tc, grad_accum=1)
+    batches = _rnn_batches(cfg, batch, device=device)
+
+    t_last = time.time()
+    loss = float("nan")
+    for i in range(start, steps):
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             next(batches))
+        straggler.record_step(0, time.time() - t0)
+        if (i + 1) % log_every == 0 or i == steps - 1:
+            loss = float(metrics["loss"])
+            dt = (time.time() - t_last) / log_every
+            t_last = time.time()
+            print(f"[train] step {i+1}/{steps} loss={loss:.4f} "
+                  f"acc={float(metrics.get('accuracy', 0)):.3f} "
+                  f"{dt*1e3:.0f}ms/step", flush=True)
+        if ckpt and (i + 1) % tc.checkpoint_every == 0:
+            ckpt.save(i + 1, params, opt_state)
+    if ckpt:
+        ckpt.save(steps, params, opt_state)
+    return params, loss
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--tiny", action="store_true",
+                    help="reduced config (testing.tiny_config; the taggers "
+                    "are already small)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args()
+    train(args.arch, args.steps, args.batch, args.lr, args.seq_len,
+          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+          tiny=args.tiny, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,19 @@
 """Unified model facade: one object per architecture with its parameter
-specs and seeded initialisation, dispatched by config family.
+specs, seeded initialisation, training loss and forward pass, dispatched by
+config family.
 
 The port of ``repro/models/model.py`` for the families the port runs: the
 taggers (``rnn``) and the dense decoder.  Any other family raises
 ``NotImplementedError`` naming ``ROADMAP.md`` module item 10; nothing else
-runs in its place.
+runs in its place.  The dense decoder's ``loss`` and ``forward`` raise it
+too: the port has its single-step decode, not ``transformer.forward`` over
+a whole sequence or ``lm_loss``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -36,6 +39,23 @@ class Model:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         return init_params(self.param_specs(), generator, device)
+
+    def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """The training loss of ``batch`` (``{"x", "y"}``) and its metrics."""
+        self._require_rnn("loss")
+        return rnn_tagger.loss_fn(self.cfg, params, batch["x"], batch["y"])
+
+    def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Class probabilities of ``batch["x"]`` on the reference path."""
+        self._require_rnn("forward")
+        return rnn_tagger.forward(self.cfg, params, batch["x"])
+
+    def _require_rnn(self, what: str) -> None:
+        if self.cfg.family != "rnn":
+            raise NotImplementedError(
+                f"Model.{what} of {self.cfg.name!r} ({self.cfg.family}): the "
+                f"port has no sequence forward or lm_loss for the LM yet "
+                f"(ROADMAP.md module item 10)")
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -8,7 +8,9 @@ Parameters keep the JAX package's flat layout and names
 (``rnn/kernel`` [in, G*h], ``rnn/recurrent`` [h, G*h], ``rnn/bias`` [G*h]
 or [2, 3h] for the GRU, ``dense{i}/w`` [in, out], ``dense{i}/b``,
 ``head/w``, ``head/b``), so both packages compute the same function on the
-same weights.
+same weights.  :func:`forward` and :func:`loss_fn` take such a mapping of
+tensors (the trainer differentiates through them); :class:`RNNTagger` holds
+frozen float32 weights for serving and calls :func:`forward` on them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.config import FixedPointConfig, ModelConfig
 from repro_torch.core.quant.fixed_point import is_native_int, quantize
@@ -105,44 +108,85 @@ class RNNTagger(nn.Module):
                 mode: Optional[str] = None, impl: str = "xla",
                 schedule=None, lengths=None,
                 return_logits: bool = False) -> torch.Tensor:
-        """[b, T, features] -> class probabilities [b, n_outputs] (or the
-        pre-activation logits).  ``schedule`` overrides the config-derived
-        schedule of the recurrent layer; ``lengths`` [b] routes a padded
-        batch through the masked-scan ragged path.  ``fp`` quantizes the
-        recurrent layer and every point of the dense head to the ap_fixed
-        grid, as hls4ml does; the softmax takes unquantized logits (its LUT
-        gets extra precision in hls4ml, paper Sec. 5.1).  Where the layer
-        runs on the kernels (``impl="pallas"``, float or native int ``fp``)
-        the head's products run on ``col_matmul``, so a row's answer has
-        the same bits in every batch; the ap_fixed emulation keeps its
-        head on the reference product, as its cells."""
-        rnn = self.cfg.rnn
-        p = self.weights
-        h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
-                      p["rnn/bias"], fp=fp, mode=mode, impl=impl,
-                      schedule=schedule, lengths=lengths)
+        """:func:`forward` on this tagger's weights."""
+        return forward(self.cfg, self.weights, x, fp=fp, mode=mode,
+                       impl=impl, schedule=schedule, lengths=lengths,
+                       return_logits=return_logits)
 
-        def q(t):
-            return t if fp is None else quantize(t, fp)
 
-        on_kernel = impl == "pallas" and (fp is None or is_native_int(fp))
+def forward(
+    cfg: ModelConfig,
+    params: Mapping[str, torch.Tensor],
+    x: torch.Tensor,                     # [b, T, features]
+    *,
+    fp: Optional[FixedPointConfig] = None,
+    mode: Optional[str] = None,
+    impl: str = "xla",
+    schedule=None,
+    lengths=None,
+    return_logits: bool = False,
+) -> torch.Tensor:
+    """[b, T, features] -> class probabilities [b, n_outputs] (or the
+    pre-activation logits), on ``params``, a flat mapping of tensors in the
+    layout of :func:`param_specs`; gradients flow to them.  ``schedule``
+    overrides the config-derived schedule of the recurrent layer;
+    ``lengths`` [b] routes a padded batch through the masked-scan ragged
+    path.  ``fp`` quantizes the recurrent layer and every point of the
+    dense head to the ap_fixed grid, as hls4ml does; the softmax takes
+    unquantized logits (its LUT gets extra precision in hls4ml, paper Sec.
+    5.1).  Where the layer runs on the kernels (``impl="pallas"``, float or
+    native int ``fp``) the head's products run on ``col_matmul``, so a
+    row's answer has the same bits in every batch; the reference and the
+    ap_fixed emulation keep the head on the reference product, as their
+    cells."""
+    rnn = cfg.rnn
+    p = params
+    h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
+                  p["rnn/bias"], fp=fp, mode=mode, impl=impl,
+                  schedule=schedule, lengths=lengths)
 
-        def dense(a, w):
-            # the kernel path (float, native int) runs the head on
-            # col_matmul, each output one k-ascending chain whatever the
-            # batch; the reference and the ap_fixed emulation on
-            # ref.matmul.  Both sum in k order on the CPU
-            if on_kernel:
-                return col_matmul_kernel(a.contiguous(), w.contiguous())
-            return matmul(a, w)
+    def q(t):
+        return t if fp is None else quantize(t, fp)
 
-        h = q(h.float())
-        for i in range(len(rnn.dense_sizes)):
-            h = q(dense(h, q(p[f"dense{i}/w"])) + q(p[f"dense{i}/b"]))
-            h = q(torch.relu(h))
-        logits = dense(h, q(p["head/w"])) + q(p["head/b"])
-        if return_logits:
-            return logits
-        if rnn.output_activation == "sigmoid":
-            return sigmoid(q(logits))
-        return torch.softmax(logits.float(), dim=-1)
+    on_kernel = impl == "pallas" and (fp is None or is_native_int(fp))
+
+    def dense(a, w):
+        # the kernel path (float, native int) runs the head on col_matmul,
+        # each output one k-ascending chain whatever the batch; the
+        # reference and the ap_fixed emulation on ref.matmul.  Both sum in
+        # k order on the CPU
+        if on_kernel:
+            return col_matmul_kernel(a.contiguous(), w.contiguous())
+        return matmul(a, w)
+
+    h = q(h.float())
+    for i in range(len(rnn.dense_sizes)):
+        h = q(dense(h, q(p[f"dense{i}/w"])) + q(p[f"dense{i}/b"]))
+        h = q(torch.relu(h))
+    logits = dense(h, q(p["head/w"])) + q(p["head/b"])
+    if return_logits:
+        return logits
+    if rnn.output_activation == "sigmoid":
+        return sigmoid(q(logits))
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def loss_fn(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
+            x: torch.Tensor, y: torch.Tensor):
+    """Binary or categorical cross entropy (matches the paper's training)
+    on the reference forward, and the accuracy: ``(loss, {"loss",
+    "accuracy"})``."""
+    rnn = cfg.rnn
+    logits = forward(cfg, params, x, return_logits=True)
+    if rnn.output_activation == "sigmoid":
+        yl = y.float().reshape(logits.shape)
+        ls = F.logsigmoid(logits)
+        lns = F.logsigmoid(-logits)
+        loss = -torch.mean(yl * ls + (1 - yl) * lns)
+        acc = torch.mean(((logits[..., 0] > 0) == (y > 0.5)).float())
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        labels = y.long()[:, None]
+        loss = -torch.mean(torch.gather(logp, -1, labels))
+        acc = torch.mean((torch.argmax(logits, -1) == labels[:, 0]).float())
+    return loss, {"loss": loss, "accuracy": acc}

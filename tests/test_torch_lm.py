@@ -45,12 +45,12 @@ from repro_torch.serving.engine import EngineClosedError  # noqa: E402
 
 ARCHS = ("gemma-2b", "stablelm-3b")
 #: repro's ModelConfig fields the port does not carry: other families,
-#: enc-dec, frontends, training / dry-run knobs; the dense decode path
-#: reads none of them
+#: enc-dec, frontends, dry-run / sharding knobs; the dense decode path
+#: reads none of them (``grad_accum`` is carried: the trainer reads it)
 NOT_PORTED = {"moe", "ssm", "rglru", "enc_dec", "n_encoder_layers",
               "n_decoder_layers", "max_encoder_len", "frontend",
               "n_frontend_tokens", "scan_layers", "remat", "attn_chunk_q",
-              "attn_chunk_kv", "impl", "grad_accum", "seq_shard_residual",
+              "attn_chunk_kv", "impl", "seq_shard_residual",
               "probe_unroll"}
 
 
