@@ -139,6 +139,36 @@ In order, it
                 bit, the einsum logits agree within 2e-2; one executor per
                 key; the R = 1 key's ``prewarm`` before the first tick
                 (no launch);
+       speculative  gemma-2b again, on six keys (``SPEC_KEYS``: R = 1,
+                the default key, R = 1 + ``SpecConfig(k=4)`` (n-gram
+                draft), the same with ``trim=True``, R = 1 +
+                ``SpecConfig(k=2, draft=R4)``, the default key +
+                ``SpecConfig(k=3)``): each speculative key's tokens equal
+                its sequential key's bit for bit for every request,
+                ``verify_spec_accounting`` holds, one verify executor and
+                at most one draft executor, ``prewarm(..., spec=)``
+                launches nothing, and ``decode_matmul`` is called exactly
+                72 times a sequential R = 1 tick, a verify round and a
+                draft step; then, outside the counts, ``decode_steps`` over
+                5 tokens against 5 ``decode_step`` calls on a fresh cache
+                (R = 1 and 4, logits and caches bit for bit), ``kv_trim``
+                after wrong-branch writes (the clean prefix's cache bit for
+                bit), ``decode_matmul(x)[rows] == decode_matmul(x[rows])``
+                at M in {4, 8, 12, 20} at gemma-2b's four products, and the
+                verify pass (B = 4, S = 5) and ``decode_matmul`` at M = 20
+                timed beside one sequential step and ``torch.matmul``, with
+                device traces; per key tokens/s (accepted tokens), round
+                p50 / p99 and the accept rate;
+       speculative_rnn  ``speculative_generate`` over a toy LM on the
+                native ``ap_fixed<8,3>`` ``rnn_decode_step`` (``quant_matmul``)
+                at k in {2, 4}: the tokens of sequential greedy decode;
+       dense_lms  deepseek-coder-33b (4 of its 62 layers) and
+                nemotron-4-340b (1 of 96) at their published widths, bf16,
+                seeded weights drawn on the card, one after the other
+                through ``LMServingEngine(device="cuda")`` on keys R = 1,
+                R = 4 and the default: R = 1 and R = 4 give the same tokens
+                and first-step logits bit for bit, the einsum logits agree
+                within 2e-2, 4·L ``decode_matmul`` calls a scheduled tick;
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -2708,6 +2738,520 @@ def phase_lm_decode(device) -> tuple:
     return launches, report
 
 
+#: phase 3 ``speculative``: label -> (reuse factor of the key's schedule or
+#: None for the default key's einsum path, SpecConfig keywords or None for
+#: sequential decode; ``draft`` as a reuse factor)
+SPEC_KEYS = {"R1": (1, None),
+             "default": (None, None),
+             "R1 + ngram k4": (1, {"k": 4}),
+             "R1 + ngram k4 trim": (1, {"k": 4, "trim": True}),
+             "R1 + draft R4 k2": (1, {"k": 2, "draft": 4}),
+             "default + ngram k3": (None, {"k": 3})}
+#: the verify pass's chunk checked against the sequential chain
+SPEC_CHUNK = 5
+#: decode_matmul's rows checked independent of M (the verify pass runs M =
+#: LM_BATCH * (k+1) = 20 at k = 4)
+SPEC_ROWS = (4, 8, 12, 20)
+#: the dense LMs at their published widths, cut in depth to fit one card
+#: (bf16 params): deepseek-coder-33b 4 of 62 layers (~4.2 GB of layers,
+#: 0.9 GB of embeddings), nemotron-4-340b 1 of 96 (~6.9 GB, 18.9 GB of
+#: untied embed and unembed)
+DENSE_LMS = {"deepseek-coder-33b": 4, "nemotron-4-340b": 1}
+#: the speculative loop over the native ap_fixed<8,3> rnn_decode_step
+#: oracle: draft lengths, prompt, new tokens
+ORACLE_KS = (2, 4)
+ORACLE_PROMPT = (3, 1, 3, 1)
+ORACLE_NEW = 8
+
+
+def spec_schedule(reuse):
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    return None if reuse is None else KernelSchedule(reuse_factor=reuse)
+
+
+def spec_config(kw):
+    from repro_torch.serving import SpecConfig
+
+    if kw is None:
+        return None
+    kw = dict(kw)
+    draft = kw.pop("draft", None)
+    return SpecConfig(**kw, draft=spec_schedule(draft))
+
+
+def check_verify_chain(cfg, params, packed, device) -> dict:
+    """One ``decode_steps`` chunk of ``SPEC_CHUNK`` tokens a row against as
+    many sequential ``decode_step`` calls on a fresh cache, at R = 1 and R =
+    4: the same bits in the logits and both caches.  Then ``kv_trim``: the
+    chunk written past a 3-token prefix, trimmed back, gives the prefix's
+    cache bit for bit, and the next step from it the same logits."""
+    import torch
+
+    from repro_torch.models.decode import (decode_step, decode_steps,
+                                           init_cache, kv_trim)
+
+    B, S = LM_BATCH, SPEC_CHUNK
+    gen = torch.Generator(device=device).manual_seed(41)
+    toks = torch.randint(2, cfg.vocab_size, (B, S + 3), generator=gen,
+                         device=device)
+    pos0 = torch.tensor([0, 3, 9, 17][:B], device=device)
+    out = {}
+    with torch.inference_mode():
+        for r in (1, 4):
+            s = spec_schedule(r)
+            cache = init_cache(cfg, B, LM_SEQ, "float32", device)
+            seq = []
+            for i in range(S):
+                li, cache = decode_step(cfg, params, cache,
+                                        toks[:, i:i + 1], pos0 + i,
+                                        schedule=s, packed=packed)
+                seq.append(li)
+            want = torch.cat(seq, 1)
+            got, gcache = decode_steps(
+                cfg, params, init_cache(cfg, B, LM_SEQ, "float32", device),
+                toks[:, :S], pos0, schedule=s, packed=packed)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{cfg.name}: decode_steps logits not finite (R={r})")
+            check(same_bits(got, want) and all(
+                same_bits(gcache[k], cache[k]) for k in cache),
+                f"{cfg.name}: decode_steps over {S} tokens differs from "
+                f"{S} decode_steps (R={r}): logits "
+                f"{float((got.float() - want.float()).abs().max())}")
+            out[f"R{r}"] = True
+        s = spec_schedule(1)
+        clean = init_cache(cfg, B, LM_SEQ, "float32", device)
+        for i in range(3):
+            _, clean = decode_step(cfg, params, clean, toks[:, i:i + 1],
+                                   pos0 + i, schedule=s, packed=packed)
+        _, dirty = decode_steps(cfg, params, dict(clean), toks[:, 3:3 + S],
+                                pos0 + 3, schedule=s, packed=packed)
+        trimmed = kv_trim(dirty, pos0 + 3)
+        nxt = [decode_step(cfg, params, c, toks[:, 3:4], pos0 + 3,
+                           schedule=s, packed=packed)[0]
+               for c in (trimmed, clean)]
+        torch.cuda.synchronize()
+    check(not same_bits(dirty["cache/k"], clean["cache/k"]),
+          f"{cfg.name}: the wrong-branch chunk wrote nothing")
+    check(all(same_bits(trimmed[k], clean[k]) for k in clean)
+          and same_bits(*nxt),
+          f"{cfg.name}: kv_trim does not give the clean prefix's cache")
+    out["kv_trim"] = True
+    print(f"{cfg.name}: decode_steps over {S} tokens == {S} decode_steps "
+          f"bit for bit (logits, caches) at R=1 and R=4; kv_trim after "
+          f"{S} wrong-branch writes == the clean prefix bit for bit")
+    return out
+
+
+def check_rows_independent_of_m(cfg, device) -> dict:
+    """``decode_matmul(x)[rows] == decode_matmul(x[rows])`` at every M of
+    ``SPEC_ROWS``, at the model's four products (bf16, R = 1 and 4): the
+    verify pass's rows have the sequential step's bits.  Outside the
+    counts."""
+    import torch
+
+    from repro_torch.kernels.decode_step import (decode_layout,
+                                                 decode_matmul_kernel)
+
+    gen = torch.Generator(device=device).manual_seed(43)
+    M = max(SPEC_ROWS)
+    layouts = {}
+    for prod, (K, N) in lm_products(cfg).items():
+        x = torch.randn(M, K, generator=gen, device=device).to(
+            torch.bfloat16)
+        w = (torch.randn(K, N, generator=gen, device=device)
+             / np.sqrt(K)).to(torch.bfloat16)
+        for r in REUSES:
+            full = decode_matmul_kernel(x, w, reuse=r)
+            for m in SPEC_ROWS:
+                picks = torch.randperm(M, generator=gen, device=device)
+                for rows in (torch.arange(m, device=device),
+                             torch.arange(M - m, M, device=device),
+                             picks[:m].sort().values):
+                    got = decode_matmul_kernel(x[rows], w, reuse=r)
+                    check(same_bits(got, full[rows]),
+                          f"{cfg.name} {prod} R={r}: decode_matmul rows "
+                          f"{rows.tolist()} differ between M={m} and "
+                          f"M={M}")
+        layouts[prod] = {m: decode_layout(m, K, N, 1, True)._asdict()
+                         for m in SPEC_ROWS}
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: decode_matmul rows bit for bit independent of M in "
+          f"{SPEC_ROWS} at the four products, R in {REUSES}")
+    return layouts
+
+
+def time_verify(cfg, params, packed, device) -> dict:
+    """The verify pass beside the sequential step at B = ``LM_BATCH``
+    (CUDA events, R = 1), each with a device trace; and ``decode_matmul``
+    at the verify pass's M = ``LM_BATCH * SPEC_CHUNK`` (20) against
+    ``torch.matmul`` at the model's four products (events, device time,
+    L2-cold events, bound)."""
+    import torch
+
+    from repro_torch.kernels.decode_step import (decode_layout,
+                                                 decode_matmul_kernel)
+    from repro_torch.models.decode import (decode_step, decode_steps,
+                                           init_cache)
+
+    B, S = LM_BATCH, SPEC_CHUNK
+    s = spec_schedule(1)
+    cache = init_cache(cfg, B, LM_SEQ, "float32", device)
+    toks = torch.full((B, S), 7, dtype=torch.int64, device=device)
+    pos = torch.full((B,), 20, dtype=torch.int64, device=device)
+    calls = {"verify": lambda: decode_steps(cfg, params, cache, toks, pos,
+                                            schedule=s, packed=packed),
+             "step": lambda: decode_step(cfg, params, cache, toks[:, :1],
+                                         pos, schedule=s, packed=packed)}
+    out = {}
+    for what, fn in calls.items():
+        ms = time_ms(fn, 10)
+        trace = {}
+        for _ in range(3):
+            trace = device_trace(fn)
+            if trace:
+                break
+        out[what] = {"ms": ms, "trace": trace}
+    kernels = cfg.n_layers * sum(decode_layout(B * S, K, N, 1, True).launches
+                                 for K, N in lm_products(cfg).values())
+    got = out["verify"]["trace"].get("kernels", {}).get(
+        "decode_matmul", {}).get("launches")
+    check(got == kernels, f"{cfg.name}: a verify pass's trace shows {got} "
+          f"decode_matmul kernels, expected {kernels}")
+    out["verify"]["decode_matmul_kernels"] = got
+    gen = torch.Generator(device=device).manual_seed(44)
+    rows = []
+    for prod, (K, N) in lm_products(cfg).items():
+        x = torch.randn(B * S, K, generator=gen, device=device).to(
+            torch.bfloat16)
+        w = (torch.randn(K, N, generator=gen, device=device)
+             / np.sqrt(K)).to(torch.bfloat16)
+        kern = (lambda x=x, w=w: decode_matmul_kernel(x, w, reuse=1))
+        lib = (lambda x=x, w=w: torch.matmul(x, w))
+        b_ms, b_by, _ = bound((x, w), kern(), 2.0 * B * S * K * N,
+                              BF16_PEAK)
+        lay = decode_layout(B * S, K, N, 1, True)
+        row = {"product": prod, "M": B * S, "K": K, "N": N,
+               "ms": time_ms(kern, 50), "library_ms": time_ms(lib, 50),
+               "device_ms": per_call(kern, "decode_matmul", 20),
+               "library_device_ms": per_call(lib, "other", 20),
+               "cold_ms": time_cold_ms(kern, 20),
+               "library_cold_ms": time_cold_ms(lib, 20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "m_tiles": lay.m_tiles, "layout": lay._asdict()}
+        rows.append(row)
+        print(f"  decode_matmul {prod:8s} ({B * S},{K})@({K},{N}) bf16: "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}, L2 cold "
+              f"{row['cold_ms']:.4f}; {lay.m_tiles} m tiles), torch.matmul "
+              f"{row['library_ms']:.4f} ms (device "
+              f"{row['library_device_ms']:.4f}, L2 cold "
+              f"{row['library_cold_ms']:.4f}), bound {b_ms:.4f} ms ({b_by})")
+    out["decode_matmul_m20"] = rows
+    print(f"  verify pass (B={B}, S={S}, R=1): {out['verify']['ms']:.3f} ms "
+          f"(trace {json.dumps(out['verify']['trace'])}); one sequential "
+          f"step: {out['step']['ms']:.3f} ms (trace "
+          f"{json.dumps(out['step']['trace'])})")
+    return out
+
+
+def phase_speculative(device) -> tuple:
+    """gemma-2b at its published width and depth (seeded weights drawn on
+    the card) through ``LMServingEngine(device="cuda")`` on the keys of
+    ``SPEC_KEYS``: each speculative key's tokens equal its sequential key's
+    bit for bit for every request, exact accounting, one verify executor
+    and at most one draft executor, a ``prewarm`` that launches nothing,
+    and exactly 4·L ``decode_matmul`` calls a verify round and a draft
+    step (the R = 1 sequential key: 4·L a tick).  Then, outside the
+    counts, the verify chunk against the sequential chain, ``kv_trim``,
+    ``decode_matmul`` rows against M, and the verify pass's time and trace.
+    Returns (launches, a report)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import LMServingEngine
+
+    print(f"speculative: {card_line()}")
+    cfg = get_config(LM)
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    eng = LMServingEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_SEQ,
+                          device=device)
+    keys = {}
+    for label, (r, kw) in SPEC_KEYS.items():
+        sched, spec = spec_schedule(r), spec_config(kw)
+        keys[label] = eng._key_for(sched, spec)
+        if spec is not None:
+            before = dict(cuda.LAUNCHES)
+            pre = eng.prewarm([sched], spec=spec)[keys[label]]
+            check(cuda.LAUNCHES == before and all(
+                v["status"] == "cold" for v in pre.values()),
+                f"{LM} {label}: prewarm {pre}, launches {cuda.LAUNCHES} "
+                f"(before {before})")
+            print(f"{LM}: prewarm of {keys[label]}: "
+                  f"{ {k: v['status'] for k, v in pre.items()} }, no launch")
+    prompts = np.random.RandomState(1).randint(
+        2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).tolist()
+    ids = {label: [] for label in SPEC_KEYS}
+
+    def serve():
+        for label, (r, kw) in SPEC_KEYS.items():
+            for p in prompts:
+                ids[label].append(eng.add_request(
+                    p, max_new=LM_NEW, schedule=spec_schedule(r),
+                    spec=spec_config(kw)))
+        return eng.run_to_completion()
+
+    t0 = time.perf_counter()
+    launches, out = drive("speculative", serve, ("decode_matmul",))
+    serve_s = time.perf_counter() - t0
+    toks = {label: [out[i] for i in v] for label, v in ids.items()}
+    decs = {label: eng._decoders[keys[label]] for label in SPEC_KEYS}
+    acc = eng.verify_spec_accounting()
+    rep = eng.serve_report()
+    per_pass = 4 * cfg.n_layers
+    want_calls = 0
+    for label, (r, kw) in SPEC_KEYS.items():
+        t = toks[label]
+        check(len(t) == LM_BATCH and all(
+            len(x) == LM_PROMPT + LM_NEW and x[:LM_PROMPT] == p
+            for x, p in zip(t, prompts)), f"{LM} {label}: tokens {t}")
+        sd = decs[label].spec_dec
+        if kw is None:
+            check(decs[label].traces == 1, f"{LM} {label}: executors")
+            if r:
+                want_calls += per_pass * decs[label].ticks
+            continue
+        seq = "R1" if r else "default"
+        check(t == toks[seq], f"{LM} {label}: speculative tokens differ "
+              f"from the sequential key's: {t} vs {toks[seq]}")
+        a = acc[keys[label]]
+        check(a["drafted"] == a["accepted"] + a["rejected"],
+              f"{LM} {label}: accounting {a}")
+        check(sd.verify_traces == 1 and sd.draft_traces
+              == (0 if sd.spec.draft is None else 1),
+              f"{LM} {label}: executors {sd.verify_traces} verify, "
+              f"{sd.draft_traces} draft")
+        if r:
+            want_calls += per_pass * (sd.rounds + sd.draft_steps)
+        else:
+            check(sd.draft_steps == 0, f"{LM} {label}: draft steps")
+    check(launches["decode_matmul"] == want_calls,
+          f"{LM}: {launches['decode_matmul']} decode_matmul launches on the "
+          f"speculative path, expected {want_calls} ({per_pass} a tick, a "
+          f"verify round and a draft step)")
+    report = {"model": LM, "card": card_line(), "serve_s": serve_s,
+              "decode_matmul_calls":
+              launches["decode_matmul"], "keys": {}}
+    for label in SPEC_KEYS:
+        dec, row = decs[label], rep[keys[label]]
+        m = row["measured"]
+        report["keys"][label] = {
+            "key": keys[label], "ticks_or_rounds": dec.ticks,
+            "draft_steps": dec.spec_dec.draft_steps if dec.spec_dec else 0,
+            "accept_rate": row["accept_rate"], "spec": row["spec"],
+            **{k: m[k] for k in ("tokens", "tokens_per_s",
+                                 "tick_latency_p50_s", "tick_latency_p99_s")}}
+        r = report["keys"][label]
+        acc_txt = ("" if row["spec"] is None else
+                   f", accept rate {r['accept_rate']}, drafted "
+                   f"{row['spec']['drafted']}, accepted "
+                   f"{row['spec']['accepted']}")
+        print(f"  key {r['key']:48s}: {r['ticks_or_rounds']} "
+              f"{'rounds' if row['spec'] else 'ticks'}, p50 "
+              f"{r['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
+              f"{r['tick_latency_p99_s'] * 1e3:.3f} ms, "
+              f"{r['tokens_per_s']:.1f} tokens/s{acc_txt}")
+    print(f"served {LM} on {len(SPEC_KEYS)} keys in {serve_s:.2f} s: every "
+          f"speculative key's tokens == its sequential key's bit for bit; "
+          f"{launches['decode_matmul']} decode_matmul calls == {per_pass} a "
+          f"tick, verify round and draft step")
+    packed = eng._packed
+    report["verify_chain"] = check_verify_chain(cfg, eng.params, packed,
+                                                device)
+    report["rows_layouts"] = check_rows_independent_of_m(cfg, device)
+    report["timing"] = time_verify(cfg, eng.params, packed, device)
+    del eng, params, decs, packed
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_speculative_rnn(device) -> tuple:
+    """``speculative_generate`` over a stateless toy LM on the native
+    ``ap_fixed<8,3>`` ``rnn_decode_step`` (one-hot embedding, the quantized
+    LSTM step over the context on ``quant_matmul``, h onto the vocab; as
+    ``repro``'s tests/test_speculative.py builds it) at k in ``ORACLE_KS``,
+    driven with the counts set to 0: the tokens equal sequential greedy's
+    over the same oracle, and the counters add up.  Returns (launches, a
+    report)."""
+    import torch
+
+    from repro_torch.config import FixedPointConfig
+    from repro_torch.core.quant.fixed_point import quantize_np
+    from repro_torch.core.rnn.cells import initial_state
+    from repro_torch.kernels.decode_step import rnn_decode_step
+    from repro_torch.serving import speculative_generate
+
+    fp = FixedPointConfig(*FP_NATIVE["int8"][:2])
+    sched = spec_schedule(2)
+    vocab, hidden = 12, 8
+    rng = np.random.RandomState(0)
+    W = quantize_np(rng.randn(vocab, 4 * hidden).astype(np.float32) * .4, fp)
+    U = quantize_np(rng.randn(hidden, 4 * hidden).astype(np.float32) * .4,
+                    fp)
+    b = np.zeros((4 * hidden,), np.float32)
+    E = rng.randn(hidden, vocab).astype(np.float32)
+    Wt, Ut, bt, Et = (torch.from_numpy(a).to(device) for a in (W, U, b, E))
+    eye = torch.eye(vocab, device=device)
+
+    def step_fn(ctx):
+        state = initial_state("lstm", 1, hidden, torch.float32, device)
+        with torch.inference_mode():
+            for t in ctx:
+                h, state = rnn_decode_step("lstm", eye[int(t)][None], state,
+                                           Wt, Ut, bt, schedule=sched, fp=fp)
+            return (h @ Et)[0]
+
+    def greedy(prompt, n):
+        toks = list(prompt)
+        for _ in range(n):
+            toks.append(int(np.argmax(step_fn(toks).float().cpu().numpy())))
+        return toks[len(prompt):]
+
+    want = greedy(ORACLE_PROMPT, ORACLE_NEW)
+
+    def run():
+        return {k: speculative_generate(step_fn, ORACLE_PROMPT, ORACLE_NEW,
+                                        k=k) for k in ORACLE_KS}
+
+    launches, got = drive("speculative_rnn", run, ("quant_matmul",))
+    report = {"sequential": want}
+    for k, (toks, stats) in got.items():
+        check(toks == want, f"speculative_generate k={k} over the native "
+              f"<8,3> oracle: {toks} vs sequential {want}")
+        check(stats["drafted"] == stats["accepted"] + stats["rejected"],
+              f"speculative_generate k={k}: {stats}")
+        report[f"k{k}"] = stats
+        print(f"speculative_generate k={k} over the native ap_fixed<8,3> "
+              f"rnn_decode_step oracle: tokens == sequential greedy "
+              f"{toks}; {stats}")
+    report["quant_matmul_launches"] = launches["quant_matmul"]
+    return launches, report
+
+
+def phase_dense_lms(device) -> tuple:
+    """deepseek-coder-33b and nemotron-4-340b at their published widths,
+    cut in depth (``DENSE_LMS``), seeded weights drawn on the card, each
+    through ``LMServingEngine(device="cuda")`` on keys R = 1, R = 4 and the
+    default (einsum), driven with the counts set to 0: R = 1 and R = 4
+    decode the same tokens with the same first-step logits bit for bit,
+    the einsum logits within the bf16 tolerance, 4·L ``decode_matmul``
+    calls a scheduled tick exactly, one executor a key.  One model at a
+    time, freed before the next.  Returns (launches, a report)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.serving import LMServingEngine
+
+    total = {}
+    report = {}
+    for name, layers in DENSE_LMS.items():
+        full = get_config(name)
+        cfg = full.replace(n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        eng = LMServingEngine(cfg, params, max_batch=LM_BATCH,
+                              max_seq=LM_SEQ, device=device)
+        scheds = {"R1": spec_schedule(1), "R4": spec_schedule(4),
+                  "default": None}
+        prompts = np.random.RandomState(2).randint(
+            2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).tolist()
+        ids = {k: [] for k in scheds}
+
+        def serve():
+            for k, s in scheds.items():
+                for p in prompts:
+                    ids[k].append(eng.add_request(p, max_new=LM_NEW,
+                                                  schedule=s))
+            return eng.run_to_completion()
+
+        t0 = time.perf_counter()
+        launches, out = drive(f"dense {name}", serve, ("decode_matmul",))
+        serve_s = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        toks = {k: [out[i] for i in v] for k, v in ids.items()}
+        check(toks["R1"] == toks["R4"], f"{name}: R=1 and R=4 decoded "
+              f"different tokens")
+        decs = {k: eng._decoder_for(s) for k, s in scheds.items()}
+        ticks = decs["R1"].ticks + decs["R4"].ticks
+        check(launches["decode_matmul"] == 4 * cfg.n_layers * ticks,
+              f"{name}: {launches['decode_matmul']} decode_matmul launches "
+              f"for {ticks} scheduled ticks, expected {4 * cfg.n_layers} "
+              f"each")
+        check(all(eng.trace_count(k) == 1 for k in eng.keys()),
+              f"{name}: executors "
+              f"{[(k, eng.trace_count(k)) for k in eng.keys()]}")
+        tok0 = torch.tensor([p[:1] for p in prompts], device=device)
+        pos0 = torch.zeros(LM_BATCH, dtype=torch.int64, device=device)
+        logits = {}
+        with torch.inference_mode():
+            for k, dec in decs.items():
+                cache = init_cache(cfg, LM_BATCH, LM_SEQ, "float32", device)
+                logits[k] = decode_step(cfg, eng.params, cache, tok0, pos0,
+                                        schedule=dec.schedule,
+                                        packed=dec.packed)[0]
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(v).all()) and v.shape == (
+            LM_BATCH, 1, padded_vocab(cfg)) for v in logits.values()),
+            f"{name}: first-step logits not finite or misshaped")
+        check(same_bits(logits["R1"], logits["R4"]),
+              f"{name}: R=1 and R=4 first-step logits differ")
+        err, scale = max_err(logits["default"], logits["R1"])
+        check(err <= TOL["bfloat16"] * scale, f"{name}: einsum logits "
+              f"differ from the scheduled path's by {err} (scale {scale})")
+        rep = eng.serve_report()
+        report[name] = {
+            "layers": f"{layers} of {full.n_layers}", "d_model": cfg.d_model,
+            "param_gb": gb, "init_s": init_s, "serve_s": serve_s,
+            "first_step_logits_max_abs_err": err,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "default_key_requests_same_tokens": sum(
+                a == b for a, b in zip(toks["default"], toks["R1"])),
+            "decode_matmul_calls": launches["decode_matmul"],
+            "keys": {k: {"key": dec.key, "ticks": dec.ticks,
+                         **{m: rep[dec.key]["measured"][m] for m in (
+                             "tokens_per_s", "tick_latency_p50_s",
+                             "tick_latency_p99_s")}}
+                     for k, dec in decs.items()}}
+        print(f"served {name} at d_model {cfg.d_model}, {layers} of "
+              f"{full.n_layers} layers ({gb:.2f} GB of bf16 params drawn on "
+              f"the card in {init_s:.2f} s): R=1 == R=4 tokens and "
+              f"first-step logits bit for bit, einsum within {err:.3e} "
+              f"(tol {TOL['bfloat16'] * scale:.2e}); "
+              f"{launches['decode_matmul']} decode_matmul calls; peak "
+              f"{report[name]['peak_gb']:.1f} GB allocated")
+        for k, row in report[name]["keys"].items():
+            print(f"  key {row['key']:32s}: {row['ticks']} ticks, p50 "
+                  f"{row['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
+                  f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
+                  f"{row['tokens_per_s']:.1f} tokens/s")
+        del eng, params, decs, logits
+        torch.cuda.empty_cache()
+    return total, report
+
+
 def phase_rnn_decode(device) -> dict:
     """The six taggers at their published widths, B = ``BATCH``, as T
     chained ``rnn_decode_step`` calls on a kernel schedule, driven with the
@@ -4221,6 +4765,9 @@ def main() -> int:
     launches["robustness"], robustness = phase_robustness(device)
     launches.update(phase_fixed_point(device))
     launches["lm_decode"], lm = phase_lm_decode(device)
+    launches["speculative"], spec_rep = phase_speculative(device)
+    launches["speculative_rnn"], spec_rnn = phase_speculative_rnn(device)
+    launches["dense_lms"], dense_lms = phase_dense_lms(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
     launches.update(phase_rglru(device))
     launches["train"], train_rep = phase_train(device)
@@ -4230,7 +4777,9 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "timings": rows, "nonstatic_scans": scans,
-         "lm_decode": lm, "autotune": autotune_rows,
+         "lm_decode": lm, "speculative": spec_rep,
+         "speculative_rnn": spec_rnn, "dense_lms": dense_lms,
+         "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
          "launches": launches,
          "max_abs_err": errs},

@@ -50,7 +50,7 @@ class ModelConfig:
     subset.  Two defaults differ from ``repro``'s: ``family`` ("rnn", not
     "dense") and ``compute_dtype`` ("float32", not "bfloat16"); every LM
     config of the port sets both explicitly (``configs/gemma_2b.py``,
-    ``configs/stablelm_3b.py``).
+    ``stablelm_3b.py``, ``deepseek_coder_33b.py``, ``nemotron_4_340b.py``).
     """
 
     name: str = "unnamed"

@@ -50,7 +50,7 @@ from repro_torch.config import FixedPointConfig
 from repro_torch.core.quant.fixed_point import is_native_int
 from repro_torch.core.rnn.cells import (gru_cell, gru_cell_quantized,
                                         lstm_cell, lstm_cell_quantized)
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cuda, ref
 from repro_torch.kernels.ops import resident
 from repro_torch.kernels.schedule import KernelSchedule
 
@@ -69,10 +69,15 @@ def plain_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def decode_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                         reuse: int = 1) -> torch.Tensor:
     """Plain version of :func:`decode_matmul_kernel`: the R column tiles as
-    float32 products, the result rounded once to the inputs' dtype."""
+    float32 products, the result rounded once to the inputs' dtype.  On CPU
+    tensors each product is ``ref.matmul``'s k-ordered sum, so that a row's
+    bits do not depend on M, as the kernel's do not: the speculative
+    verify pass runs the products of B·S rows where a sequential step runs
+    B (MKL's ``matmul`` rounds a row differently at different M)."""
     ns = w.shape[1] // reuse
     x32 = x.float()
-    tiles = [x32 @ w[:, r * ns:(r + 1) * ns].float() for r in range(reuse)]
+    tiles = [ref.matmul(x32, w[:, r * ns:(r + 1) * ns].float())
+             for r in range(reuse)]
     return torch.cat(tiles, dim=-1).to(x.dtype)
 
 

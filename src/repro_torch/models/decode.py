@@ -14,11 +14,13 @@ The port of the dense path of ``repro/models/decode.py``:
     cache and the unembedding stay plain tensor ops, as ``repro`` leaves
     them to XLA outside any kernel.
 
-Only the dense family runs: MoE, SSM, hybrid, enc-dec and vlm decode raise
-``NotImplementedError`` (``ROADMAP.md`` module item 10).  ``decode_steps``
-and ``kv_trim`` (the speculative verify pass) come with the speculative
-slice.  ``lm_params_from_jax`` carries ``repro``'s flat LM parameters
-over, dtypes kept.
+``decode_steps`` is the speculative verify pass: S tokens a row in one
+pass, each projection once over [B*S, d], with the bits of S sequential
+steps (logits and caches; ``_dense_steps`` says why), and ``kv_trim``
+rolls the cache back to the accepted prefix.  Only the dense family runs:
+MoE, SSM, hybrid, enc-dec and vlm decode raise ``NotImplementedError``
+(``ROADMAP.md`` module item 10).  ``lm_params_from_jax`` carries
+``repro``'s flat LM parameters over, dtypes kept.
 """
 
 from __future__ import annotations
@@ -162,53 +164,100 @@ def pack_decode_params(cfg: ModelConfig, params: Dict) -> Dict:
     return resident(srcs, f"lm-decode/{cfg.compute_dtype}", pack)
 
 
+def _rows(ts: List[torch.Tensor], B: int) -> torch.Tensor:
+    """S per-position tensors [B, ...] -> the chunk's rows [B*S, w], row
+    ``b*S + i`` from position i (one position: a reshape, no copy)."""
+    if len(ts) == 1:
+        return ts[0].reshape(B, -1)
+    return torch.stack([t.reshape(B, -1) for t in ts], 1).reshape(
+        B * len(ts), -1)
+
+
+def _positions(z: torch.Tensor, B: int, S: int) -> List[torch.Tensor]:
+    """The chunk's rows [B*S, n] -> S contiguous [B, n], one a position,
+    each laid out as a sequential step's [B, n] (one position: itself)."""
+    if S == 1:
+        return [z]
+    z = z.reshape(B, S, -1)
+    return [z[:, i].contiguous() for i in range(S)]
+
+
 def _dense_steps(cfg: ModelConfig, params: Dict, packed: Dict, cache: Dict,
                  x: torch.Tensor, pos: torch.Tensor,
                  schedule: Optional[KernelSchedule]
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One fused dense-decoder step under ``schedule`` (x: [B, 1, d]): the
-    einsum branch's math with every projection on ``decode_matmul`` over
-    the resident packed weights."""
-    B = x.shape[0]
-    d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    """The fused dense-decoder pass under ``schedule`` for a CHUNK of
+    ``S = x.shape[1]`` tokens a row (x: [B, S, d]; pos: [B], the position
+    of each row's first token): the einsum branch's math with every
+    projection on ``decode_matmul`` over the resident packed weights.  S =
+    1 is the sequential step; S > 1 is the speculative verify pass, and
+    ``logits[:, i]`` and the caches have the bits of S sequential steps.
+
+    Exact by construction: only the four products of a layer see the
+    chunk, as one ``decode_matmul`` over [B*S, ·] (4 calls a layer for any
+    S).  Their rows do not depend on M: the kernel sums every output in
+    one order fixed by K, N and the dtype, and on CPU tensors its plain
+    version is k-ordered.  Everything else runs position by position, on
+    contiguous [B, 1, ·] tensors laid out as the sequential step lays out
+    its own: the norms (a reduction over d, whose tree a library may pick
+    by the row count), rotary embeddings, activations, residual adds, the
+    final norm, the unembedding and ``softcap`` (on the CPU an ``x @ wᵀ``
+    at S = 5 already rounds a row otherwise than at S = 1, and a
+    transcendental runs a vector or a scalar formula by an element's place
+    in the tensor).  The cache is written position by position; position
+    i attends over ``pos + i + 1`` entries, and entries written by later
+    chunk positions (or left by a rejected draft) are masked with NEG_INF
+    before the softmax, so they add exactly zero.  The chunk therefore
+    costs S times the sequential step's small kernels, and the products
+    once."""
+    B, S = x.shape[0], x.shape[1]
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     glu = cfg.mlp_type in ("swiglu", "geglu")
 
-    def mm(a, w):
-        return decode_matmul(a, w, schedule=schedule)
+    def mm(ts, w):
+        return _positions(decode_matmul(_rows(ts, B), w, schedule=schedule),
+                          B, S)
 
     ck_all, cv_all = cache["cache/k"], cache["cache/v"]
     cks, cvs = [], []
-    h = x
+    hs = [x[:, i:i + 1].contiguous() for i in range(S)]
+    ps = [pos + i if i else pos for i in range(S)]
     for l, p_l in enumerate(packed["layers"]):
-        hn = norm(cfg, h, p_l, "decoder/norm1")
-        z = mm(hn.reshape(B, d), p_l["__wqkv"])
-        q = z[:, :hq * hd].reshape(B, 1, hq, hd)
-        k = z[:, hq * hd:(hq + hk) * hd].reshape(B, 1, hk, hd)
-        v = z[:, (hq + hk) * hd:].reshape(B, 1, hk, hd)
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        ck = _update_cache(ck_all[l], k, pos)
-        cv = _update_cache(cv_all[l], v, pos)
-        o = decode_attention(q, ck.to(h.dtype), cv.to(h.dtype), pos + 1,
-                             window=cfg.attn_window)
-        h = h + mm(o.to(h.dtype).reshape(B, hq * hd),
-                   p_l["__wo"]).reshape(B, 1, d)
-        h2 = norm(cfg, h, p_l, "decoder/norm2")
+        zs = mm([norm(cfg, h, p_l, "decoder/norm1") for h in hs],
+                p_l["__wqkv"])
+        ck, cv = ck_all[l], cv_all[l]
+        qs = []
+        for z, p in zip(zs, ps):
+            q = z[:, :hq * hd].reshape(B, 1, hq, hd)
+            k = z[:, hq * hd:(hq + hk) * hd].reshape(B, 1, hk, hd)
+            v = z[:, (hq + hk) * hd:].reshape(B, 1, hk, hd)
+            qs.append(apply_rope(q, p[:, None], cfg.rope_theta))
+            k = apply_rope(k, p[:, None], cfg.rope_theta)
+            ck = _update_cache(ck, k, p)
+            cv = _update_cache(cv, v, p)
+        os_ = [decode_attention(q, ck.to(x.dtype), cv.to(x.dtype), p + 1,
+                                window=cfg.attn_window).to(x.dtype)
+               for q, p in zip(qs, ps)]
+        hs = [h + o.reshape(B, 1, -1)
+              for h, o in zip(hs, mm(os_, p_l["__wo"]))]
+        zs = mm([norm(cfg, h, p_l, "decoder/norm2") for h in hs],
+                p_l["__wgu" if glu else "__wup"])
         if glu:
-            zgu = mm(h2.reshape(B, d), p_l["__wgu"])
-            f = zgu.shape[-1] // 2
-            mid = glu_activation(cfg)(zgu[:, :f]) * zgu[:, f:]
+            f = zs[0].shape[-1] // 2
+            mids = [glu_activation(cfg)(z[:, :f]) * z[:, f:] for z in zs]
         else:
             act = ACTIVATIONS["relu2" if cfg.mlp_type == "relu2" else "gelu"]
-            mid = act(mm(h2.reshape(B, d), p_l["__wup"]))
-        h = h + mm(mid, p_l["__wdown"]).reshape(B, 1, d)
+            mids = [act(z) for z in zs]
+        hs = [h + o.reshape(B, 1, -1)
+              for h, o in zip(hs, mm(mids, p_l["__wdown"]))]
         cks.append(ck)
         cvs.append(cv)
     new_cache = dict(cache)
     new_cache["cache/k"] = torch.stack(cks)
     new_cache["cache/v"] = torch.stack(cvs)
-    h = norm(cfg, h, params, "final_norm")
-    return tf.logits_fn(cfg, params, h), new_cache
+    logits = [tf.logits_fn(cfg, params, norm(cfg, h, params, "final_norm"))
+              for h in hs]
+    return (logits[0] if S == 1 else torch.cat(logits, 1)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +304,67 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     new_cache["cache/v"] = torch.stack(cvs)
     x = norm(cfg, x, params, "final_norm")
     return tf.logits_fn(cfg, params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-token verify and KV rollback (the speculative-decode seam)
+# ---------------------------------------------------------------------------
+
+
+def decode_steps(cfg: ModelConfig, params: Dict, cache: Dict,
+                 tokens: torch.Tensor, pos: torch.Tensor, *,
+                 schedule: Optional[KernelSchedule] = None,
+                 packed: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Multi-token decode: ``S = tokens.shape[1]`` consecutive positions a
+    row in one pass.  tokens: [b, S] int; pos: [b], the position of each
+    row's FIRST token.  Returns (logits [b, S, V], new cache):
+    ``logits[:, i]`` is what :func:`decode_step` gives for token i with
+    the cache advanced through the tokens before it, bit for bit.
+
+    The speculative decoder's verify pass.  A kernel schedule runs
+    :func:`_dense_steps` over the chunk (its four products a layer once
+    over [b*S, d]; see its docstring for why the bits are the sequential
+    chain's).  ``schedule=None`` (the einsum path) and ``backend="xla"``
+    (the plain dot) unroll the sequential step, as ``repro`` unrolls the
+    einsum path: their products are library products, whose rows may
+    round otherwise at another M."""
+    tf.require_dense(cfg, "decode_steps")
+    if schedule is not None and schedule.use_pallas:
+        cdt = getattr(torch, cfg.compute_dtype)
+        x = _weak_scale(embed(tokens, params["embed/table"], cdt),
+                        math.sqrt(cfg.d_model))
+        if packed is None:
+            packed = pack_decode_params(cfg, params)
+        return _dense_steps(cfg, params, packed, cache, x, pos, schedule)
+    logits: List[torch.Tensor] = []
+    for i in range(tokens.shape[1]):
+        li, cache = decode_step(cfg, params, cache, tokens[:, i:i + 1],
+                                pos + i if i else pos, schedule=schedule,
+                                packed=packed)
+        logits.append(li)
+    return (logits[0] if len(logits) == 1 else torch.cat(logits, 1)), cache
+
+
+def kv_trim(cache: Dict, keep: torch.Tensor) -> Dict:
+    """Roll the KV cache back to ``keep[b]`` valid entries a row: positions
+    ``>= keep[b]`` of ``cache/k`` / ``cache/v`` return to zeros (their
+    initial state), so a cache that saw rejected speculative writes becomes
+    bit-equal to one that only advanced through the accepted prefix.  Not
+    needed for exactness (attention masks every entry past a row's length
+    with NEG_INF, and the next verify window rewrites them first); it is
+    the strict rollback mode (``SpecConfig.trim``).  Other entries of the
+    cache dict are returned as they are."""
+    new = dict(cache)
+    for name in ("cache/k", "cache/v"):
+        if name not in cache:
+            continue
+        c = cache[name]                      # [L, b, S, hk, hd]
+        sel = (torch.arange(c.shape[2], device=c.device)[None, :]
+               < keep.to(c.device)[:, None])                      # [b, S]
+        new[name] = torch.where(sel[None, :, :, None, None], c,
+                                c.new_zeros(()))
+    return new
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.registry``, under the same arch ids.  An arch
 whose config the port does not carry yet (the MoE, SSM, hybrid, enc-dec and
-vlm families, and the two large dense LMs) raises ``NotImplementedError``
-naming ROADMAP.md module item 10.
+vlm families) raises ``NotImplementedError`` naming ROADMAP.md module item
+10.
 """
 
 from __future__ import annotations

@@ -41,6 +41,14 @@ from repro_torch.serving.router import (  # noqa: F401
     RouterPolicy,
     format_router_report,
 )
+from repro_torch.serving.speculative import (  # noqa: F401
+    CacheTable,
+    RowAdvance,
+    SpecConfig,
+    SpeculativeDecoder,
+    accept_chunk,
+    speculative_generate,
+)
 from repro_torch.serving.streaming import (  # noqa: F401
     SHED_REASONS,
     STAGES,

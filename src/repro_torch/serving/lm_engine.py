@@ -36,8 +36,25 @@ schedule object (``analytical``: the paper's FPGA model at
 ``clock_mhz``, not a time on the card); the einsum key stays
 estimate-less.
 
-Not in this slice (``ROADMAP.md``): speculative decode (``SpecConfig``,
-``decode_steps`` / ``kv_trim``), and every family but the dense decoder.
+Speculative decode: a key may also carry a ``SpecConfig`` (the engine's
+default or a request's ``spec=``).  Its decoder then drafts K tokens a
+round on the cheap side of the R trade (the n-gram ``CacheTable`` or a
+model draft step on ``spec.draft``) and verifies all K+1 positions in
+ONE ``decode_steps`` pass on its own schedule (each projection once over
+``[max_batch * (K+1), d]``: 4 ``decode_matmul`` calls a layer and round),
+with exact greedy-match acceptance (``serving/speculative.py``): the
+tokens are the sequential key's, bit for bit.  Speculative keys get a
+``-spec[...]`` suffix, so they never share an executor or a KV cache with
+plain traffic.  For them tokens/s counts ACCEPTED tokens only, and the
+tick latency is a round's (draft steps, verify pass and argmax on the
+host); a round that built an executor is left out, and ``trim`` runs
+outside the timed window.  Rejected work shows in the ``accept_rate`` /
+``spec`` columns, and ``verify_spec_accounting`` holds ``drafted ==
+accepted + rejected`` exactly.  Greedy takes the first maximum on the
+host (``np.argmax`` over float32 logits) in the tick, the draft step and
+the verify pass alike.
+
+Every family but the dense decoder is ``ROADMAP.md`` module item 10.
 """
 
 from __future__ import annotations
@@ -60,6 +77,8 @@ from repro_torch.models.transformer import require_dense
 from repro_torch.serving.batcher import KeyStats, _now
 from repro_torch.serving.compile_cache import CachedExecutor, CompileCache
 from repro_torch.serving.engine import EngineClosedError
+from repro_torch.serving.speculative import (SpecConfig, SpeculativeDecoder,
+                                             accept_chunk)
 
 
 @dataclass
@@ -71,19 +90,28 @@ class Slot:
     max_new: int = 16
     arrival_s: float = 0.0
     prompt_len: int = 0
+    observed: int = 0                   # n-gram table watermark (spec keys)
 
 
 class _KeyedDecoder:
     """One schedule key's continuous-batching state: slot pool, KV cache,
     the key's single executor of the decode step (readied through the
     compile cache), serving counters.  A scheduled key runs over the
-    engine's packed weight layout."""
+    engine's packed weight layout.  A key with a ``SpecConfig`` (k > 0)
+    ticks through its :class:`SpeculativeDecoder` instead."""
 
     def __init__(self, cfg: ModelConfig, key: str,
                  schedule: Optional[KernelSchedule], *, max_batch: int,
                  max_seq: int, cache_dtype: str, params: Dict,
                  packed: Optional[Dict], device: torch.device,
-                 compile_cache: Optional[CompileCache] = None):
+                 compile_cache: Optional[CompileCache] = None,
+                 spec: Optional[SpecConfig] = None):
+        compile_cache = compile_cache or CompileCache(device=device)
+        self.spec_dec = (SpeculativeDecoder(
+            cfg, key, schedule, spec, max_batch=max_batch, max_seq=max_seq,
+            cache_dtype=cache_dtype, params=params, packed=packed,
+            device=device, compile_cache=compile_cache)
+            if spec is not None and spec.k > 0 else None)
         self.key = key
         self.cfg = cfg
         self.cache_dtype = cache_dtype
@@ -100,8 +128,7 @@ class _KeyedDecoder:
         self.tokens = 0                  # decoded tokens (per-key tokens/s)
         self.decode_s = 0.0              # wall-clock spent in decode steps
         self.packed = packed
-        self._step = self._build(cfg, params, compile_cache or CompileCache(
-            device=device))
+        self._step = self._build(cfg, params, compile_cache)
 
     def _build(self, cfg: ModelConfig, params: Dict,
                compile_cache: CompileCache) -> Callable:
@@ -127,7 +154,10 @@ class _KeyedDecoder:
         calls it with, without ticking: the KV cache is untouched (a cold
         signature runs once, launching nothing, on a zero cache of the
         same shapes), warm over a persistent cache, build-and-store when
-        cold."""
+        cold.  A speculative key readies its verify (and draft) executor
+        instead: those are the only ones its ticks run."""
+        if self.spec_dec is not None:
+            return self.spec_dec.warm()
         tokens = torch.zeros((self.max_batch, 1), dtype=torch.int64,
                              device=self.device)
         pos = torch.zeros((self.max_batch,), dtype=torch.int64,
@@ -153,7 +183,8 @@ class LMServingEngine:
                  cache_dtype: str = "float32",
                  schedule: Optional[KernelSchedule] = None,
                  device: Union[str, torch.device] = "cuda",
-                 cache_dir: Optional[str] = None):
+                 cache_dir: Optional[str] = None,
+                 spec: Optional[SpecConfig] = None):
         require_dense(cfg, "LMServingEngine")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -166,6 +197,7 @@ class LMServingEngine:
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.schedule = schedule            # default-request schedule
+        self.spec = spec                    # default-request speculation
         self.compile_cache = CompileCache(cache_dir, self.device)
         self._decoders: Dict[str, _KeyedDecoder] = {}
         self._packed: Optional[Dict] = None  # shared by the scheduled keys
@@ -175,31 +207,55 @@ class LMServingEngine:
 
     # -- keyed decoders ------------------------------------------------------
 
-    def _decoder_for(self, schedule: Optional[KernelSchedule]
-                     ) -> _KeyedDecoder:
+    def _resolve_spec(self, spec: Optional[SpecConfig]
+                      ) -> Optional[SpecConfig]:
+        spec = spec if spec is not None else self.spec
+        return None if spec is None or spec.k == 0 else spec
+
+    def _key_for(self, schedule: Optional[KernelSchedule],
+                 spec: Optional[SpecConfig] = None) -> str:
+        schedule = schedule if schedule is not None else self.schedule
+        key = (DEFAULT_SCHEDULE_KEY if schedule is None
+               else schedule_key(schedule))
+        spec = self._resolve_spec(spec)
+        if spec is not None:
+            # a dash-separated suffix: KernelSchedule.from_key still parses
+            # the schedule part; speculative keys never share an executor
+            # or a KV cache with plain traffic on the same schedule
+            key = key + "-" + spec.key_token()
+        return key
+
+    def _decoder_for(self, schedule: Optional[KernelSchedule],
+                     spec: Optional[SpecConfig] = None) -> _KeyedDecoder:
         sched = schedule if schedule is not None else self.schedule
-        key = DEFAULT_SCHEDULE_KEY if sched is None else schedule_key(sched)
+        spc = self._resolve_spec(spec)
+        key = self._key_for(sched, spec)
         dec = self._decoders.get(key)
         if dec is None:
-            if sched is not None and self._packed is None:
+            scheduled = sched is not None or (
+                spc is not None and spc.draft is not None)
+            if scheduled and self._packed is None:
                 self._packed = pack_decode_params(self.cfg, self.params)
             dec = self._decoders[key] = _KeyedDecoder(
                 self.cfg, key, sched, max_batch=self.max_batch,
                 max_seq=self.max_seq, cache_dtype=self.cache_dtype,
                 params=self.params,
-                packed=None if sched is None else self._packed,
-                device=self.device, compile_cache=self.compile_cache)
+                packed=self._packed if scheduled else None,
+                device=self.device, compile_cache=self.compile_cache,
+                spec=spc)
         return dec
 
     def prewarm(self, schedules: Optional[List[Optional[KernelSchedule]]]
-                = None) -> Dict[str, Dict]:
+                = None, spec: Optional[SpecConfig] = None
+                ) -> Dict[str, Dict]:
         """Zero-warmup for the decode path: build each schedule's keyed
-        decoder and ready its step before the first tick, launching
-        nothing: loaded from a warm ``cache_dir`` (no build) or built once
-        and stored.  No schedules: the engine default."""
+        decoder (under ``spec``, else the engine's default speculation) and
+        ready what its ticks run before the first tick, launching nothing:
+        loaded from a warm ``cache_dir`` (no build) or built once and
+        stored.  No schedules: the engine default."""
         out: Dict[str, Dict] = {}
         for sched in (schedules if schedules is not None else [None]):
-            dec = self._decoder_for(sched)
+            dec = self._decoder_for(sched, spec)
             out[dec.key] = dec.warm_step()
         return out
 
@@ -219,13 +275,16 @@ class LMServingEngine:
 
     def add_request(self, prompt: List[int], max_new: int = 16,
                     now: Optional[float] = None,
-                    schedule: Optional[KernelSchedule] = None
+                    schedule: Optional[KernelSchedule] = None,
+                    spec: Optional[SpecConfig] = None
                     ) -> Optional[int]:
-        """Claim a slot on the request's schedule-key decoder; None when that
-        key's pool is full (keys never borrow each other's slots)."""
+        """Claim a slot on the request's (schedule, spec) key decoder; None
+        when that key's pool is full (keys never borrow each other's
+        slots).  ``spec=SpecConfig(k=0)`` opts out of the engine's default
+        speculation."""
         if self._closed:
             raise EngineClosedError("LMServingEngine")
-        dec = self._decoder_for(schedule)
+        dec = self._decoder_for(schedule, spec)
         s = dec.free_slot()
         if s is None:
             return None
@@ -237,6 +296,7 @@ class LMServingEngine:
         s.max_new = max_new
         s.arrival_s = _now() if now is None else now
         s.prompt_len = len(prompt)
+        s.observed = 0
         return s.req_id
 
     # -- one engine tick: every active slot decodes one token ----------------
@@ -283,13 +343,73 @@ class LMServingEngine:
             dec.stats.batches += 1
         return finished
 
+    # -- one speculative round: draft K, verify K+1 in one pass --------------
+
+    def _tick_spec(self, dec: _KeyedDecoder,
+                   now: Optional[float]) -> Dict[int, List[int]]:
+        sd = dec.spec_dec
+        if sd.table is not None:
+            # feed the newly seen tokens (prompt and accepted continuations)
+            # into the n-gram table before drafting this round
+            for s in dec.slots:
+                if s.active:
+                    sd.table.observe(s.tokens, start=s.observed)
+                    s.observed = len(s.tokens)
+        rows: List[Optional[tuple]] = [None] * dec.max_batch
+        for i, s in enumerate(dec.slots):
+            if s.active:
+                rows[i] = (s.tokens, s.prompt_len, s.pos)
+        dec.cache, chunk, greedy, wall, built = sd.round(dec.cache, rows)
+        dec.traces = sd.verify_traces
+        dec.ticks += 1
+
+        finished: Dict[int, List[int]] = {}
+        emitted = 0
+        keep = np.zeros((dec.max_batch,), np.int64)
+        for i, s in enumerate(dec.slots):
+            if not s.active:
+                continue
+            adv = accept_chunk(
+                [int(t) for t in chunk[i]], [int(g) for g in greedy[i]],
+                tokens=s.tokens, plen=s.prompt_len, pos=s.pos,
+                max_new=s.max_new, max_seq=dec.max_seq)
+            s.tokens.extend(adv.emitted)
+            s.pos += adv.advanced
+            emitted += len(adv.emitted)
+            sd.drafted += adv.drafted
+            sd.accepted += adv.accepted
+            sd.rejected += adv.rejected
+            keep[i] = s.pos
+            if adv.done:
+                finished[s.req_id] = list(s.tokens)
+                s.active = False
+                keep[i] = 0             # trim frees the whole row
+                t = _now() if now is None else now
+                dec.stats.record_one(t - s.arrival_s)
+        if sd.spec.trim:
+            # optional rollback, outside the timed window: exactness does
+            # not need it (serving/speculative.py)
+            dec.cache = sd.trim(dec.cache, keep)
+        # steady state: ACCEPTED tokens only; a round that built an
+        # executor is left out
+        if not built:
+            dec.decode_s += wall
+            dec.tokens += emitted
+            dec.tick_stats.record_one(wall)
+        if finished:
+            dec.stats.batches += 1
+        return finished
+
     def tick(self, now: Optional[float] = None) -> Dict[int, List[int]]:
-        """One decode step on every key with active slots; returns every
-        request finished this tick."""
+        """One decode step (a speculative key: one round) on every key with
+        active slots; returns every request finished this tick."""
         finished: Dict[int, List[int]] = {}
         for dec in self._decoders.values():
             if dec.any_active:
-                finished.update(self._tick_decoder(dec, now))
+                if dec.spec_dec is not None:
+                    finished.update(self._tick_spec(dec, now))
+                else:
+                    finished.update(self._tick_decoder(dec, now))
         return finished
 
     def run_to_completion(self, max_ticks: int = 512,
@@ -308,7 +428,10 @@ class LMServingEngine:
         host).  A scheduled key, whose step runs the ``decode_matmul``
         kernel, pairs them with ``estimate_lm_decode`` of the SAME
         schedule object; the einsum key's ``analytical`` is None: an
-        estimate must never describe kernels that did not run."""
+        estimate must never describe kernels that did not run.  A
+        speculative key adds its ``accept_rate``, ``draft_traces`` and
+        ``spec`` columns (``SpeculativeDecoder.report_row``); its ticks
+        are rounds and its tokens accepted tokens."""
         report: Dict[str, Dict] = {}
         for key, dec in self._decoders.items():
             measured = dec.stats.summary()
@@ -326,11 +449,41 @@ class LMServingEngine:
                 analytical = estimate_lm_decode(
                     dec.schedule, self.cfg).report_row(clock_mhz)
                 analytical["scheduled_kernels"] = True
+            sd = dec.spec_dec
             report[key] = {"schedule": dec.schedule, "fp": None,
-                           "traces": dec.traces, "measured": measured,
+                           "traces": dec.traces,
+                           "accept_rate": sd.accept_rate if sd else None,
+                           "draft_traces": sd.draft_traces if sd else 0,
+                           "spec": sd.report_row() if sd else None,
+                           "measured": measured,
                            "analytical": analytical,
                            "compile": self.compile_cache.report_row(key)}
         return report
+
+    def verify_spec_accounting(self) -> Dict[str, Dict]:
+        """The exact-sum invariant for every speculative key: drafted ==
+        accepted + rejected, no counter negative.  Raises AssertionError
+        naming the broken key and counters; returns the per-key counters
+        on success."""
+        out: Dict[str, Dict] = {}
+        for key, dec in self._decoders.items():
+            sd = dec.spec_dec
+            if sd is None:
+                continue
+            if sd.drafted != sd.accepted + sd.rejected:
+                raise AssertionError(
+                    f"speculative accounting broken for key {key}: "
+                    f"drafted ({sd.drafted}) != accepted ({sd.accepted}) "
+                    f"+ rejected ({sd.rejected})")
+            if min(sd.drafted, sd.accepted, sd.rejected) < 0:
+                raise AssertionError(
+                    f"speculative accounting broken for key {key}: "
+                    f"negative counter (drafted={sd.drafted}, "
+                    f"accepted={sd.accepted}, rejected={sd.rejected})")
+            out[key] = {"drafted": sd.drafted, "accepted": sd.accepted,
+                        "rejected": sd.rejected, "rounds": sd.rounds,
+                        "accept_rate": sd.accept_rate}
+        return out
 
     # -- lifecycle -----------------------------------------------------------
 

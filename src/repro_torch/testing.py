@@ -27,9 +27,10 @@ Device = Union[str, torch.device]
 
 def tiny_config(full: ModelConfig) -> ModelConfig:
     """Shrink an assigned arch to CPU-testable size, keeping its family,
-    attention grouping structure and MLP type.  The taggers are already
-    tiny; families the port has no config for are ROADMAP.md module item
-    10."""
+    attention grouping structure and MLP type: the four dense LMs the port
+    carries (gemma-2b, stablelm-3b, deepseek-coder-33b, nemotron-4-340b).
+    The taggers are already tiny; families the port has no config for are
+    ROADMAP.md module item 10."""
     if full.rnn is not None:
         return full  # paper taggers are already tiny
     if full.family != "dense":

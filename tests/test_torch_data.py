@@ -33,7 +33,8 @@ from repro_torch.config import ModelConfig  # noqa: E402
 DATASETS = ("top_tagging_dataset", "flavor_tagging_dataset",
             "quickdraw_dataset")
 #: configs the port carries; every other arch id is module item 10
-PORTED = ("gemma-2b", "stablelm-3b", "top-tagging-lstm", "top-tagging-gru",
+PORTED = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b", "nemotron-4-340b",
+          "top-tagging-lstm", "top-tagging-gru",
           "flavor-tagging-lstm", "flavor-tagging-gru", "quickdraw-lstm",
           "quickdraw-gru")
 

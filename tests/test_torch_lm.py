@@ -43,7 +43,8 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving import LMServingEngine  # noqa: E402
 from repro_torch.serving.engine import EngineClosedError  # noqa: E402
 
-ARCHS = ("gemma-2b", "stablelm-3b")
+ARCHS = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b",
+         "nemotron-4-340b")
 #: repro's ModelConfig fields the port does not carry: other families,
 #: enc-dec, frontends, dry-run / sharding knobs; the dense decode path
 #: reads none of them (``grad_accum`` is carried: the trainer reads it)

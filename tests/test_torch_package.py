@@ -87,9 +87,6 @@ def test_sources_import_no_jax_or_repro(path):
 
 #: serving robustness: the modules the port keeps beside its engines
 ROBUSTNESS = ("compile_cache", "faults", "replica", "router", "streaming")
-#: repro.serving's speculative-decode exports (not in the port yet)
-SPECULATIVE = {"CacheTable", "RowAdvance", "SpecConfig",
-               "SpeculativeDecoder", "accept_chunk", "speculative_generate"}
 
 
 @pytest.mark.parametrize("name", ROBUSTNESS)
@@ -106,7 +103,7 @@ def test_robustness_module_imports_alone_without_jax(name):
 
 def test_serving_exports_what_repro_exports():
     """``repro_torch.serving`` exports every public name of
-    ``repro.serving`` (speculative decode aside)."""
+    ``repro.serving``."""
     import types
 
     import repro.serving as jserving
@@ -117,7 +114,7 @@ def test_serving_exports_what_repro_exports():
         return {n for n in dir(mod) if not n.startswith("_")
                 and not isinstance(getattr(mod, n), types.ModuleType)}
 
-    missing = public(jserving) - SPECULATIVE - public(tserving)
+    missing = public(jserving) - public(tserving)
     assert not missing, sorted(missing)
 
 

@@ -36,7 +36,8 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.registry import get_config  # noqa: E402
 from repro_torch.serving import RNNServingEngine  # noqa: E402
 
-PORTED = ("gemma-2b", "stablelm-3b", "top-tagging-lstm", "quickdraw-gru")
+PORTED = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b", "nemotron-4-340b",
+          "top-tagging-lstm", "quickdraw-gru")
 DTYPES = ("float32", "bfloat16")
 SHAPES = {"lstm": dict(B=3, T=5, F=4, H=8), "gru": dict(B=5, T=4, F=3, H=12),
           "rglru": dict(B=2, T=9, H=20), "reuse_matmul": dict(M=9, K=20, N=12)}
