@@ -169,6 +169,22 @@ In order, it
                 R = 4 and the default: R = 1 and R = 4 give the same tokens
                 and first-step logits bit for bit, the einsum logits agree
                 within 2e-2, 4·L ``decode_matmul`` calls a scheduled tick;
+       families  the other LM families at their published widths and full
+                depth, bf16, seeded weights drawn on the card, one model at
+                a time (``FAMILY_LMS``: qwen2-moe-a2.7b, qwen3-moe-30b-a3b,
+                mamba2-780m, recurrentgemma-9b, whisper-medium,
+                phi-3-vision-4.2b) through ``LMServingEngine(device=
+                "cuda")`` on keys R = 1, R = 4, the default and, for moe,
+                enc-dec and vlm, R = 1 + an n-gram ``SpecConfig(k=4)``:
+                phi-3-vision R = 1 == R = 4 bit for bit and 4·L
+                ``decode_matmul`` calls a scheduled tick and verify round;
+                the others R = 1 == R = 4 == default bit for bit (tokens,
+                first-step logits) with no kernel of the port launched;
+                speculative tokens == sequential; mamba2 and
+                recurrentgemma refuse ``spec=``; each family's tiny config
+                on the card within 3e-5 of the CPU; per model the peak
+                allocation after init and while serving, tick p50 / p99,
+                tokens/s and one tick's device busy and idle share;
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -266,6 +282,11 @@ steps, f32 and bf16, every ``FP_GRID`` config) and ``hadamard``
 an L2 flush, beside ``fake_quantize_per_tensor_affine`` (rnd / sat
 configs) and ``torch.mul``, and the bytes bound held against the L2-cold
 time.
+
+    python3 chip_smoke.py --families [--src DIR]
+
+runs only phase 3 ``families`` (the kernels built on first use) and prints
+its report as a JSON line of its own and no result line.
 
     python3 chip_smoke.py --batch-invariance [--src DIR]
 
@@ -3164,12 +3185,15 @@ def phase_dense_lms(device) -> tuple:
     for name, layers in DENSE_LMS.items():
         full = get_config(name)
         cfg = full.replace(n_layers=layers)
+        resident = free_card()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = build_model(cfg).init(
             torch.Generator(device=device).manual_seed(0), device)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
         gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
         eng = LMServingEngine(cfg, params, max_batch=LM_BATCH,
                               max_seq=LM_SEQ, device=device)
@@ -3226,6 +3250,7 @@ def phase_dense_lms(device) -> tuple:
             "layers": f"{layers} of {full.n_layers}", "d_model": cfg.d_model,
             "param_gb": gb, "init_s": init_s, "serve_s": serve_s,
             "first_step_logits_max_abs_err": err,
+            "resident_before_gb": resident, "init_peak_gb": init_peak,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "default_key_requests_same_tokens": sum(
                 a == b for a, b in zip(toks["default"], toks["R1"])),
@@ -3241,7 +3266,9 @@ def phase_dense_lms(device) -> tuple:
               f"first-step logits bit for bit, einsum within {err:.3e} "
               f"(tol {TOL['bfloat16'] * scale:.2e}); "
               f"{launches['decode_matmul']} decode_matmul calls; peak "
-              f"{report[name]['peak_gb']:.1f} GB allocated")
+              f"allocated {init_peak:.1f} GB after init, "
+              f"{report[name]['peak_gb']:.1f} GB while serving "
+              f"({resident:.2f} GB allocated before init)")
         for k, row in report[name]["keys"].items():
             print(f"  key {row['key']:32s}: {row['ticks']} ticks, p50 "
                   f"{row['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
@@ -3250,6 +3277,308 @@ def phase_dense_lms(device) -> tuple:
         del eng, params, decs, logits
         torch.cuda.empty_cache()
     return total, report
+
+
+#: phase 3 ``families``: the moe, ssm, hybrid, enc-dec and vlm LMs at their
+#: published widths, every one at full depth (bf16 params from
+#: ``param_count``: 28.6, 61.1, 1.5, 17.1, 1.5 and 7.6 GB), one at a time
+FAMILY_LMS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "mamba2-780m",
+              "recurrentgemma-9b", "whisper-medium", "phi-3-vision-4.2b")
+#: the keys each family model serves (label -> (reuse factor or None, an
+#: n-gram k or None)); the speculative key only where speculation is
+#: exact (not ssm / hybrid, whose refusal is checked instead)
+FAMILY_KEYS = {"R1": (1, None), "R4": (4, None), "default": (None, None),
+               "R1 + ngram k4": (1, 4)}
+#: decode steps of the tiny-config conformance check (card vs CPU)
+FAMILY_TINY_STEPS = 6
+
+
+def free_card() -> float:
+    """Free what earlier models left on the card and return the GB still
+    allocated.  An engine's decoders and their executors refer to each
+    other (the build callback), so a deleted engine's tensors go only when
+    Python's cycle collector runs: run it before reading a peak."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def family_inputs(cfg, batch, max_len, device, seed):
+    """A zero decode cache of ``cfg`` on ``device``, with an enc-dec
+    model's ``cache/xk`` / ``cache/xv`` filled from ``seed`` (the encoder
+    is prefill, which the port does not run yet: seeded values make the
+    cross-attention read something)."""
+    import torch
+
+    from repro_torch.models.decode import init_cache
+
+    cache = init_cache(cfg, batch, max_len, "float32", device)
+    if cfg.enc_dec:
+        gen = torch.Generator().manual_seed(seed)
+        for k in ("cache/xk", "cache/xv"):
+            cache[k] = torch.randn(cache[k].shape, generator=gen).to(device)
+    return cache
+
+
+def check_family_tiny(name, device) -> dict:
+    """``name`` at the port's ``testing.tiny_config`` (f32), weights drawn
+    on the CPU: ``FAMILY_TINY_STEPS`` chained ``decode_step`` calls on the
+    card against the same calls on the CPU, the einsum path (and for a
+    decode-schedulable family the R = 1 scheduled path, ``decode_matmul``
+    on the card against its plain version), logits and every cache entry
+    within the float32 tolerance.  Returns the largest error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_schedulable, decode_step
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+
+    cfg = tiny_config(get_config(name))
+    params = build_model(cfg).init(torch.Generator().manual_seed(5), "cpu")
+    on_card = {k: v.to(device) for k, v in params.items()}
+    B, S = LM_BATCH, 16
+    toks = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (B, FAMILY_TINY_STEPS)))
+    scheds = {"einsum": None}
+    if decode_schedulable(cfg):
+        scheds["R1"] = spec_schedule(1)
+    worst = {}
+    with torch.inference_mode():
+        for label, sched in scheds.items():
+            cc = family_inputs(cfg, B, S, "cpu", 7)
+            gc = {k: v.to(device) for k, v in cc.items()}
+            err = 0.0
+            for t in range(FAMILY_TINY_STEPS):
+                pos = torch.full((B,), t, dtype=torch.int64)
+                cl, cc = decode_step(cfg, params, cc, toks[:, t:t + 1], pos,
+                                     schedule=sched)
+                gl, gc = decode_step(cfg, on_card, gc,
+                                     toks[:, t:t + 1].to(device),
+                                     pos.to(device), schedule=sched)
+                for g, c in [(gl, cl)] + [(gc[k], cc[k]) for k in cc]:
+                    e, scale = max_err(g.cpu(), c)
+                    check(e <= TOL["float32"] * scale,
+                          f"{name} tiny {label} step {t}: card vs CPU "
+                          f"differ by {e} (scale {scale})")
+                    err = max(err, e)
+            worst[label] = err
+    return worst
+
+
+def phase_families(device) -> tuple:
+    """The moe, ssm, hybrid, enc-dec and vlm families at their published
+    widths and full depth (``FAMILY_LMS``), seeded bf16 weights drawn on
+    the card, one model at a time, freed before the next, each served
+    through ``LMServingEngine(device="cuda")``: ``LM_BATCH`` requests of
+    ``LM_PROMPT`` + ``LM_NEW`` tokens on keys R = 1, R = 4, the default
+    (einsum) and, where speculation is exact (moe, enc-dec, vlm), R = 1 +
+    an n-gram ``SpecConfig(k=4)``, driven with the counts set to 0.
+    Checks: vlm (phi-3-vision) R = 1 == R = 4 tokens and first-step
+    logits bit for bit, einsum within the bf16 tolerance, exactly 4·L
+    ``decode_matmul`` calls a scheduled tick and verify round; moe, ssm,
+    hybrid and enc-dec R = 1, R = 4 and the default give the same tokens
+    and first-step logits bit for bit (one code path: the check is of
+    determinism, the MoE combine's included) and launch no kernel of the
+    port; every speculative key's tokens equal its sequential key's; ssm
+    and hybrid refuse ``spec=`` (engine, request, ``SpeculativeDecoder``);
+    one executor a key; logits finite and of the padded vocab; each
+    family's tiny config on the card within 3e-5 of the CPU.  Prints per
+    model the params' GB, the peak allocation after init and while
+    serving, tick p50 / p99 and tokens/s per key, and one tick's device
+    busy time and idle share from a trace.  Returns (launches, a
+    report)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import decode_schedulable, decode_step
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.serving import LMServingEngine, SpecConfig
+    from repro_torch.serving.speculative import SpeculativeDecoder
+
+    total: dict = {}
+    report: dict = {}
+    for name in FAMILY_LMS:
+        t_model = time.perf_counter()
+        cfg = get_config(name)
+        vlm = decode_schedulable(cfg)
+        exact_spec = cfg.family not in ("ssm", "hybrid")
+        resident = free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        eng = LMServingEngine(cfg, params, max_batch=LM_BATCH,
+                              max_seq=LM_SEQ, device=device)
+        keys = {k: (spec_schedule(r), SpecConfig(k=n) if n else None)
+                for k, (r, n) in FAMILY_KEYS.items() if exact_spec or not n}
+        if not exact_spec:
+            spec = SpecConfig(k=4)
+            refused = []
+            for what, call in (
+                    ("engine", lambda: LMServingEngine(
+                        cfg, params, max_batch=LM_BATCH, max_seq=LM_SEQ,
+                        device=device, spec=spec)),
+                    ("request", lambda: eng.add_request(
+                        [1], schedule=spec_schedule(1), spec=spec)),
+                    ("decoder", lambda: SpeculativeDecoder(
+                        cfg, "k", None, spec, max_batch=LM_BATCH,
+                        max_seq=LM_SEQ, cache_dtype="float32",
+                        params=params, device=device))):
+                try:
+                    call()
+                except ValueError as e:
+                    refused.append(what)
+                    msg = str(e)
+            check(refused == ["engine", "request", "decoder"],
+                  f"{name}: spec= refused by {refused} only")
+            print(f"{name}: spec= refused by the engine, a request and "
+                  f"SpeculativeDecoder: {msg}")
+        prompts = np.random.RandomState(3).randint(
+            2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).tolist()
+        ids = {k: [] for k in keys}
+
+        def serve():
+            for k, (s, spc) in keys.items():
+                for p in prompts:
+                    ids[k].append(eng.add_request(p, max_new=LM_NEW,
+                                                  schedule=s, spec=spc))
+            return eng.run_to_completion()
+
+        t0 = time.perf_counter()
+        launches, out = drive(f"families {name}", serve,
+                              ("decode_matmul",) if vlm else ())
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        toks = {k: [out[i] for i in v] for k, v in ids.items()}
+        for k, v in toks.items():
+            check(len(v) == LM_BATCH and all(
+                len(t) == LM_PROMPT + LM_NEW and t[:LM_PROMPT] == p
+                and all(0 <= x < padded_vocab(cfg) for x in t)
+                for t, p in zip(v, prompts)), f"{name} key {k}: tokens {v}")
+        same = ("R1", "R4") if vlm else ("R1", "R4", "default")
+        check(all(toks[k] == toks["R1"] for k in same),
+              f"{name}: keys {same} decoded different tokens: "
+              f"{[toks[k] for k in same]}")
+        if "R1 + ngram k4" in toks:
+            check(toks["R1 + ngram k4"] == toks["R1"],
+                  f"{name}: the speculative key's tokens differ from R1's")
+        decs = {k: eng._decoder_for(s, spc) for k, (s, spc) in keys.items()}
+        check(len(eng.keys()) == len(keys)
+              and all(eng.trace_count(k) == 1 for k in eng.keys()),
+              f"{name}: executors "
+              f"{[(k, eng.trace_count(k)) for k in eng.keys()]}")
+        spec_rep = eng.verify_spec_accounting()
+        per_tick = 4 * cfg.n_layers
+        if vlm:
+            spec_dec = decs["R1 + ngram k4"].spec_dec
+            calls = decs["R1"].ticks + decs["R4"].ticks + spec_dec.rounds
+            check(launches["decode_matmul"] == per_tick * calls,
+                  f"{name}: {launches['decode_matmul']} decode_matmul calls "
+                  f"for {calls} scheduled ticks and rounds, expected "
+                  f"{per_tick} each")
+        else:
+            check(sum(launches.values()) == 0,
+                  f"{name}: kernels of the port launched: {launches}")
+
+        tok0 = torch.tensor([p[:1] for p in prompts], device=device)
+        pos0 = torch.zeros(LM_BATCH, dtype=torch.int64, device=device)
+        logits = {}
+        with torch.inference_mode():
+            for k in ("R1", "R4", "default"):
+                cache = family_inputs(cfg, LM_BATCH, LM_SEQ, device, 1)
+                logits[k] = decode_step(cfg, eng.params, cache, tok0, pos0,
+                                        schedule=decs[k].schedule,
+                                        packed=decs[k].packed)[0]
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(v).all()) and v.shape == (
+            LM_BATCH, 1, padded_vocab(cfg)) for v in logits.values()),
+            f"{name}: first-step logits not finite or misshaped")
+        check(same_bits(logits["R1"], logits["R4"]),
+              f"{name}: R=1 and R=4 first-step logits differ")
+        err, scale = max_err(logits["default"], logits["R1"])
+        if vlm:
+            check(err <= TOL["bfloat16"] * scale, f"{name}: einsum logits "
+                  f"differ from the scheduled path's by {err}")
+        else:
+            check(same_bits(logits["default"], logits["R1"]),
+                  f"{name}: the default key's first-step logits differ from "
+                  f"R1's ({err}): the step is not deterministic")
+
+        # one tick in a device trace (the R1 key's step; for vlm also the
+        # default key's einsum step)
+        traces = {}
+        cache = family_inputs(cfg, LM_BATCH, LM_SEQ, device, 1)
+        for k in (("R1", "default") if vlm else ("R1",)):
+            for _ in range(3):          # a trace now and then comes back empty
+                tr = device_trace(lambda k=k: decode_step(
+                    cfg, eng.params, cache, tok0, pos0,
+                    schedule=decs[k].schedule, packed=decs[k].packed))
+                if tr:
+                    break
+            traces[k] = tr
+        rep = eng.serve_report()
+        report[name] = {
+            "family": cfg.family, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "resident_before_gb": resident,
+            "active_params": cfg.active_param_count(), "param_gb": gb,
+            "init_s": init_s, "init_peak_gb": init_peak,
+            "serve_peak_gb": serve_peak, "serve_s": serve_s,
+            "decode_matmul_calls": launches.get("decode_matmul", 0),
+            "first_step_default_vs_r1": err,
+            "spec": spec_rep,
+            "keys": {k: {"key": dec.key, "ticks": dec.ticks,
+                         **{m: rep[dec.key]["measured"][m] for m in (
+                             "tokens", "tokens_per_s", "tick_latency_p50_s",
+                             "tick_latency_p99_s")}}
+                     for k, dec in decs.items()},
+            "trace": traces}
+        del eng, decs, logits, cache
+        params.clear()
+        del params
+        free_card()
+        report[name]["tiny_card_vs_cpu"] = check_family_tiny(name, device)
+        report[name]["phase_s"] = time.perf_counter() - t_model
+        r = report[name]
+        print(f"served {name} ({cfg.family}, {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, full depth): {gb:.2f} GB of bf16 params "
+              f"drawn on the card in {init_s:.2f} s; peak allocated "
+              f"{init_peak:.2f} GB after init, {serve_peak:.2f} GB while "
+              f"serving ({resident:.2f} GB allocated before init); "
+              f"{len(out)} requests of {LM_PROMPT}+{LM_NEW} tokens on "
+              f"{len(keys)} keys in {serve_s:.2f} s; "
+              f"{r['decode_matmul_calls']} decode_matmul calls; first-step "
+              f"default vs R1 {err:.3e}; tiny config card vs CPU "
+              f"{r['tiny_card_vs_cpu']}; {r['phase_s']:.1f} s in all")
+        for k, row in r["keys"].items():
+            print(f"  key {row['key']:40s}: {row['ticks']} ticks, p50 "
+                  f"{row['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
+                  f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
+                  f"{row['tokens_per_s']:.1f} tokens/s")
+        for k, tr in traces.items():
+            print(f"  trace of one {k} tick: {json.dumps(tr)}")
+    return total, report
+
+
+def only_families(device) -> dict:
+    """``--families``: phase 3 ``families`` alone (kernels built on first
+    use), for a quick run on the card; its report and launch counts."""
+    launches, report = phase_families(device)
+    return {"launches": launches, "families": report}
 
 
 def phase_rnn_decode(device) -> dict:
@@ -4688,6 +5017,10 @@ def main() -> int:
     what.add_argument("--time-elementwise", action="store_true",
                       help="only time fixed_point and hadamard beside their "
                       "library calls (see time_elementwise)")
+    what.add_argument("--families", action="store_true",
+                      help="only run phase 3 families: the moe, ssm, "
+                      "hybrid, enc-dec and vlm LMs served on the card (see "
+                      "phase_families)")
     what.add_argument("--batch-invariance", action="store_true",
                       help="only report one event's answer across batch "
                       "shapes, launch by launch (see batch_invariance)")
@@ -4701,6 +5034,7 @@ def main() -> int:
     timing = {"time_scans": time_scans, "time_products": time_products,
               "time_decode": time_decode,
               "time_elementwise": time_elementwise,
+              "families": only_families,
               "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
@@ -4768,6 +5102,7 @@ def main() -> int:
     launches["speculative"], spec_rep = phase_speculative(device)
     launches["speculative_rnn"], spec_rnn = phase_speculative_rnn(device)
     launches["dense_lms"], dense_lms = phase_dense_lms(device)
+    launches["families"], families = phase_families(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
     launches.update(phase_rglru(device))
     launches["train"], train_rep = phase_train(device)
@@ -4779,6 +5114,7 @@ def main() -> int:
         {"card": card, "timings": rows, "nonstatic_scans": scans,
          "lm_decode": lm, "speculative": spec_rep,
          "speculative_rnn": spec_rnn, "dense_lms": dense_lms,
+         "families": families,
          "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
          "launches": launches,

@@ -1,9 +1,9 @@
-"""Configuration dataclasses of the paper's taggers, the dense LMs and
-training.
+"""Configuration dataclasses of the paper's taggers, the LMs and training.
 
 The port's copy of the parts of ``repro.config`` that the LSTM/GRU taggers,
-the dense decoder's single-step decode and the trainer use.  Configs are
-frozen (hashable) so they can key caches and embed schedules.
+the LMs' single-step decode (every family: dense, moe, ssm, hybrid, audio
+enc-dec, vlm) and the trainer use.  Configs are frozen (hashable) so they
+can key caches and embed schedules.
 """
 
 from __future__ import annotations
@@ -13,6 +13,43 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from repro_torch.kernels.schedule import KernelSchedule
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (GShard-style routed experts)."""
+
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared_experts: int = 0          # always-on shared experts (DeepSeek/Qwen style)
+    d_ff_expert: int = 0               # per-expert hidden dim (0 -> use d_ff)
+    capacity_factor: float = 1.25      # train-time capacity (tokens dropped beyond)
+    eval_capacity_factor: float = 2.0
+    router_z_loss: float = 1e-3
+    aux_loss_weight: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256              # SSD chunk length
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma / Griffin RG-LRU configuration."""
+
+    lru_width: int = 0                 # 0 -> d_model
+    conv_width: int = 4
+    window: int = 2048                 # local-attention window in hybrid blocks
+    # repeating block pattern: 2 recurrent blocks then 1 local-attention block
+    pattern: Tuple[str, ...] = ("rglru", "rglru", "local_attn")
 
 
 @dataclass(frozen=True)
@@ -43,14 +80,14 @@ class RNNConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture: a tagger (``family="rnn"``) or a dense decoder LM
-    (``family="dense"``).
+    """One architecture: a tagger (``family="rnn"``) or an LM (families
+    dense | moe | ssm | hybrid | audio | vlm).
 
-    The transformer fields and their defaults are ``repro.config``'s dense
-    subset.  Two defaults differ from ``repro``'s: ``family`` ("rnn", not
-    "dense") and ``compute_dtype`` ("float32", not "bfloat16"); every LM
-    config of the port sets both explicitly (``configs/gemma_2b.py``,
-    ``stablelm_3b.py``, ``deepseek_coder_33b.py``, ``nemotron_4_340b.py``).
+    The transformer and family fields and their defaults are
+    ``repro.config``'s, without its dry-run and sharding knobs.  Two
+    defaults differ from ``repro``'s: ``family`` ("rnn", not "dense") and
+    ``compute_dtype`` ("float32", not "bfloat16"); every LM config of the
+    port sets both explicitly (``configs/*.py``).
     """
 
     name: str = "unnamed"
@@ -73,6 +110,21 @@ class ModelConfig:
     logits_softcap: float = 0.0        # gemma-style soft capping (0 = off)
     attn_window: int = 0               # 0 = full attention; >0 = local window
 
+    # family extensions
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+
+    # encoder-decoder (whisper)
+    enc_dec: bool = False
+    n_encoder_layers: int = 0
+    n_decoder_layers: int = 0
+    max_encoder_len: int = 1500
+
+    # modality frontend stub: none | audio | vision
+    frontend: str = "none"
+    n_frontend_tokens: int = 0         # vision: number of patch tokens prepended
+
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     grad_accum: int = 1                # microbatch steps inside train_step
@@ -90,30 +142,75 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytical parameter count: the tagger's (Keras layout) or the
-        dense decoder's (embeddings, layers, final norm)."""
-        if self.family == "dense":
-            d, V = self.d_model, self.vocab_size
-            q_dim, kv_dim = self.qkv_dims
-            attn = d * q_dim + 2 * d * kv_dim + q_dim * d
-            mlp = (3 if self.mlp_type in ("swiglu", "geglu") else 2) \
-                * d * self.d_ff
-            emb = V * d * (1 if self.tie_embeddings else 2)
-            return emb + self.n_layers * (attn + mlp + 2 * d) + d
-        if self.family != "rnn" or self.rnn is None:
-            raise NotImplementedError(
-                f"param_count covers the rnn and dense families, not "
-                f"{self.family!r}")
-        r = self.rnn
-        g = 4 if r.cell == "lstm" else 3
-        n = g * (r.input_size * r.hidden + r.hidden * r.hidden + r.hidden)
-        if r.cell == "gru":
-            n += 3 * r.hidden  # keras GRU reset_after: separate recurrent bias
-        prev = r.hidden
-        for h in r.dense_sizes:
-            n += prev * h + h
-            prev = h
-        n += prev * r.n_outputs + r.n_outputs
-        return n
+        LM's (embeddings, layers, final norm), as ``repro`` counts it."""
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        if self.family == "rnn":
+            if self.rnn is None:
+                raise ValueError(f"{self.name}: family 'rnn' without rnn=")
+            r = self.rnn
+            g = 4 if r.cell == "lstm" else 3
+            n = g * (r.input_size * r.hidden + r.hidden * r.hidden + r.hidden)
+            if r.cell == "gru":
+                n += 3 * r.hidden  # keras GRU reset_after: separate recurrent bias
+            prev = r.hidden
+            for h in r.dense_sizes:
+                n += prev * h + h
+                prev = h
+            n += prev * r.n_outputs + r.n_outputs
+            return n
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        q_dim, kv_dim = self.qkv_dims
+        attn = d * q_dim + 2 * d * kv_dim + q_dim * d
+        mlp = (3 if self.mlp_type in ("swiglu", "geglu") else 2) \
+            * d * self.d_ff
+        if self.family == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            n_heads = d_in // s.head_dim
+            per_layer = (
+                d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads)  # in_proj
+                + s.d_conv * (d_in + 2 * s.n_groups * s.d_state)       # conv
+                + n_heads * 2                                          # A_log, D
+                + d_in * d                                             # out_proj
+            )
+            return emb // 2 + L * per_layer + 2 * d  # tied embedding, final norm
+        if self.family == "moe":
+            m = self.moe
+            dff = m.d_ff_expert or self.d_ff
+            mlp = m.n_experts * 3 * d * dff + d * m.n_experts
+            mlp += m.n_shared_experts * 3 * d * dff
+        if self.family == "hybrid":
+            rg = self.rglru
+            w = rg.lru_width or d
+            n_rec = sum(1 for p in self._pattern_for_layers() if p == "rglru")
+            n_att = L - n_rec
+            rec = 2 * d * w + rg.conv_width * w + 3 * w + w * d  # in/out proj + conv + gates
+            return (emb + n_rec * (rec + mlp + 2 * d)
+                    + n_att * (attn + mlp + 2 * d) + d)
+        per_layer = attn + mlp + 2 * d
+        if self.enc_dec:
+            # encoder + decoder stacks; decoder layers add cross-attention
+            L = self.n_encoder_layers + self.n_decoder_layers
+            return emb + L * per_layer + self.n_decoder_layers * (attn + d) + d
+        return emb + L * per_layer + d
+
+    def _pattern_for_layers(self):
+        pat = self.rglru.pattern
+        return [pat[i % len(pat)] for i in range(self.n_layers)]
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        d, L = self.d_model, self.n_layers
+        dff = m.d_ff_expert or self.d_ff
+        q_dim, kv_dim = self.qkv_dims
+        attn = d * q_dim + 2 * d * kv_dim + q_dim * d
+        mlp_active = ((m.top_k + m.n_shared_experts) * 3 * d * dff
+                      + d * m.n_experts)
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (attn + mlp_active + 2 * d) + d
 
 
 @dataclass(frozen=True)

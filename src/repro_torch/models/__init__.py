@@ -1,2 +1,3 @@
-"""The paper's taggers as ``nn.Module`` and the dense decoder LM (specs,
-layers, single-step decode), with their parameter specs."""
+"""The paper's taggers as ``nn.Module`` and the LMs of every family (dense,
+moe, ssm, hybrid, audio enc-dec, vlm: specs, layers, single-step decode),
+with their parameter specs."""

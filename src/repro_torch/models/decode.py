@@ -1,26 +1,35 @@
-"""Single-token decode of the dense decoder: the paper's "static mode"
-state update at LM scale (the KV cache is resident, one step processes
-each new token).
+"""Single-token decode for every LM family: the paper's "static mode"
+state update at LM scale (the state is resident: a KV cache, an SSM state,
+an LRU state and a local-attention ring; one step processes each new
+token).
 
-The port of the dense path of ``repro/models/decode.py``:
+The port of ``repro/models/decode.py``:
 
   * ``schedule=None`` is the einsum path (plain tensor ops, a Python loop
     over the stacked layer weights in place of ``lax.scan``);
-  * with a schedule, every per-token projection (fused q|k|v, o, fused
-    gate|up or up, down) runs through ``kernels.decode_step.decode_matmul``
-    over the weight-resident layout of :func:`pack_decode_params`; on a
-    kernel backend that is the ``decode_matmul`` CUDA kernel, 4 launches per
-    layer and token step.  Norms, rotary embeddings, attention over the
-    cache and the unembedding stay plain tensor ops, as ``repro`` leaves
-    them to XLA outside any kernel.
+  * for the families whose step is matmul-shaped (dense and vlm:
+    :func:`decode_schedulable`), a schedule routes every per-token
+    projection (fused q|k|v, o, fused gate|up or up, down) through
+    ``kernels.decode_step.decode_matmul`` over the weight-resident layout
+    of :func:`pack_decode_params`; on a kernel backend that is the
+    ``decode_matmul`` CUDA kernel, 4 launches per layer and token step.
+    Norms, rotary embeddings, attention over the cache and the unembedding
+    stay plain tensor ops, as ``repro`` leaves them to XLA outside any
+    kernel.
+  * moe (routed experts, ``models/moe.py``), ssm (``models/ssm.py``),
+    hybrid (RG-LRU and ring-buffer local attention, ``models/rglru.py``)
+    and enc-dec (sinusoidal positions, self- and cross-attention) accept
+    a schedule and ignore it, as ``repro`` does: their per-token math is
+    einsums and elementwise ops outside any Pallas kernel.
 
 ``decode_steps`` is the speculative verify pass: S tokens a row in one
-pass, each projection once over [B*S, d], with the bits of S sequential
-steps (logits and caches; ``_dense_steps`` says why), and ``kv_trim``
-rolls the cache back to the accepted prefix.  Only the dense family runs:
-MoE, SSM, hybrid, enc-dec and vlm decode raise ``NotImplementedError``
-(``ROADMAP.md`` module item 10).  ``lm_params_from_jax`` carries
-``repro``'s flat LM parameters over, dtypes kept.
+pass with the bits of S sequential steps (dense and vlm under a kernel
+schedule: each projection once over [B*S, d], ``_dense_steps`` says why;
+every other case unrolls the sequential step), and ``kv_trim`` rolls the
+KV cache back to the accepted prefix.  ``lm_params_from_jax`` carries
+``repro``'s flat LM parameters over, dtypes kept.  Prefill (a whole
+prompt in one pass, whisper's encoder filling ``cache/xk`` / ``cache/xv``)
+is not ported yet (``ROADMAP.md`` module item 10, prefill).
 """
 
 from __future__ import annotations
@@ -36,10 +45,14 @@ from repro_torch.kernels.decode_step import decode_matmul
 from repro_torch.kernels.ops import resident
 from repro_torch.kernels.schedule import KernelSchedule
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import (decode_attention,
+                                          decode_attention_masked)
 from repro_torch.models.init import ParamSpec, ParamSpecs
 from repro_torch.models.layers import ACTIVATIONS, apply_rope, embed, norm
 from repro_torch.models.mlp import glu_activation, mlp
+from repro_torch.models.moe import moe_block
+from repro_torch.models.rglru import rglru_decode_step
+from repro_torch.models.ssm import ssm_decode_step, ssm_dims
 
 Device = Union[str, torch.device]
 
@@ -51,10 +64,59 @@ Device = Union[str, torch.device]
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                 cache_dtype: str = "bfloat16") -> ParamSpecs:
-    """The dense decoder's KV cache: ``cache/k`` and ``cache/v``, each
-    [L, batch, max_len, kv_heads, head_dim]."""
-    tf.require_dense(cfg, "cache_specs")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """The decode state of ``cfg``'s family, all zeros at the start:
+
+      * dense / moe / vlm: ``cache/k`` and ``cache/v``, each [L, batch,
+        max_len, kv_heads, head_dim];
+      * ssm: ``cache/state`` [L, batch, heads, head_dim, d_state] (float32)
+        and ``cache/conv`` [L, batch, d_conv-1, conv_dim];
+      * hybrid: per block of the pattern, ``cache/hyb{j}_*`` stacked over
+        the super-blocks and ``cache/hybrem{j}_*`` for a remainder layer:
+        an RG-LRU's ``_state`` [.., batch, width] (float32) and ``_conv``,
+        a local-attention ring's ``_k`` / ``_v`` [.., batch, W, kv_heads,
+        head_dim] and ``_pos`` [.., batch, W] (int32, position + 1; 0 is
+        empty), W = min(window, max_len);
+      * enc-dec: the decoder's ``cache/k`` / ``cache/v`` and the encoder's
+        ``cache/xk`` / ``cache/xv``, each [L_dec, batch, max_len,
+        kv_heads, head_dim]."""
+    tf.require_lm(cfg, "cache_specs")
+    L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    specs: ParamSpecs = {}
+    if cfg.family == "ssm":
+        _, h, conv_dim = ssm_dims(cfg)
+        s = cfg.ssm
+        specs["cache/state"] = ParamSpec(
+            (L, batch, h, s.head_dim, s.d_state), "zeros", "float32")
+        specs["cache/conv"] = ParamSpec(
+            (L, batch, s.d_conv - 1, conv_dim), "zeros", cache_dtype)
+        return specs
+    if cfg.family == "hybrid":
+        rg = cfg.rglru
+        w = rg.lru_width or cfg.d_model
+        W = min(rg.window, max_len)
+        n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
+        groups = [(f"cache/hyb{j}", kind, (n_super, batch))
+                  for j, kind in enumerate(rg.pattern)]
+        groups += [(f"cache/hybrem{j}", rg.pattern[j], (batch,))
+                   for j in range(rem)]
+        for pre, kind, lead in groups:
+            if kind == "rglru":
+                specs[f"{pre}_state"] = ParamSpec(lead + (w,), "zeros",
+                                                  "float32")
+                specs[f"{pre}_conv"] = ParamSpec(
+                    lead + (rg.conv_width - 1, w), "zeros", cache_dtype)
+            else:
+                for n in ("k", "v"):
+                    specs[f"{pre}_{n}"] = ParamSpec(lead + (W, hk, hd),
+                                                    "zeros", cache_dtype)
+                specs[f"{pre}_pos"] = ParamSpec(lead + (W,), "zeros",
+                                                "int32")
+        return specs
+    if cfg.enc_dec:
+        shape = (cfg.n_decoder_layers, batch, max_len, hk, hd)
+        return {k: ParamSpec(shape, "zeros", cache_dtype)
+                for k in ("cache/k", "cache/v", "cache/xk", "cache/xv")}
+    shape = (L, batch, max_len, hk, hd)
     return {"cache/k": ParamSpec(shape, "zeros", cache_dtype),
             "cache/v": ParamSpec(shape, "zeros", cache_dtype)}
 
@@ -79,6 +141,11 @@ def _weak_scale(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * float(torch.tensor(c, dtype=x.dtype))
 
 
+def _layer(stacked: Dict, l: int) -> Dict:
+    """Layer ``l`` of a stacked [L, ...] parameter group (views)."""
+    return {k: v[l] for k, v in stacked.items()}
+
+
 def _update_cache(cache_l: torch.Tensor, new: torch.Tensor,
                   pos: torch.Tensor) -> torch.Tensor:
     """cache_l: [b, S, hk, hd]; new: [b, 1, hk, hd]; pos: [b].  A masked
@@ -87,6 +154,15 @@ def _update_cache(cache_l: torch.Tensor, new: torch.Tensor,
     S = cache_l.shape[1]
     sel = torch.arange(S, device=cache_l.device)[None, :] == pos[:, None]
     return torch.where(sel[..., None, None], new.to(cache_l.dtype), cache_l)
+
+
+def _ring_write_pos(pos_l: torch.Tensor, slot: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    """pos_l: [b, W] stores (absolute position + 1); 0 = empty slot.  The
+    slot's entry is written in pos_l's own dtype."""
+    sel = (torch.arange(pos_l.shape[1], device=pos_l.device)[None, :]
+           == slot[:, None])
+    return torch.where(sel, (pos[:, None] + 1).to(pos_l.dtype), pos_l)
 
 
 def _qkv(cfg: ModelConfig, x, p, pre, pos, rope=True):
@@ -112,9 +188,48 @@ def _attn_decode(cfg: ModelConfig, x, p, pre, ck, cv, pos, window=0,
     return out, ck, cv
 
 
+def _local_attn_decode(cfg: ModelConfig, x, p, pre, ck, cv, cpos, pos,
+                       window: int):
+    """Ring-buffer windowed attention decode (Griffin's local layers).
+    x: [b, 1, d] pre-normed; ck / cv: [b, W, hk, hd]; cpos: [b, W].
+    Returns (out [b, 1, d], ck, cv, cpos)."""
+    q, k, v = _qkv(cfg, x, p, pre, pos, rope=True)
+    slot = torch.remainder(pos, ck.shape[1])
+    # a ring write is the KV cache's masked write at the slot
+    ck = _update_cache(ck, k, slot)
+    cv = _update_cache(cv, v, slot)
+    cpos = _ring_write_pos(cpos, slot, pos)
+    # slots hold pos+1 (0 = never written); window mask on absolute position
+    valid = ((cpos > 0) & (cpos <= pos[:, None] + 1)
+             & (cpos > pos[:, None] + 1 - window))
+    o = decode_attention_masked(q, ck.to(x.dtype), cv.to(x.dtype), valid)
+    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
+                       p[f"{pre}/wo"].to(x.dtype))
+    return out, ck, cv, cpos
+
+
+def _sinusoid(cfg: ModelConfig, x: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    """x + whisper's sinusoidal position embedding at each row's pos."""
+    d = cfg.d_model
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=x.device)[None]
+    ang = pos[:, None].float() / torch.pow(10000.0, dim / d)
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+    return x + pe[:, None, :].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Schedule-driven decode: fused, weight-resident dense-decoder step
 # ---------------------------------------------------------------------------
+
+
+def decode_schedulable(cfg: ModelConfig) -> bool:
+    """Families whose per-token hot path is matmul-shaped and therefore
+    runs the scheduled kernel path: the dense decoder stack (dense / vlm).
+    MoE routing, SSM and RG-LRU state updates, the hybrid block pattern
+    and enc-dec cross-attention keep the einsum path (a schedule is
+    accepted and ignored), as in ``repro``."""
+    return cfg.family in ("dense", "vlm") and not cfg.enc_dec
 
 
 def pack_decode_params(cfg: ModelConfig, params: Dict) -> Dict:
@@ -143,7 +258,7 @@ def pack_decode_params(cfg: ModelConfig, params: Dict) -> Dict:
     def pack() -> Dict:
         layers: List[Dict] = []
         for l in range(cfg.n_layers):
-            p_l = {k: v[l] for k, v in stacked.items()}
+            p_l = _layer(stacked, l)
             entry = {k: v for k, v in p_l.items()
                      if "/attn/w" not in k and "/mlp/w" not in k}
             entry["__wqkv"] = torch.cat(
@@ -273,23 +388,41 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     """tokens: [b, 1] int; pos: [b] current positions.  Returns
     (logits [b, 1, V], new cache).
 
-    ``schedule`` routes the projections through the weight-resident decode
-    kernel (module docstring); ``packed`` is the layout of
-    :func:`pack_decode_params` (derived, and cached, from ``params`` when
-    omitted).  ``schedule=None`` is the einsum path."""
-    tf.require_dense(cfg, "decode_step")
+    ``schedule`` routes the projections of a dense or vlm step through the
+    weight-resident decode kernel (module docstring); ``packed`` is the
+    layout of :func:`pack_decode_params` (derived, and cached, from
+    ``params`` when omitted).  ``schedule=None``, and every other family
+    under any schedule, is the einsum path."""
+    tf.require_lm(cfg, "decode_step")
     cdt = getattr(torch, cfg.compute_dtype)
-    x = _weak_scale(embed(tokens, params["embed/table"], cdt),
-                    math.sqrt(cfg.d_model))
-    if schedule is not None:
+    x = embed(tokens, params["embed/table"], cdt)
+    if cfg.family in ("dense", "vlm", "hybrid") or cfg.enc_dec:
+        x = _weak_scale(x, math.sqrt(cfg.d_model))
+    if schedule is not None and decode_schedulable(cfg):
         if packed is None:
             packed = pack_decode_params(cfg, params)
         return _dense_steps(cfg, params, packed, cache, x, pos, schedule)
+    new_cache = dict(cache)
+    if cfg.family == "ssm":
+        x = _ssm_layers(cfg, params, cache, new_cache, x)
+    elif cfg.family == "hybrid":
+        x = _hybrid_layers(cfg, params, cache, new_cache, x, pos)
+    elif cfg.enc_dec:
+        x = _xdecoder_layers(cfg, params, cache, new_cache,
+                             _sinusoid(cfg, x, pos), pos)
+    else:
+        x = _decoder_layers(cfg, params, cache, new_cache, x, pos)
+    x = norm(cfg, x, params, "final_norm")
+    return tf.logits_fn(cfg, params, x), new_cache
 
+
+def _decoder_layers(cfg, params, cache, new_cache, x, pos):
+    """dense / moe / vlm: attention over the KV cache, then the MLP (moe:
+    the routed experts, at eval capacity)."""
     stacked = tf.slice_layer(params, "decoder/")
     cks, cvs = [], []
     for l in range(cfg.n_layers):
-        p_l = {k: v[l] for k, v in stacked.items()}
+        p_l = _layer(stacked, l)
         hn = norm(cfg, x, p_l, "decoder/norm1")
         out, ck, cv = _attn_decode(cfg, hn, p_l, "decoder/attn",
                                    cache["cache/k"][l], cache["cache/v"][l],
@@ -298,12 +431,108 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         cvs.append(cv)
         x = x + out
         h2 = norm(cfg, x, p_l, "decoder/norm2")
-        x = x + mlp(cfg, h2, p_l, "decoder/mlp")
-    new_cache = dict(cache)
+        if cfg.family == "moe":
+            x = x + moe_block(cfg, h2, p_l, "decoder/moe", train=False)[0]
+        else:
+            x = x + mlp(cfg, h2, p_l, "decoder/mlp")
     new_cache["cache/k"] = torch.stack(cks)
     new_cache["cache/v"] = torch.stack(cvs)
-    x = norm(cfg, x, params, "final_norm")
-    return tf.logits_fn(cfg, params, x), new_cache
+    return x
+
+
+def _ssm_layers(cfg, params, cache, new_cache, x):
+    """ssm: one Mamba-2 state update a layer (no MLP, no second norm)."""
+    stacked = tf.slice_layer(params, "decoder/")
+    states, convs = [], []
+    for l in range(cfg.n_layers):
+        p_l = _layer(stacked, l)
+        hn = norm(cfg, x, p_l, "decoder/norm1")
+        out, (st, cv) = ssm_decode_step(cfg, hn, p_l, "decoder/ssm",
+                                        cache["cache/state"][l],
+                                        cache["cache/conv"][l])
+        states.append(st)
+        convs.append(cv)
+        x = x + out
+    new_cache["cache/state"] = torch.stack(states)
+    new_cache["cache/conv"] = torch.stack(convs)
+    return x
+
+
+def _hybrid_block(cfg, x, p, pre, kind, c, pos):
+    """One Griffin layer ``pre`` (an RG-LRU or a local-attention block,
+    then the MLP) over its cache entries ``c`` (``cache/{pre}_*`` without
+    the prefix); ``c`` is updated in place (a dict)."""
+    hn = norm(cfg, x, p, f"{pre}/norm1")
+    if kind == "rglru":
+        out, (c["state"], c["conv"]) = rglru_decode_step(
+            cfg, hn, p, f"{pre}/mix", c["state"], c["conv"])
+    else:
+        out, c["k"], c["v"], c["pos"] = _local_attn_decode(
+            cfg, hn, p, f"{pre}/attn", c["k"], c["v"], c["pos"], pos,
+            cfg.rglru.window)
+    x = x + out
+    h2 = norm(cfg, x, p, f"{pre}/norm2")
+    return x + mlp(cfg, h2, p, f"{pre}/mlp")
+
+
+def _hybrid_layers(cfg, params, cache, new_cache, x, pos):
+    """hybrid: the stacked super-blocks ``hyb{j}`` in turn (the pattern's
+    blocks within each), then the remainder layers ``hybrem{j}``."""
+    rg = cfg.rglru
+    n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
+    stacked = {k: v for k, v in params.items()
+               if k.startswith("hyb") and not k.startswith("hybrem")}
+    names = {j: [k for k in cache if k.startswith(f"cache/hyb{j}_")]
+             for j in range(len(rg.pattern))}
+    outs = {k: [] for ks in names.values() for k in ks}
+    for l in range(n_super):
+        p_l = _layer(stacked, l)
+        for j, kind in enumerate(rg.pattern):
+            pre = f"cache/hyb{j}_"
+            c = {k[len(pre):]: cache[k][l] for k in names[j]}
+            x = _hybrid_block(cfg, x, p_l, f"hyb{j}", kind, c, pos)
+            for k in names[j]:
+                outs[k].append(c[k[len(pre):]])
+    for k, v in outs.items():
+        new_cache[k] = torch.stack(v)
+    for j in range(rem):
+        pre = f"cache/hybrem{j}_"
+        c = {k[len(pre):]: v for k, v in cache.items() if k.startswith(pre)}
+        x = _hybrid_block(cfg, x, tf.slice_layer(params, f"hybrem{j}/"),
+                          f"hybrem{j}", rg.pattern[j], c, pos)
+        new_cache.update({pre + k: v for k, v in c.items()})
+    return x
+
+
+def _xdecoder_layers(cfg, params, cache, new_cache, x, pos):
+    """enc-dec (whisper's decoder): self-attention over the KV cache
+    without rotary embeddings, cross-attention over all of ``cache/xk`` /
+    ``cache/xv``, then the MLP."""
+    stacked = tf.slice_layer(params, "xdecoder/")
+    cks, cvs = [], []
+    for l in range(cfg.n_decoder_layers):
+        p_l = _layer(stacked, l)
+        hn = norm(cfg, x, p_l, "xdecoder/norm1")
+        out, ck, cv = _attn_decode(cfg, hn, p_l, "xdecoder/attn",
+                                   cache["cache/k"][l], cache["cache/v"][l],
+                                   pos, rope=False)
+        cks.append(ck)
+        cvs.append(cv)
+        x = x + out
+        hx = norm(cfg, x, p_l, "xdecoder/norm_x")
+        qx = torch.einsum("bsd,dhk->bshk", hx,
+                          p_l["xdecoder/xattn/wq"].to(hx.dtype))
+        xk, xv = cache["cache/xk"][l], cache["cache/xv"][l]
+        enc_len = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int64,
+                             device=x.device)
+        ox = decode_attention(qx, xk.to(hx.dtype), xv.to(hx.dtype), enc_len)
+        x = x + torch.einsum("bshk,hkd->bsd", ox.to(hx.dtype),
+                             p_l["xdecoder/xattn/wo"].to(hx.dtype))
+        h2 = norm(cfg, x, p_l, "xdecoder/norm2")
+        x = x + mlp(cfg, h2, p_l, "xdecoder/mlp")
+    new_cache["cache/k"] = torch.stack(cks)
+    new_cache["cache/v"] = torch.stack(cvs)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -322,15 +551,18 @@ def decode_steps(cfg: ModelConfig, params: Dict, cache: Dict,
     ``logits[:, i]`` is what :func:`decode_step` gives for token i with
     the cache advanced through the tokens before it, bit for bit.
 
-    The speculative decoder's verify pass.  A kernel schedule runs
-    :func:`_dense_steps` over the chunk (its four products a layer once
-    over [b*S, d]; see its docstring for why the bits are the sequential
-    chain's).  ``schedule=None`` (the einsum path) and ``backend="xla"``
-    (the plain dot) unroll the sequential step, as ``repro`` unrolls the
-    einsum path: their products are library products, whose rows may
-    round otherwise at another M."""
-    tf.require_dense(cfg, "decode_steps")
-    if schedule is not None and schedule.use_pallas:
+    The speculative decoder's verify pass.  For dense and vlm a kernel
+    schedule runs :func:`_dense_steps` over the chunk (its four products a
+    layer once over [b*S, d]; see its docstring for why the bits are the
+    sequential chain's).  ``schedule=None`` (the einsum path),
+    ``backend="xla"`` (the plain dot) and every other family unroll the
+    sequential step, as ``repro`` unrolls them: their products are library
+    products, whose rows may round otherwise at another M.  An ssm or
+    hybrid state absorbs every token it sees and nothing rolls it back, so
+    the serving path refuses speculation there (``serving/speculative.py``)."""
+    tf.require_lm(cfg, "decode_steps")
+    if (schedule is not None and schedule.use_pallas
+            and decode_schedulable(cfg)):
         cdt = getattr(torch, cfg.compute_dtype)
         x = _weak_scale(embed(tokens, params["embed/table"], cdt),
                         math.sqrt(cfg.d_model))
@@ -350,7 +582,9 @@ def kv_trim(cache: Dict, keep: torch.Tensor) -> Dict:
     """Roll the KV cache back to ``keep[b]`` valid entries a row: positions
     ``>= keep[b]`` of ``cache/k`` / ``cache/v`` return to zeros (their
     initial state), so a cache that saw rejected speculative writes becomes
-    bit-equal to one that only advanced through the accepted prefix.  Not
+    bit-equal to one that only advanced through the accepted prefix (the
+    encoder's ``cache/xk`` / ``cache/xv`` do not depend on the decode
+    position and are left as they are).  Not
     needed for exactness (attention masks every entry past a row's length
     with NEG_INF, and the next verify window rewrites them first); it is
     the strict rollback mode (``SpecConfig.trim``).  Other entries of the
@@ -375,9 +609,10 @@ def kv_trim(cache: Dict, keep: torch.Tensor) -> Dict:
 def lm_params_from_jax(params: Mapping[str, object],
                        device: Device = "cuda") -> Dict[str, torch.Tensor]:
     """``repro``'s flat LM parameters (numpy or JAX arrays, layout of
-    ``transformer.param_specs``) as tensors on ``device``, each in its own
-    dtype.  bfloat16 (``ml_dtypes``, which ``torch.from_numpy`` rejects)
-    crosses through float32, which holds every bfloat16 value exactly."""
+    ``transformer.param_specs``: every family's tree) as tensors on
+    ``device``, each in its own dtype.  bfloat16 (``ml_dtypes``, which
+    ``torch.from_numpy`` rejects) crosses through float32, which holds
+    every bfloat16 value exactly."""
     out = {}
     for k, v in params.items():
         a = np.asarray(v)
@@ -386,7 +621,9 @@ def lm_params_from_jax(params: Mapping[str, object],
         else:
             t = torch.from_numpy(np.array(a))
         out[k] = t.to(device)
-    if "embed/table" not in out or not any(k.startswith("decoder/")
+    stacks = ("decoder/", "xdecoder/", "hyb")
+    if "embed/table" not in out or not any(k.startswith(stacks)
                                            for k in out):
-        raise KeyError(f"not dense LM parameters: {sorted(out)}")
+        raise KeyError(f"not LM parameters (embed/table and a layer stack "
+                       f"{stacks}): {sorted(out)}")
     return out

@@ -8,6 +8,18 @@ generator, on the card, where billions of values take well under a second.
 The distributions are the JAX package's; the numbers differ, since the
 generators differ (``models.decode.lm_params_from_jax`` carries the JAX
 package's own values over).
+
+A tensor of rank 3 or more (the LMs' stacked layer weights) is drawn slice
+by slice along its leading axis, each slice in float32 and cast into the
+result, at the whole tensor's standard deviation: at full width a stacked
+expert weight ([48, 128, 2048, 768] in qwen3-moe-30b-a3b) drawn whole in
+float32 would take 38.6 GB beside its bf16 copy (and ``trunc_normal_``
+redraws whole-size tensors while it rejects).  :func:`init_params` draws
+those from a second generator, seeded from the first one's seed, so that
+the first generator's stream is spent on the tensors of rank 2 or less
+alone (every tagger weight, the embedding), each drawn whole in sorted
+path order: their values do not depend on how the stacked tensors are
+drawn.
 """
 
 from __future__ import annotations
@@ -40,36 +52,56 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
 
 def init_param(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     """One parameter on the generator's device, drawn from ``generator``
-    (in float32, then cast to the spec's dtype)."""
+    (in float32, then cast to the spec's dtype); rank 3 or more slice by
+    slice along the leading axis (module docstring)."""
     dtype = getattr(torch, spec.dtype)
     dev = generator.device
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init not in ("embed", "normal", "lecun", "rnn_ortho"):
+        raise ValueError(f"unknown init {spec.init!r}")
+    # the spread of the whole tensor, whichever part is drawn
+    std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
+    if len(spec.shape) < 3:
+        return _draw(spec, spec.shape, std, generator).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=dev)
+    for i in range(spec.shape[0]):
+        out[i] = _draw(spec, spec.shape[1:], std, generator)
+    return out
+
+
+def _draw(spec: ParamSpec, shape: Tuple[int, ...], std: float,
+          generator: torch.Generator) -> torch.Tensor:
+    """A float32 draw of ``shape`` by ``spec.init``."""
+    dev = generator.device
     if spec.init == "embed":
-        v = torch.randn(spec.shape, generator=generator, device=dev)
-        return (v * spec.scale).to(dtype)
-    if spec.init in ("normal", "lecun"):
-        # truncated at +-2 standard deviations, as jax.random.truncated_normal
-        std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        v = torch.empty(spec.shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(v, 0.0, std, -2.0 * std, 2.0 * std,
-                                    generator=generator)
-        return v.to(dtype)
+        v = torch.randn(shape, generator=generator, device=dev)
+        return v * spec.scale
     if spec.init == "rnn_ortho":
         # orthogonal recurrent kernel (keras default for RNN recurrent weights)
-        rows, cols = spec.shape[-2], spec.shape[-1]
+        rows, cols = shape[-2], shape[-1]
         n = max(rows, cols)
-        a = torch.randn(spec.shape[:-2] + (n, n), generator=generator,
-                        device=dev)
+        a = torch.randn(shape[:-2] + (n, n), generator=generator, device=dev)
         q, _ = torch.linalg.qr(a)
-        return (q[..., :rows, :cols] * spec.scale).to(dtype)
-    raise ValueError(f"unknown init {spec.init!r}")
+        return q[..., :rows, :cols] * spec.scale
+    # normal / lecun: truncated at +-2 standard deviations, as
+    # jax.random.truncated_normal
+    v = torch.empty(shape, dtype=torch.float32, device=dev)
+    torch.nn.init.trunc_normal_(v, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=generator)
+    return v
 
 
 def init_params(specs: ParamSpecs, generator: torch.Generator,
                 device: Union[str, torch.device] = "cuda") -> Params:
-    """Every parameter of ``specs``, drawn in sorted path order."""
-    return {path: init_param(spec, generator).to(device)
+    """Every parameter of ``specs``, drawn in sorted path order: tensors of
+    rank 2 or less from ``generator``, those of rank 3 or more (slice by
+    slice) from a second generator on the same device seeded with
+    ``generator.initial_seed() + 1``."""
+    stacked = torch.Generator(device=generator.device).manual_seed(
+        generator.initial_seed() + 1)
+    return {path: init_param(spec, stacked if len(spec.shape) >= 3
+                             else generator).to(device)
             for path, spec in sorted(specs.items())}

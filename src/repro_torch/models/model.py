@@ -2,12 +2,12 @@
 specs, seeded initialisation, training loss and forward pass, dispatched by
 config family.
 
-The port of ``repro/models/model.py`` for the families the port runs: the
-taggers (``rnn``) and the dense decoder.  Any other family raises
-``NotImplementedError`` naming ``ROADMAP.md`` module item 10; nothing else
-runs in its place.  The dense decoder's ``loss`` and ``forward`` raise it
-too: the port has its single-step decode, not ``transformer.forward`` over
-a whole sequence or ``lm_loss``.
+The port of ``repro/models/model.py``: the taggers (``rnn``) and every LM
+family (dense, moe, ssm, hybrid, audio enc-dec, vlm), whose parameters
+and seeded initialisation serve ``models/decode.py``.  An LM's ``loss``
+and ``forward`` raise ``NotImplementedError`` naming ``ROADMAP.md`` module
+item 10's prefill: the port has the single-step decode, not
+``transformer.forward`` over a whole sequence or ``lm_loss``.
 """
 
 from __future__ import annotations
@@ -54,11 +54,12 @@ class Model:
         if self.cfg.family != "rnn":
             raise NotImplementedError(
                 f"Model.{what} of {self.cfg.name!r} ({self.cfg.family}): the "
-                f"port has no sequence forward or lm_loss for the LM yet "
-                f"(ROADMAP.md module item 10)")
+                f"port has no sequence forward (prefill) or lm_loss for the "
+                f"LM yet (ROADMAP.md module item 10, prefill and the "
+                f"training forward pass); it serves the LM by decode")
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family != "rnn":
-        transformer.require_dense(cfg, "build_model")
+        transformer.require_lm(cfg, "build_model")
     return Model(cfg)

@@ -1,0 +1,119 @@
+"""Mamba-2 (SSD, state-space duality) block, arXiv:2405.21060: its
+parameter specs and its single-token decode.
+
+The port of the decode part of ``repro/models/ssm.py`` (``ssm_dims``,
+``ssm_specs``, ``_causal_conv``, ``ssm_decode_step``).  Decode is the O(1)
+state update, the paper's "static mode" RNN block: the [b, h, p, n] state
+stays resident (float32), one step a token.  As in ``repro`` these are
+plain tensor ops outside any kernel; every cast is ``repro``'s, and a
+mixed-dtype product runs in the promoted dtype, as ``jnp.einsum`` does.
+The chunked SSD of prefill is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.init import ParamSpec
+from repro_torch.models.layers import rms_norm
+
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(d_inner, value heads, conv channels) of the block."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    n_heads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return d_in, n_heads, conv_dim
+
+
+def ssm_specs(cfg: ModelConfig, prefix: str, stacked=None) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, h, conv_dim = ssm_dims(cfg)
+    lead = (stacked,) if stacked else ()
+    dt = cfg.param_dtype
+    # in_proj emits [z (d_in), xBC (conv_dim), dt (h)]
+    return {
+        f"{prefix}/w_in": ParamSpec(
+            lead + (d, 2 * d_in + 2 * s.n_groups * s.d_state + h), "lecun",
+            dt),
+        f"{prefix}/conv_w": ParamSpec(lead + (s.d_conv, conv_dim), "lecun",
+                                      dt, 3.0),
+        f"{prefix}/conv_b": ParamSpec(lead + (conv_dim,), "zeros", dt),
+        f"{prefix}/dt_bias": ParamSpec(lead + (h,), "zeros", dt),
+        f"{prefix}/a_log": ParamSpec(lead + (h,), "ones", dt),
+        f"{prefix}/d_skip": ParamSpec(lead + (h,), "ones", dt),
+        f"{prefix}/norm_scale": ParamSpec(lead + (d_in,), "zeros", dt),
+        f"{prefix}/w_out": ParamSpec(lead + (d_in, d), "lecun", dt),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 cache: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv.  x: [b, s, c]; w: [k, c]; cache: the last k-1
+    inputs [b, k-1, c] (zeros when None).  Returns (y, new cache).
+
+    The new cache holds x's values (``repro`` hands back x's dtype); it is
+    kept in the wider of x's and the old cache's dtypes, which holds those
+    values exactly and does not change from step to step."""
+    k = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                         # [b, s+k-1, c]
+    y = 0
+    for i in range(k):
+        y = y + xp[:, i:i + x.shape[1]] * w[i][None, None]
+    y = y + b[None, None]
+    keep = (x.dtype if cache is None
+            else torch.promote_types(cache.dtype, x.dtype))
+    return y, xp[:, -(k - 1):].to(keep)
+
+
+def ssm_decode_step(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str,
+                    state: torch.Tensor, conv_cache: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Single-token decode: x [b, 1, d]; state [b, h, p, n] (float32);
+    conv_cache [b, d_conv-1, conv_dim].  Returns (out [b, 1, d] in x's
+    dtype, (new state, new conv cache)).  O(1) in context length."""
+    s_cfg = cfg.ssm
+    d_in, h, conv_dim = ssm_dims(cfg)
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    b = x.shape[0]
+
+    zxbcdt = torch.einsum("bsd,de->bse", x, p[f"{prefix}/w_in"].to(x.dtype))
+    z, xBC, dt = torch.split(zxbcdt, [d_in, conv_dim, h], dim=-1)
+    xBC, new_conv_cache = _causal_conv(
+        xBC, p[f"{prefix}/conv_w"].to(x.dtype),
+        p[f"{prefix}/conv_b"].to(x.dtype), conv_cache)
+    xBC = F.silu(xBC)
+    xv, B, C = torch.split(xBC, [d_in, g * n, g * n], dim=-1)
+
+    dt = F.softplus(dt.float()
+                    + p[f"{prefix}/dt_bias"].float())[:, 0]      # [b,h]
+    a = -torch.exp(p[f"{prefix}/a_log"].float())
+    a_t = torch.exp(dt * a[None, :])                             # [b,h]
+
+    xv = xv.reshape(b, h, s_cfg.head_dim)
+    xdt = xv * dt[..., None].to(xv.dtype)
+    hg = h // g
+    Bh = B.reshape(b, g, n).repeat_interleave(hg, dim=1)        # [b,h,n]
+    Ch = C.reshape(b, g, n).repeat_interleave(hg, dim=1)
+
+    new_state = (state * a_t[..., None, None].to(state.dtype)
+                 + xdt[..., :, None] * Bh[..., None, :])         # [b,h,p,n]
+    # the f32 state and C in their promoted dtype, as jnp.einsum takes them
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.to(new_state.dtype))
+    y = y + xv * p[f"{prefix}/d_skip"].to(xv.dtype)[None, :, None]
+    y = y.reshape(b, 1, d_in)
+    y = rms_norm(y * F.silu(z), p[f"{prefix}/norm_scale"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p[f"{prefix}/w_out"].to(y.dtype))
+    return out.to(x.dtype), (new_state, new_conv_cache)

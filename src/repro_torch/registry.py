@@ -1,15 +1,13 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port's copy of ``repro.registry``, under the same arch ids.  An arch
-whose config the port does not carry yet (the MoE, SSM, hybrid, enc-dec and
-vlm families) raises ``NotImplementedError`` naming ROADMAP.md module item
-10.
+The port's copy of ``repro.registry``, under the same arch ids: the ten
+LMs (dense, moe, ssm, hybrid, audio enc-dec and vlm) and the paper's six
+taggers.
 """
 
 from __future__ import annotations
 
 import importlib
-import importlib.util
 from typing import Dict, List
 
 from repro_torch.config import ModelConfig
@@ -40,12 +38,7 @@ ARCHS: Dict[str, str] = {
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
-    module = f"repro_torch.configs.{ARCHS[name]}"
-    if importlib.util.find_spec(module) is None:
-        raise NotImplementedError(
-            f"arch {name!r}: the port has no config for it yet (ROADMAP.md "
-            f"module item 10)")
-    mod = importlib.import_module(module)
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     if name.endswith("-lstm"):
         return mod.lstm_config()
     if name.endswith("-gru"):

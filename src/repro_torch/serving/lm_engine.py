@@ -1,10 +1,11 @@
 """LM serving engine: token-by-token decode with slot-based continuous
 batching, keyed by schedule like the RNN engine.
 
-The port of ``repro/serving/lm_engine.py`` for the dense decoder.  The
-decode step is the paper's static-mode schedule at LM scale (state
-resident, one token per step); the slot manager does continuous batching:
-a finished sequence frees its slot and a new request joins mid-flight.
+The port of ``repro/serving/lm_engine.py``, for every LM family (dense,
+moe, ssm, hybrid, audio enc-dec, vlm).  The decode step is the paper's
+static-mode schedule at LM scale (state resident, one token per step);
+the slot manager does continuous batching: a finished sequence frees its
+slot and a new request joins mid-flight.
 Prompts are fed token by token through the same decode step (teacher
 forcing), then tokens are sampled greedily.
 
@@ -13,11 +14,15 @@ Requests may carry a ``KernelSchedule``; they are routed by the stable
 KV cache, ONE executor of the decode step (built once, counted by
 ``trace_count``) and its counters.  Requests of different keys never share
 a decode batch; requests with no schedule ride ``DEFAULT_SCHEDULE_KEY``,
-the einsum path.  A scheduled key runs every projection on the
-``decode_matmul`` kernel (4 launches per layer and tick) over the packed
-weight layout, which the engine derives once and holds for all its
-scheduled keys (the layout does not depend on the schedule, and a
-full-width pack is larger than the residency cache keeps).
+the einsum path.  For dense and vlm (``decode_schedulable``) a scheduled
+key runs every projection on the ``decode_matmul`` kernel (4 launches per
+layer and tick) over the packed weight layout, which the engine derives
+once and holds for all its scheduled keys (the layout does not depend on
+the schedule, and a full-width pack is larger than the residency cache
+keeps).  The other families accept a schedule and run the einsum path on
+every key, as ``repro``'s engine does; their keys still get their own
+pools, caches and executors.  The encoder of an enc-dec model is prefill,
+which neither engine runs: ``cache/xk`` / ``cache/xv`` stay zeros.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu")
 and raises without a CUDA device.  Greedy sampling takes the FIRST maximum
@@ -54,7 +59,11 @@ accepted + rejected`` exactly.  Greedy takes the first maximum on the
 host (``np.argmax`` over float32 logits) in the tick, the draft step and
 the verify pass alike.
 
-Every family but the dense decoder is ``ROADMAP.md`` module item 10.
+Speculation is refused (``ValueError``) for the families whose decode
+state absorbs every token it sees (ssm, hybrid): nothing rolls an SSM or
+RG-LRU state back past a rejected draft, so their speculative tokens
+would not be the sequential key's (``ROADMAP.md`` §3: a difference from
+``repro``, whose engine speculates there and loses exactness).
 """
 
 from __future__ import annotations
@@ -71,14 +80,15 @@ from repro_torch.core.hls import estimate_lm_decode
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
                                           KernelSchedule, cache_meta,
                                           schedule_key)
-from repro_torch.models.decode import (decode_step, init_cache,
-                                       pack_decode_params)
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.decode import (decode_schedulable, decode_step,
+                                       init_cache, pack_decode_params)
+from repro_torch.models.transformer import require_lm
 from repro_torch.serving.batcher import KeyStats, _now
 from repro_torch.serving.compile_cache import CachedExecutor, CompileCache
 from repro_torch.serving.engine import EngineClosedError
 from repro_torch.serving.speculative import (SpecConfig, SpeculativeDecoder,
-                                             accept_chunk)
+                                             accept_chunk,
+                                             refuse_recurrent_spec)
 
 
 @dataclass
@@ -97,8 +107,9 @@ class _KeyedDecoder:
     """One schedule key's continuous-batching state: slot pool, KV cache,
     the key's single executor of the decode step (readied through the
     compile cache), serving counters.  A scheduled key runs over the
-    engine's packed weight layout.  A key with a ``SpecConfig`` (k > 0)
-    ticks through its :class:`SpeculativeDecoder` instead."""
+    engine's packed weight layout (``scheduled``: dense and vlm only).  A
+    key with a ``SpecConfig`` (k > 0) ticks through its
+    :class:`SpeculativeDecoder` instead."""
 
     def __init__(self, cfg: ModelConfig, key: str,
                  schedule: Optional[KernelSchedule], *, max_batch: int,
@@ -116,6 +127,7 @@ class _KeyedDecoder:
         self.cfg = cfg
         self.cache_dtype = cache_dtype
         self.schedule = schedule
+        self.scheduled = schedule is not None and decode_schedulable(cfg)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.device = device
@@ -185,7 +197,7 @@ class LMServingEngine:
                  device: Union[str, torch.device] = "cuda",
                  cache_dir: Optional[str] = None,
                  spec: Optional[SpecConfig] = None):
-        require_dense(cfg, "LMServingEngine")
+        require_lm(cfg, "LMServingEngine")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -210,7 +222,10 @@ class LMServingEngine:
     def _resolve_spec(self, spec: Optional[SpecConfig]
                       ) -> Optional[SpecConfig]:
         spec = spec if spec is not None else self.spec
-        return None if spec is None or spec.k == 0 else spec
+        spec = None if spec is None or spec.k == 0 else spec
+        if spec is not None:
+            refuse_recurrent_spec(self.cfg)
+        return spec
 
     def _key_for(self, schedule: Optional[KernelSchedule],
                  spec: Optional[SpecConfig] = None) -> str:
@@ -232,8 +247,9 @@ class LMServingEngine:
         key = self._key_for(sched, spec)
         dec = self._decoders.get(key)
         if dec is None:
-            scheduled = sched is not None or (
-                spc is not None and spc.draft is not None)
+            scheduled = decode_schedulable(self.cfg) and (
+                sched is not None or (spc is not None
+                                      and spc.draft is not None))
             if scheduled and self._packed is None:
                 self._packed = pack_decode_params(self.cfg, self.params)
             dec = self._decoders[key] = _KeyedDecoder(
@@ -445,7 +461,7 @@ class LMServingEngine:
                 "tick_latency_p50_s": ticks["latency_p50_s"],
                 "tick_latency_p99_s": ticks["latency_p99_s"]})
             analytical = None
-            if dec.schedule is not None:
+            if dec.scheduled:
                 analytical = estimate_lm_decode(
                     dec.schedule, self.cfg).report_row(clock_mhz)
                 analytical["scheduled_kernels"] = True

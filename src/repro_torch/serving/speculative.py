@@ -25,6 +25,16 @@ the next round's window covers (and overwrites) any stale wrong-branch
 entry before a query can attend to it.  ``kv_trim`` (rollback to the
 accepted frontier) is optional hygiene, ``SpecConfig(trim=True)``.
 
+That exactness also needs every piece of decode state to be either
+written per position (a KV cache: the verify window rewrites what a
+rejected draft left) or untouched by decode (an encoder cache).  An SSM or
+RG-LRU state absorbs every token it sees, drafts included, and nothing
+rolls it back, so :func:`refuse_recurrent_spec` refuses speculation on
+the ssm and hybrid families (``repro`` speculates there and its tokens
+then differ from sequential decode once a draft is rejected).  moe and
+enc-dec keep it (their verify pass unrolls the sequential step), vlm runs
+the dense verify pass.
+
 The ``CacheTable`` is a suffix-keyed n-gram table with LRU eviction over
 contexts and a short most-recently-promoted candidate row per context:
 accepted continuations move to the front, so hot loops in the stream
@@ -57,6 +67,23 @@ from repro_torch.serving.compile_cache import CachedExecutor, CompileCache
 
 # ---------------------------------------------------------------------------
 # configuration
+
+#: families whose decode state absorbs every token (no rollback exists)
+RECURRENT_STATE_FAMILIES = ("ssm", "hybrid")
+
+
+def refuse_recurrent_spec(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for speculative decode on a family whose decode
+    state absorbs every token: a verify pass would advance the SSM / RG-LRU
+    state through drafts that may be rejected, and no rollback restores
+    it, so the tokens would not be sequential greedy decode's."""
+    if cfg.family in RECURRENT_STATE_FAMILIES:
+        raise ValueError(
+            f"speculative decode on {cfg.name!r} ({cfg.family}): its "
+            f"recurrent decode state absorbs every drafted token and cannot "
+            f"be rolled back past a rejected one, so the tokens would differ "
+            f"from sequential decode; serve it with spec=None or "
+            f"SpecConfig(k=0)")
 
 
 @dataclass(frozen=True)
@@ -330,6 +357,7 @@ class SpeculativeDecoder:
         if spec.k < 1:
             raise ValueError("SpeculativeDecoder needs k >= 1 "
                              "(k=0 means speculation is disabled)")
+        refuse_recurrent_spec(cfg)
         self.cfg = cfg
         self.key = key
         self.schedule = schedule

@@ -27,18 +27,14 @@ Device = Union[str, torch.device]
 
 def tiny_config(full: ModelConfig) -> ModelConfig:
     """Shrink an assigned arch to CPU-testable size, keeping its family,
-    attention grouping structure and MLP type: the four dense LMs the port
-    carries (gemma-2b, stablelm-3b, deepseek-coder-33b, nemotron-4-340b).
-    The taggers are already tiny; families the port has no config for are
-    ROADMAP.md module item 10."""
+    attention grouping structure, MLP type and block pattern (every LM
+    family: a few experts, a narrow SSM, one hybrid super-block plus a
+    remainder layer, two encoder and decoder layers).  The taggers are
+    already tiny."""
     if full.rnn is not None:
         return full  # paper taggers are already tiny
-    if full.family != "dense":
-        raise NotImplementedError(
-            f"tiny_config({full.name!r}): the port has no {full.family!r} "
-            f"family yet (ROADMAP.md module item 10)")
     kw = dict(
-        n_layers=min(full.n_layers, 2),
+        n_layers=min(full.n_layers, 2 if not full.rglru else 4),
         d_model=64,
         vocab_size=256,
         d_ff=128,
@@ -52,6 +48,24 @@ def tiny_config(full: ModelConfig) -> ModelConfig:
         kw.update(n_heads=n_heads,
                   n_kv_heads=max(n_heads // ratio, 1),
                   head_dim=16)
+    if full.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            full.moe, n_experts=8,
+            top_k=min(full.moe.top_k, 2),
+            n_shared_experts=min(full.moe.n_shared_experts, 1),
+            d_ff_expert=32)
+        kw["d_ff"] = 32
+    if full.ssm is not None:
+        kw["ssm"] = dataclasses.replace(full.ssm, d_state=16, head_dim=16,
+                                        chunk_size=8)
+    if full.rglru is not None:
+        kw["rglru"] = dataclasses.replace(full.rglru, lru_width=64, window=16)
+        kw["n_layers"] = 4  # one super-block + 1 remainder
+    if full.enc_dec:
+        kw.update(n_encoder_layers=2, n_decoder_layers=2, n_layers=2,
+                  max_encoder_len=32)
+    if full.frontend == "vision":
+        kw["n_frontend_tokens"] = 8
     return dataclasses.replace(full, **kw)
 
 

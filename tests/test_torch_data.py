@@ -32,8 +32,10 @@ from repro_torch.config import ModelConfig  # noqa: E402
 
 DATASETS = ("top_tagging_dataset", "flavor_tagging_dataset",
             "quickdraw_dataset")
-#: configs the port carries; every other arch id is module item 10
+#: configs the port carries: every arch id of the registry
 PORTED = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b", "nemotron-4-340b",
+          "mamba2-780m", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+          "recurrentgemma-9b", "whisper-medium", "phi-3-vision-4.2b",
           "top-tagging-lstm", "top-tagging-gru",
           "flavor-tagging-lstm", "flavor-tagging-gru", "quickdraw-lstm",
           "quickdraw-gru")
@@ -74,20 +76,17 @@ def test_registry_ids_equal_repro():
     assert tregistry.ARCHS == jregistry.ARCHS
     assert tregistry.list_archs() == jregistry.list_archs()
     assert tregistry.ASSIGNED_ARCHS == jregistry.ASSIGNED_ARCHS
-    assert set(PORTED) < set(tregistry.ARCHS)
+    assert set(PORTED) == set(tregistry.ARCHS)
 
 
 @pytest.mark.parametrize("arch", sorted(jregistry.ARCHS))
 def test_registry_config_equals_repro(arch):
-    if arch not in PORTED:
-        with pytest.raises(NotImplementedError, match="module item 10"):
-            tregistry.get_config(arch)
-        return
+    assert arch in PORTED
     got, want = tregistry.get_config(arch), jregistry.get_config(arch)
     assert isinstance(got, ModelConfig)
     for f in dataclasses.fields(ModelConfig):
         g, w = getattr(got, f.name), getattr(want, f.name)
-        if f.name == "rnn" and g is not None:
+        if dataclasses.is_dataclass(g):
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, (arch, f.name, g, w)
     assert tconfigs.get_config(arch) == got

@@ -33,7 +33,8 @@ from repro.registry import get_config as jget_config  # noqa: E402
 from repro.serving.lm_engine import LMServingEngine as JLMEngine  # noqa: E402
 from repro.testing import CONFORMANCE_TOL, tiny_config  # noqa: E402
 
-from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.config import (ModelConfig, MoEConfig,  # noqa: E402
+                                RGLRUConfig, SSMConfig)
 from repro_torch.configs import LMS, TAGGERS, get_config  # noqa: E402
 from repro_torch.kernels import cuda, ops  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
@@ -45,21 +46,29 @@ from repro_torch.serving.engine import EngineClosedError  # noqa: E402
 
 ARCHS = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b",
          "nemotron-4-340b")
-#: repro's ModelConfig fields the port does not carry: other families,
-#: enc-dec, frontends, dry-run / sharding knobs; the dense decode path
-#: reads none of them (``grad_accum`` is carried: the trainer reads it)
-NOT_PORTED = {"moe", "ssm", "rglru", "enc_dec", "n_encoder_layers",
-              "n_decoder_layers", "max_encoder_len", "frontend",
-              "n_frontend_tokens", "scan_layers", "remat", "attn_chunk_q",
-              "attn_chunk_kv", "impl", "seq_shard_residual",
-              "probe_unroll"}
+#: repro's ModelConfig fields the port does not carry: the dry-run and
+#: sharding knobs, which no decode path reads (``grad_accum`` is carried:
+#: the trainer reads it)
+NOT_PORTED = {"scan_layers", "remat", "attn_chunk_q", "attn_chunk_kv",
+              "impl", "seq_shard_residual", "probe_unroll"}
+
+
+#: the port's family sub-configs, by field name
+SUBCONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "rglru": RGLRUConfig}
 
 
 def port_config(jcfg) -> ModelConfig:
-    """The port's config with every field of ``jcfg`` it carries."""
-    return ModelConfig(**{f.name: getattr(jcfg, f.name)
-                          for f in dataclasses.fields(ModelConfig)
-                          if f.name != "rnn"})
+    """The port's config with every field of ``jcfg`` it carries (the
+    family sub-configs as the port's own dataclasses)."""
+    kw = {}
+    for f in dataclasses.fields(ModelConfig):
+        if f.name == "rnn":
+            continue
+        v = getattr(jcfg, f.name)
+        if f.name in SUBCONFIGS and v is not None:
+            v = SUBCONFIGS[f.name](**dataclasses.asdict(v))
+        kw[f.name] = v
+    return ModelConfig(**kw)
 
 
 def close(got, want, dtype="float32"):
@@ -89,14 +98,14 @@ def test_configs_equal_repro_field_by_field(name):
     got, want = get_config(name), jget_config(name)
     for f in dataclasses.fields(ModelConfig):
         g, w = getattr(got, f.name), getattr(want, f.name)
-        if f.name == "rnn" and g is not None:
+        if dataclasses.is_dataclass(g):
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, (name, f.name, g, w)
     port = {f.name for f in dataclasses.fields(ModelConfig)}
     assert {f.name for f in dataclasses.fields(jconfig.ModelConfig)} \
         - port == NOT_PORTED
-    if want.family == "dense":
-        assert got.param_count() == want.param_count()
+    assert got.param_count() == want.param_count()
+    assert got.active_param_count() == want.active_param_count()
 
 
 @pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])
@@ -218,15 +227,24 @@ def test_pack_decode_params_is_cached_per_key_and_version():
     assert len(small) == n == 0
 
 
-def test_non_dense_families_raise():
+@pytest.mark.parametrize("name", sorted(LMS))
+def test_non_dense_families_raise(name):
+    """Prefill is not ported: every LM's sequence forward and loss raise
+    naming the item, whatever its family; a family the port does not know
+    is refused by every entry point."""
+    model = build_model(get_config(name))
+    for call in (model.loss, model.forward):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md module item 10, prefill"):
+            call({}, {"tokens": None, "labels": None})
     cfg = port_config(tiny_config(jget_config("stablelm-3b"))).replace(
-        family="moe", name="some-moe")
+        family="unknown", name="some-lm")
     for call in (lambda: build_model(cfg),
                  lambda: ttf.param_specs(cfg),
                  lambda: tdecode.cache_specs(cfg, 1, 8),
                  lambda: LMServingEngine(cfg, {}, device="cpu"),
                  lambda: tdecode.decode_step(cfg, {}, {}, None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="not an LM family"):
             call()
 
 
@@ -239,7 +257,7 @@ def test_lm_params_from_jax_keeps_dtypes():
         assert str(tparams[k].dtype) == f"torch.{v.dtype}"
         np.testing.assert_array_equal(tparams[k].float().numpy(),
                                       np.asarray(v, np.float32))
-    with pytest.raises(KeyError, match="not dense LM"):
+    with pytest.raises(KeyError, match="not LM parameters"):
         tdecode.lm_params_from_jax({"rnn/kernel": np.zeros((2, 8))}, "cpu")
 
 
