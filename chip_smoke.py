@@ -185,6 +185,28 @@ In order, it
                 on the card within 3e-5 of the CPU; per model the peak
                 allocation after init and while serving, tick p50 / p99,
                 tokens/s and one tick's device busy and idle share;
+                ``lm_decode``, ``dense_lms`` and ``families`` also run each
+                model's sequence forward (``forward_report``:
+                ``Model.forward`` at B = 2 x 512 prompt tokens; whisper
+                1500 frames + 64 tokens, phi-3-vision 576 patches + 512
+                tokens): logits finite, no port kernel, host ms of 5
+                synchronised forwards, prompt tokens/s, peak allocation,
+                one forward's device kernels and idle share;
+       prefill  the sequence forward, the LM loss and the LM trainer (no
+                kernel of the port lies on this path, as none in
+                ``repro``'s; the counts must stay 0): each of the ten LMs'
+                tiny configs, ``Model.forward`` and ``Model.loss`` with
+                every parameter's gradient on the card within 3e-5 of the
+                CPU, and the card's forward == its own teacher-forced
+                ``decode_step`` chain within 5e-4 (MoE at capacity 8.0,
+                whisper's cross K / V precomputed); gemma-2b at published
+                width in float32, forward == its 32-step decode chain
+                within 5e-4 of max |logit|; stablelm-3b's forward at
+                published width; ``launch.train.train`` of gemma-2b and
+                mamba2-780m at published width (20 steps of 4 x 256
+                tokens): every loss finite and the last five's mean below
+                the first five's, peak allocation, step time, device
+                kernels and idle share;
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -287,6 +309,12 @@ time.
 
 runs only phase 3 ``families`` (the kernels built on first use) and prints
 its report as a JSON line of its own and no result line.
+
+    python3 chip_smoke.py --prefill
+
+runs only phase 3 ``prefill`` and the forward of every LM at published
+width (each drawn, reported and freed in turn) and prints its report as a
+JSON line of its own and no result line.
 
     python3 chip_smoke.py --batch-invariance [--src DIR]
 
@@ -987,11 +1015,16 @@ KERNEL_GROUPS = (("cluster_scan_kernel", "cluster scan kernels"),
                  ("rnn_scan_kernel", "scan kernels"))
 
 
+#: device kernels (by name) a trace reading lists, the longest first
+TRACE_TOP = 6
+
+
 def device_trace(fn, calls: int = 1, inference: bool = True) -> dict:
     """Read ``calls`` calls of ``fn`` from a ``torch.profiler`` trace of the
     device: the span from the first device event to the last, the time
     some device event ran (the union of their intervals) and its idle
-    share, and per group of kernels the launches and their device time.
+    share, per group of kernels the launches and their device time, and
+    the ``TRACE_TOP`` kernel names of the most device time.
     Empty where the trace holds no device event.  ``inference=False``
     leaves autograd on (a training step)."""
     import torch
@@ -1012,6 +1045,7 @@ def device_trace(fn, calls: int = 1, inference: bool = True) -> dict:
         return {}
     busy, end = 0.0, events[0][0]
     groups: dict = {}
+    names: dict = {}
     for start, stop, name in events:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
@@ -1019,11 +1053,15 @@ def device_trace(fn, calls: int = 1, inference: bool = True) -> dict:
                      "other")
         n, us = groups.get(group, (0, 0.0))
         groups[group] = (n + 1, us + stop - start)
+        n, us = names.get(name[:80], (0, 0.0))
+        names[name[:80]] = (n + 1, us + stop - start)
     span = end - events[0][0]
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:TRACE_TOP]
     return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / span if span else 0.0,
             "kernels": {g: {"launches": n, "device_ms": us / 1e3}
-                        for g, (n, us) in groups.items()}}
+                        for g, (n, us) in groups.items()},
+            "top": [[name, n, us / 1e3] for name, (n, us) in top]}
 
 
 def bound(inputs, out, flops, peak=F32_PEAK):
@@ -2754,6 +2792,7 @@ def phase_lm_decode(device) -> tuple:
     check(got == device_per_tick, f"{LM}: the R1 tick's trace shows {got} "
           f"decode_matmul kernels, expected {device_per_tick}")
     report["device_kernels_per_tick"] = device_per_tick
+    report["forward"] = forward_report(LM, cfg, params, device)
     del eng, params, decs
     torch.cuda.empty_cache()
     return launches, report
@@ -3274,6 +3313,7 @@ def phase_dense_lms(device) -> tuple:
                   f"{row['tick_latency_p50_s'] * 1e3:.3f} ms, p99 "
                   f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
                   f"{row['tokens_per_s']:.1f} tokens/s")
+        report[name]["forward"] = forward_report(name, cfg, params, device)
         del eng, params, decs, logits
         torch.cuda.empty_cache()
     return total, report
@@ -3547,6 +3587,7 @@ def phase_families(device) -> tuple:
                              "tick_latency_p99_s")}}
                      for k, dec in decs.items()},
             "trace": traces}
+        report[name]["forward"] = forward_report(name, cfg, params, device)
         del eng, decs, logits, cache
         params.clear()
         del params
@@ -3579,6 +3620,375 @@ def only_families(device) -> dict:
     use), for a quick run on the card; its report and launch counts."""
     launches, report = phase_families(device)
     return {"launches": launches, "families": report}
+
+
+#: phase 3 ``prefill`` and the forward at published width of every LM
+PREFILL_BATCH = 2
+PREFILL_SEQ = 512                # prompt tokens a row (vlm: after its patches)
+PREFILL_FRAMES = 1500            # whisper: encoder frames (30 s of audio)
+PREFILL_ENC_DEC_TOKENS = 64      # whisper: decoder tokens
+PREFILL_REPEATS = 5              # timed forwards after one warm-up
+PREFILL_LMS = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b",
+               "nemotron-4-340b", *FAMILY_LMS)
+CHAIN_TOL = 5e-4                 # repro's forward == decode bar
+CHAIN_TINY_SEQ = 12              # decode steps of each tiny chain
+CHAIN_WIDE_SEQ = 32              # gemma-2b f32 at published width
+LM_TRAIN = ("gemma-2b", "mamba2-780m")
+LM_TRAIN_STEPS = 20
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 256
+LM_TRAIN_TIMED = 5               # synchronised steps timed after two
+
+
+def prefill_inputs(cfg, batch, seq, device, seed, n_img=None,
+                   frames=PREFILL_FRAMES) -> dict:
+    """An LM batch on ``device``: ``tokens`` [batch, seq] (an enc-dec
+    model: at most ``PREFILL_ENC_DEC_TOKENS``) drawn from ``seed``, with
+    the frontend stubs' embeddings the family needs (whisper's ``frames``,
+    phi-3-vision's ``n_img`` patches, its config's count by default),
+    normal draws in the compute dtype."""
+    import torch
+
+    from repro_torch.models.transformer import required_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.enc_dec:
+        seq = min(seq, PREFILL_ENC_DEC_TOKENS)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device=device)}
+    rows = {"frame_embeds": frames,
+            "img_embeds": cfg.n_frontend_tokens if n_img is None else n_img}
+    for k in required_inputs(cfg):
+        out[k] = torch.randn((batch, rows[k], cfg.d_model), generator=gen,
+                             device=device).to(cdt)
+    return out
+
+
+def forward_report(name, cfg, params, device) -> dict:
+    """``Model.forward`` of ``cfg`` on ``params`` (already on the card) at
+    ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (whisper: frames + decoder tokens,
+    phi-3-vision: patches + text): logits finite and of the padded vocab,
+    no kernel of the port launched; the host clock around
+    ``PREFILL_REPEATS`` synchronised forwards after one warm-up (median
+    and range), prompt tokens/s, the peak allocation above what was
+    allocated before, and one forward's device kernels and idle share
+    from a trace.  Returns the report."""
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import padded_vocab
+
+    model = build_model(cfg)
+    batch = prefill_inputs(cfg, PREFILL_BATCH, PREFILL_SEQ, device, 9)
+    positions = batch["tokens"].shape[1] + (
+        batch["img_embeds"].shape[1] if "img_embeds" in batch else 0)
+    before = dict(cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with torch.inference_mode():
+        for i in range(PREFILL_REPEATS + 1):
+            t0 = time.perf_counter()
+            logits = model.forward(params, batch)
+            torch.cuda.synchronize()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(tuple(logits.shape) == (PREFILL_BATCH, positions,
+                                  padded_vocab(cfg))
+          and bool(torch.isfinite(logits).all()),
+          f"{name}: forward logits {tuple(logits.shape)} not finite or "
+          f"misshaped")
+    del logits
+    trace = {}
+    for _ in range(3):                  # a trace now and then comes back empty
+        trace = device_trace(lambda: model.forward(params, batch))
+        if trace:
+            break
+    check(dict(cuda.LAUNCHES) == before,
+          f"{name}: the forward launched kernels of the port: "
+          f"{cuda.LAUNCHES} (before {before})")
+    kernels = sum(g["launches"] for g in trace.get("kernels", {}).values())
+    med = float(np.median(walls))
+    rep = {"batch": PREFILL_BATCH, "positions": positions,
+           "frames": (batch["frame_embeds"].shape[1]
+                      if "frame_embeds" in batch else 0),
+           "layers": cfg.n_layers, "ms": med, "ms_min": min(walls),
+           "ms_max": max(walls),
+           "prompt_tokens_per_s": PREFILL_BATCH * positions / med * 1e3,
+           "peak_gb_above_params": peak, "device_kernels": kernels,
+           "busy_ms": trace.get("busy_ms"),
+           "idle_share": trace.get("idle_share")}
+    print(f"forward {name} ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+          f"B={PREFILL_BATCH} x {positions} positions"
+          f"{' + %d frames' % rep['frames'] if rep['frames'] else ''}: "
+          f"{med:.2f} ms median of {PREFILL_REPEATS} [{min(walls):.2f}-"
+          f"{max(walls):.2f}] (host clock, synchronised), "
+          f"{rep['prompt_tokens_per_s']:.0f} prompt tokens/s, peak "
+          f"{peak:.2f} GB above the {base / 1e9:.2f} GB allocated before; one "
+          f"forward: {kernels} device kernels, busy "
+          f"{trace.get('busy_ms', float('nan')):.2f} of "
+          f"{trace.get('span_ms', float('nan')):.2f} ms (idle "
+          f"{trace.get('idle_share', float('nan')):.1%}); logits finite, no "
+          f"port kernel; {card_line()}")
+    rep["top"] = trace.get("top")
+    print(f"  longest kernels (name, launches, device ms): "
+          f"{json.dumps(rep['top'])}")
+    return rep
+
+
+def decode_chain_gap(cfg, params, batch, device) -> float:
+    """The largest gap between ``Model.forward``'s logits and a teacher-
+    forced chain of ``decode_step`` calls over the same tokens (the einsum
+    path, a float32 cache) at every position, over max |logit|.  An
+    enc-dec model's encoder runs once and its cross K / V go into
+    ``cache/xk`` / ``cache/xv`` first, as ``repro``'s
+    ``tests/test_decode.py`` does; a vlm's batch has no patches (decode
+    takes text)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.model import build_model
+
+    toks = batch["tokens"]
+    B, S = toks.shape
+    with torch.inference_mode():
+        full = build_model(cfg).forward(params, batch).float()
+        cache = init_cache(cfg, B, S + 4, "float32", device)
+        if cfg.enc_dec:
+            cdt = getattr(torch, cfg.compute_dtype)
+            enc = tf._encode(cfg, params, batch["frame_embeds"].to(cdt))
+            st = tf.slice_layer(params, "xdecoder/")
+            for n, w in (("cache/xk", "xdecoder/xattn/wk"),
+                         ("cache/xv", "xdecoder/xattn/wv")):
+                cache[n] = torch.stack([torch.einsum(
+                    "bsd,dhk->bshk", enc, st[w][l].to(enc.dtype)).float()
+                    for l in range(cfg.n_decoder_layers)])
+        gap = 0.0
+        for t in range(S):
+            logits, cache = decode_step(
+                cfg, params, cache, toks[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int64, device=device))
+            gap = max(gap, float((logits[:, 0].float()
+                                  - full[:, t]).abs().max()))
+    return gap / max(1.0, float(full.abs().max()))
+
+
+def check_prefill_tiny(name, device) -> dict:
+    """``name`` at the port's ``testing.tiny_config`` (f32), weights drawn
+    on the CPU: ``Model.forward`` logits and ``Model.loss`` with the
+    gradient of every parameter on the card within 3e-5 of the CPU, and
+    the card's forward == its own decode chain within ``CHAIN_TOL`` (MoE
+    at capacity 8.0, as ``repro``'s bar).  Returns the largest errors."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+
+    cfg = tiny_config(get_config(name))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, eval_capacity_factor=8.0))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(5), "cpu")
+    on_card = {k: v.to(device) for k, v in params.items()}
+    batch = prefill_inputs(cfg, PREFILL_BATCH, 40, "cpu", 6, frames=44)
+    n = batch["img_embeds"].shape[1] if "img_embeds" in batch else 0
+    batch["labels"] = torch.from_numpy(np.random.RandomState(7).randint(
+        -1, cfg.vocab_size, (PREFILL_BATCH, batch["tokens"].shape[1] + n)))
+
+    def run(p, b):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in p.items()}
+        loss, metrics = model.loss(leaves, b)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.inference_mode():
+            logits = model.forward(p, b)
+        return [logits, loss, *metrics.values(), *grads]
+
+    cpu = run(params, batch)
+    card = run(on_card, {k: v.to(device) for k, v in batch.items()})
+    worst = 0.0
+    for g, c in zip(card, cpu):
+        e, scale = max_err(g.detach().cpu(), c.detach())
+        check(e <= TOL["float32"] * scale, f"{name} tiny: card vs CPU "
+              f"differ by {e} (scale {scale})")
+        worst = max(worst, e)
+    chain = prefill_inputs(cfg, PREFILL_BATCH, CHAIN_TINY_SEQ, device, 8,
+                           n_img=0, frames=44)
+    gap = decode_chain_gap(cfg, on_card, chain, device)
+    check(gap < CHAIN_TOL, f"{name} tiny: forward vs decode chain {gap}")
+    return {"card_vs_cpu": worst, "forward_vs_decode": gap}
+
+
+def train_lm(name, device) -> dict:
+    """``launch.train.train(name, steps=LM_TRAIN_STEPS,
+    batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, device="cuda")`` at
+    published width (its log, a line a step, read for every loss): every
+    loss finite and the mean of the last five below the first five's; its
+    peak allocation; then ``LM_TRAIN_TIMED`` synchronised steps of
+    ``make_train_step`` on the trained parameters (host clock, after two
+    warm-up steps) and one step's device kernels and idle share from a
+    trace."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.launch.train import _lm_batches, train
+    from repro_torch.models.model import build_model
+    from repro_torch.registry import get_config
+    from repro_torch.training import adamw_init, make_train_step
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        params, _ = train(name, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                          seq_len=LM_TRAIN_SEQ, log_every=1, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in re.findall(r"loss=(\S+)", log.getvalue())]
+    check(len(losses) == LM_TRAIN_STEPS
+          and all(np.isfinite(v) for v in losses)
+          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"train {name}: losses {losses}")
+
+    cfg = get_config(name)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=5,
+                          total_steps=LM_TRAIN_STEPS, weight_decay=0.01)
+    step = make_train_step(build_model(cfg), TrainConfig(optimizer=opt),
+                           grad_accum=1)
+    st = adamw_init(params, opt)
+    batch = next(_lm_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device))
+    walls = []
+    for i in range(LM_TRAIN_TIMED + 2):
+        t0 = time.perf_counter()
+        params, st, _ = step(params, st, batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    trace = device_trace(lambda: step(params, st, batch), inference=False)
+    kernels = sum(g["launches"] for g in trace.get("kernels", {}).values())
+    del params, st
+    free_card()
+    rep = {"losses": losses, "train_s": wall, "peak_gb": peak,
+           "ms_per_step": float(np.median(walls)), "ms_min": min(walls),
+           "ms_max": max(walls), "device_kernels": kernels,
+           "busy_ms": trace.get("busy_ms"),
+           "idle_share": trace.get("idle_share")}
+    print(f"train {name} at published width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, remat {cfg.remat}): {LM_TRAIN_STEPS} steps of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in {wall:.1f} s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five "
+          f"{np.mean(losses[:5]):.4f}, last five {np.mean(losses[-5:]):.4f});"
+          f" peak {peak:.2f} GB; a step {rep['ms_per_step']:.1f} ms median of"
+          f" {LM_TRAIN_TIMED} [{min(walls):.1f}-{max(walls):.1f}] (host "
+          f"clock, synchronised), {kernels} device kernels, busy "
+          f"{trace.get('busy_ms', float('nan')):.1f} of "
+          f"{trace.get('span_ms', float('nan')):.1f} ms (idle "
+          f"{trace.get('idle_share', float('nan')):.1%}); {card_line()}")
+    rep["top"] = trace.get("top")
+    print(f"  longest kernels (name, launches, device ms): "
+          f"{json.dumps(rep['top'])}")
+    return rep
+
+
+def phase_prefill(device) -> tuple:
+    """Phase 3 ``prefill``, driven with the counts set to 0 (no kernel of
+    the port is on this path, as none is in ``repro``'s): the ten LMs'
+    tiny configs on the card (``check_prefill_tiny``); gemma-2b at its
+    published width in float32, forward == a ``CHAIN_WIDE_SEQ``-step
+    decode chain within ``CHAIN_TOL`` of max |logit|; and ``train_lm``
+    for ``LM_TRAIN``.  Every launch count must stay 0.  (The forward at
+    published width of each LM runs in the phase that holds its weights:
+    ``forward_report``.)  Returns (launches, a report)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    def run():
+        rep = {"tiny": {}}
+        for name in PREFILL_LMS:
+            rep["tiny"][name] = check_prefill_tiny(name, device)
+            print(f"prefill {name} tiny: {json.dumps(rep['tiny'][name])}")
+        cfg = get_config(LM).replace(param_dtype="float32",
+                                     compute_dtype="float32")
+        free_card()
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device)
+        batch = prefill_inputs(cfg, PREFILL_BATCH, CHAIN_WIDE_SEQ, device,
+                               10)
+        gap = decode_chain_gap(cfg, params, batch, device)
+        check(gap < CHAIN_TOL, f"{LM} f32: forward vs decode chain {gap}")
+        rep["chain_f32"] = {"model": LM, "tokens": CHAIN_WIDE_SEQ,
+                            "gap_over_max_logit": gap}
+        print(f"prefill {LM} f32 at published width: forward vs its "
+              f"{CHAIN_WIDE_SEQ}-step decode chain {gap:.3e} of max |logit| "
+              f"(bar {CHAIN_TOL})")
+        del params
+        # the one LM no other phase draws, at published width (bf16)
+        cfg = get_config("stablelm-3b")
+        free_card()
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device)
+        rep["forward"] = {"stablelm-3b": forward_report(
+            "stablelm-3b", cfg, params, device)}
+        del params
+        rep["train"] = {name: train_lm(name, device) for name in LM_TRAIN}
+        return rep
+
+    launches, rep = drive("prefill", run, ())
+    check(sum(launches.values()) == 0,
+          f"prefill: kernels of the port launched: {launches}")
+    return launches, rep
+
+
+def prefill_widths(device) -> dict:
+    """``--prefill``'s forward of every LM at published width but
+    stablelm-3b's (``phase_prefill`` runs it), one model at a time
+    (deepseek-coder-33b and nemotron-4-340b at ``DENSE_LMS``'s depths),
+    each freed before the next: ``forward_report``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for name in PREFILL_LMS:
+        if name == "stablelm-3b":
+            continue
+        cfg = get_config(name)
+        if name in DENSE_LMS:
+            cfg = cfg.replace(n_layers=DENSE_LMS[name])
+        free_card()
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device)
+        out[name] = forward_report(name, cfg, params, device)
+        params.clear()
+        del params
+    free_card()
+    return out
+
+
+def only_prefill(device) -> dict:
+    """``--prefill``: phase 3 ``prefill`` alone, then every LM's forward at
+    published width; its report and launch counts."""
+    launches, report = phase_prefill(device)
+    return {"launches": launches, "prefill": report,
+            "forward": prefill_widths(device)}
 
 
 def phase_rnn_decode(device) -> dict:
@@ -5021,6 +5431,10 @@ def main() -> int:
                       help="only run phase 3 families: the moe, ssm, "
                       "hybrid, enc-dec and vlm LMs served on the card (see "
                       "phase_families)")
+    what.add_argument("--prefill", action="store_true",
+                      help="only run phase 3 prefill and every LM's "
+                      "forward at published width (see phase_prefill, "
+                      "prefill_widths)")
     what.add_argument("--batch-invariance", action="store_true",
                       help="only report one event's answer across batch "
                       "shapes, launch by launch (see batch_invariance)")
@@ -5034,7 +5448,7 @@ def main() -> int:
     timing = {"time_scans": time_scans, "time_products": time_products,
               "time_decode": time_decode,
               "time_elementwise": time_elementwise,
-              "families": only_families,
+              "families": only_families, "prefill": only_prefill,
               "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
@@ -5103,6 +5517,7 @@ def main() -> int:
     launches["speculative_rnn"], spec_rnn = phase_speculative_rnn(device)
     launches["dense_lms"], dense_lms = phase_dense_lms(device)
     launches["families"], families = phase_families(device)
+    launches["prefill"], prefill = phase_prefill(device)
     launches["rnn_decode"] = phase_rnn_decode(device)
     launches.update(phase_rglru(device))
     launches["train"], train_rep = phase_train(device)
@@ -5114,7 +5529,7 @@ def main() -> int:
         {"card": card, "timings": rows, "nonstatic_scans": scans,
          "lm_decode": lm, "speculative": spec_rep,
          "speculative_rnn": spec_rnn, "dense_lms": dense_lms,
-         "families": families,
+         "families": families, "prefill": prefill,
          "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
          "launches": launches,

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the paper's taggers, the LMs and training.
 
 The port's copy of the parts of ``repro.config`` that the LSTM/GRU taggers,
-the LMs' single-step decode (every family: dense, moe, ssm, hybrid, audio
-enc-dec, vlm) and the trainer use.  Configs are frozen (hashable) so they
+the LMs (every family: dense, moe, ssm, hybrid, audio enc-dec, vlm; their
+sequence forward and single-step decode) and the trainer use.  Configs are frozen (hashable) so they
 can key caches and embed schedules.
 """
 
@@ -84,10 +84,15 @@ class ModelConfig:
     dense | moe | ssm | hybrid | audio | vlm).
 
     The transformer and family fields and their defaults are
-    ``repro.config``'s, without its dry-run and sharding knobs.  Two
-    defaults differ from ``repro``'s: ``family`` ("rnn", not "dense") and
-    ``compute_dtype`` ("float32", not "bfloat16"); every LM config of the
-    port sets both explicitly (``configs/*.py``).
+    ``repro.config``'s, with the three the sequence forward reads
+    (``remat``, ``attn_chunk_q``, ``attn_chunk_kv``).  Four of
+    ``repro``'s are not carried, since none changes a value on one
+    device: ``scan_layers`` (the port loops over the stacked layers),
+    ``probe_unroll`` (a cost-analysis mode of XLA), ``impl`` (the LM path
+    has no kernel to choose) and ``seq_shard_residual`` (a sharding
+    constraint).  Two defaults differ from ``repro``'s: ``family`` ("rnn",
+    not "dense") and ``compute_dtype`` ("float32", not "bfloat16"); every
+    LM config of the port sets both explicitly (``configs/*.py``).
     """
 
     name: str = "unnamed"
@@ -127,6 +132,9 @@ class ModelConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat: str = "full"                # full | dots | none
+    attn_chunk_q: int = 1024           # blockwise-attention query chunk
+    attn_chunk_kv: int = 2048          # blockwise-attention kv chunk
     grad_accum: int = 1                # microbatch steps inside train_step
 
     def __post_init__(self):

@@ -1,9 +1,10 @@
 """whisper-medium [audio]: enc-dec, 24+24L d_model=1024 16H (MHA kv=16)
 d_ff=4096 vocab=51865. [arXiv:2212.04356; unverified]
 
-The port serves the decoder half: one token a step, self-attention over
-its KV cache and cross-attention over ``cache/xk`` / ``cache/xv``, which
-the encoder (prefill, not ported yet) would fill.
+The conv frontend is a stub: ``transformer.forward`` takes precomputed
+frame embeddings [B, T, d_model] (``frame_embeds``) through the encoder.
+Decode serves the decoder half: one token a step, self-attention over
+its KV cache and cross-attention over ``cache/xk`` / ``cache/xv``.
 """
 
 from repro_torch.config import ModelConfig

@@ -1,13 +1,17 @@
 """Trainer entry point: ``python -m repro_torch.launch.train --arch <id>
 [options]``.
 
-The port of ``repro.launch.train`` for the paper's taggers: seeded
-parameters + AdamW train step + checkpoint manager + straggler hook, on
-``--device`` (``cuda`` unless the caller asks for ``cpu``).  The forward and
-backward run on the reference path (``kernels/ref.py``), as ``repro``
-trains on its ``lax.scan`` reference; the trained parameters are served on
-the kernels by ``RNNServingEngine``.  The LM family (a sequence forward and
-``lm_loss``) is ROADMAP.md module item 10; a mesh is module item 12.
+The port of ``repro.launch.train``: seeded parameters + AdamW train step +
+checkpoint manager + straggler hook, on ``--device`` (``cuda`` unless the
+caller asks for ``cpu``).  A tagger's forward and backward run on the
+reference path (``kernels/ref.py``), as ``repro`` trains on its
+``lax.scan`` reference; the trained parameters are served on the kernels
+by ``RNNServingEngine``.  An LM trains on ``data.lm_token_stream`` batches
+of ``--seq-len`` tokens (``tokens`` and ``labels`` only, as in ``repro``)
+through ``Model.loss``, the sequence forward and ``lm_loss``.  An LM whose
+forward needs a frontend's embeddings (whisper's frames, phi-3-vision's
+image patches) is refused with a ``ValueError`` naming them: ``repro``'s
+trainer sends no stub either.  A mesh is ROADMAP.md module item 12.
 
 As in ``repro``, ``resume`` restores the parameters and the optimizer
 state of the latest checkpoint and starts the batch stream again at its
@@ -25,10 +29,11 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import OptimizerConfig, TrainConfig
-from repro_torch.data import (flavor_tagging_dataset, quickdraw_dataset,
-                              top_tagging_dataset)
+from repro_torch.data import (flavor_tagging_dataset, lm_token_stream,
+                              quickdraw_dataset, top_tagging_dataset)
 from repro_torch.ft import StragglerPolicy
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import required_inputs
 from repro_torch.registry import get_config
 from repro_torch.testing import tiny_config
 from repro_torch.training import adamw_init, make_train_step
@@ -53,6 +58,12 @@ def _rnn_batches(cfg, batch, seed=0, device="cuda"):
     raise KeyError(cfg.name)
 
 
+def _lm_batches(cfg, batch, seq_len, device="cuda"):
+    for b in lm_token_stream(cfg.vocab_size, batch, seq_len):
+        yield {k: torch.from_numpy(b[k]).to(device)
+               for k in ("tokens", "labels")}
+
+
 def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
           seq_len: int = 128, mesh_shape: Optional[tuple] = None,
           checkpoint_dir: Optional[str] = None, resume: bool = False,
@@ -73,11 +84,11 @@ def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
     if tiny:
         cfg = tiny_config(cfg)
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
-    if cfg.family != "rnn":
-        raise NotImplementedError(
-            f"train({arch!r}): the port trains the taggers; the LM's "
-            f"sequence forward and lm_loss are ROADMAP.md module item 10 "
-            f"(seq_len={seq_len} unused)")
+    if required_inputs(cfg):
+        raise ValueError(
+            f"train({arch!r}): its forward needs {list(required_inputs(cfg))} "
+            f"beside the tokens, and the LM batch stream has tokens and "
+            f"labels only (as repro's trainer)")
     model = build_model(cfg)
 
     opt_cfg = OptimizerConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
@@ -86,8 +97,11 @@ def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     straggler = StragglerPolicy()
 
-    # drawn on a CPU generator: the same weights on every device
-    params = model.init(torch.Generator().manual_seed(0), device=device)
+    # a tagger is drawn on a CPU generator (the same weights on every
+    # device); an LM on ``device``'s own, as Model.init draws it (billions
+    # of values take minutes on the CPU, under a second on the card)
+    gen = torch.Generator(device="cpu" if cfg.family == "rnn" else device)
+    params = model.init(gen.manual_seed(0), device=device)
     opt_state = adamw_init(params, opt_cfg)
     start = 0
     if ckpt and resume and ckpt.latest_step() is not None:
@@ -100,7 +114,8 @@ def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
         print(f"[train] resumed from step {start}")
 
     step_fn = make_train_step(model, tc, grad_accum=1)
-    batches = _rnn_batches(cfg, batch, device=device)
+    batches = (_rnn_batches(cfg, batch, device=device) if cfg.family == "rnn"
+               else _lm_batches(cfg, batch, seq_len, device=device))
 
     t_last = time.time()
     loss = float("nan")

@@ -27,9 +27,11 @@ pass with the bits of S sequential steps (dense and vlm under a kernel
 schedule: each projection once over [B*S, d], ``_dense_steps`` says why;
 every other case unrolls the sequential step), and ``kv_trim`` rolls the
 KV cache back to the accepted prefix.  ``lm_params_from_jax`` carries
-``repro``'s flat LM parameters over, dtypes kept.  Prefill (a whole
-prompt in one pass, whisper's encoder filling ``cache/xk`` / ``cache/xv``)
-is not ported yet (``ROADMAP.md`` module item 10, prefill).
+``repro``'s flat LM parameters over, dtypes kept.  A whole prompt in one
+pass is ``transformer.forward`` (``Model.forward``); as in ``repro``, no
+decode entry point fills a cache from it: the serving engine teacher-
+forces prompts through decode, and whisper's ``cache/xk`` / ``cache/xv``
+are the caller's (``transformer._encode`` computes the encoder).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.attention import (decode_attention,
                                           decode_attention_masked)
 from repro_torch.models.init import ParamSpec, ParamSpecs
-from repro_torch.models.layers import ACTIVATIONS, apply_rope, embed, norm
+from repro_torch.models.layers import (ACTIVATIONS, apply_rope, embed, norm,
+                                      weak_scale)
 from repro_torch.models.mlp import glu_activation, mlp
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import rglru_decode_step
@@ -133,12 +136,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Helpers
 # ---------------------------------------------------------------------------
-
-
-def _weak_scale(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``x * c`` with the Python float first rounded to x's dtype, as jnp
-    treats a weakly typed scalar (rounded on the host: no device copy)."""
-    return x * float(torch.tensor(c, dtype=x.dtype))
 
 
 def _layer(stacked: Dict, l: int) -> Dict:
@@ -397,7 +394,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     cdt = getattr(torch, cfg.compute_dtype)
     x = embed(tokens, params["embed/table"], cdt)
     if cfg.family in ("dense", "vlm", "hybrid") or cfg.enc_dec:
-        x = _weak_scale(x, math.sqrt(cfg.d_model))
+        x = weak_scale(x, math.sqrt(cfg.d_model))
     if schedule is not None and decode_schedulable(cfg):
         if packed is None:
             packed = pack_decode_params(cfg, params)
@@ -564,7 +561,7 @@ def decode_steps(cfg: ModelConfig, params: Dict, cache: Dict,
     if (schedule is not None and schedule.use_pallas
             and decode_schedulable(cfg)):
         cdt = getattr(torch, cfg.compute_dtype)
-        x = _weak_scale(embed(tokens, params["embed/table"], cdt),
+        x = weak_scale(embed(tokens, params["embed/table"], cdt),
                         math.sqrt(cfg.d_model))
         if packed is None:
             packed = pack_decode_params(cfg, params)

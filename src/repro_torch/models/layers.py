@@ -90,6 +90,12 @@ def embed(tokens: torch.Tensor, table: torch.Tensor,
     return table[tokens].to(compute_dtype)
 
 
+def weak_scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` with the Python float first rounded to x's dtype, as jnp
+    treats a weakly typed scalar (rounded on the host: no device copy)."""
+    return x * float(torch.tensor(c, dtype=x.dtype))
+
+
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return logits

@@ -3,11 +3,11 @@ specs, seeded initialisation, training loss and forward pass, dispatched by
 config family.
 
 The port of ``repro/models/model.py``: the taggers (``rnn``) and every LM
-family (dense, moe, ssm, hybrid, audio enc-dec, vlm), whose parameters
-and seeded initialisation serve ``models/decode.py``.  An LM's ``loss``
-and ``forward`` raise ``NotImplementedError`` naming ``ROADMAP.md`` module
-item 10's prefill: the port has the single-step decode, not
-``transformer.forward`` over a whole sequence or ``lm_loss``.
+family (dense, moe, ssm, hybrid, audio enc-dec, vlm).  An LM's ``loss``
+and ``forward`` run ``transformer.forward`` over the whole sequence
+(``batch``: ``tokens``, ``labels`` for the loss, and the frontend stubs'
+``frame_embeds`` / ``img_embeds`` where the family needs them); its
+single-step decode is ``models/decode.py``.
 """
 
 from __future__ import annotations
@@ -41,22 +41,38 @@ class Model:
         return init_params(self.param_specs(), generator, device)
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        """The training loss of ``batch`` (``{"x", "y"}``) and its metrics."""
-        self._require_rnn("loss")
-        return rnn_tagger.loss_fn(self.cfg, params, batch["x"], batch["y"])
+        """The training loss of ``batch`` and its metrics: a tagger's
+        (``{"x", "y"}``), or an LM's ``lm_loss`` of ``batch["labels"]``
+        plus, for the moe family, the weighted load-balance and router
+        z-losses (their values among the metrics)."""
+        cfg = self.cfg
+        if cfg.family == "rnn":
+            return rnn_tagger.loss_fn(cfg, params, batch["x"], batch["y"])
+        hidden, aux = self._hidden(params, batch, train=True)
+        loss, metrics = transformer.lm_loss(cfg, params, hidden,
+                                            batch["labels"])
+        if "moe_load_balance" in aux:
+            m = cfg.moe
+            loss = (loss + m.aux_loss_weight * aux["moe_load_balance"]
+                    + m.router_z_loss * aux["moe_z_loss"])
+            metrics.update(aux)
+        return loss, metrics
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """Class probabilities of ``batch["x"]`` on the reference path."""
-        self._require_rnn("forward")
-        return rnn_tagger.forward(self.cfg, params, batch["x"])
+        """A tagger's class probabilities of ``batch["x"]`` on the
+        reference path, or an LM's logits [b, s, padded vocab] over the
+        whole sequence (vlm: the image patches' positions first)."""
+        cfg = self.cfg
+        if cfg.family == "rnn":
+            return rnn_tagger.forward(cfg, params, batch["x"])
+        hidden, _ = self._hidden(params, batch, train=False)
+        return transformer.logits_fn(cfg, params, hidden)
 
-    def _require_rnn(self, what: str) -> None:
-        if self.cfg.family != "rnn":
-            raise NotImplementedError(
-                f"Model.{what} of {self.cfg.name!r} ({self.cfg.family}): the "
-                f"port has no sequence forward (prefill) or lm_loss for the "
-                f"LM yet (ROADMAP.md module item 10, prefill and the "
-                f"training forward pass); it serves the LM by decode")
+    def _hidden(self, params, batch, train):
+        return transformer.forward(
+            self.cfg, params, batch["tokens"], train=train,
+            img_embeds=batch.get("img_embeds"),
+            frame_embeds=batch.get("frame_embeds"))
 
 
 def build_model(cfg: ModelConfig) -> Model:

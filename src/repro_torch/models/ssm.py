@@ -1,13 +1,21 @@
 """Mamba-2 (SSD, state-space duality) block, arXiv:2405.21060: its
-parameter specs and its single-token decode.
+parameter specs, its sequence forward and its single-token decode.
 
-The port of the decode part of ``repro/models/ssm.py`` (``ssm_dims``,
-``ssm_specs``, ``_causal_conv``, ``ssm_decode_step``).  Decode is the O(1)
-state update, the paper's "static mode" RNN block: the [b, h, p, n] state
-stays resident (float32), one step a token.  As in ``repro`` these are
-plain tensor ops outside any kernel; every cast is ``repro``'s, and a
-mixed-dtype product runs in the promoted dtype, as ``jnp.einsum`` does.
-The chunked SSD of prefill is not ported yet.
+The port of ``repro/models/ssm.py``.  Prefill and training run the chunked
+SSD (``_ssd_chunked``): within a chunk the quadratic, attention-like form,
+across chunks a recurrence of the [b, h, p, n] float32 state, carried by a
+Python loop where ``repro`` runs a ``lax.scan``.  Decode is the O(1) state
+update, the paper's "static mode" RNN block: the state stays resident,
+one step a token.  As in ``repro`` these are plain tensor ops outside any
+kernel; every cast is ``repro``'s, and a mixed-dtype product runs in the
+promoted dtype, as ``jnp.einsum`` does.
+
+One deliberate difference (``ROADMAP.md`` §3): the intra-chunk decay is
+``exp(where(tril, seg, -inf))`` where ``repro`` takes ``where(tril,
+exp(seg), 0)``.  The forward has the same bits (exp(-inf) is exactly 0),
+but above the diagonal ``seg`` is positive and its ``exp`` can overflow to
+inf at a real chunk size and ``dt``; ``repro``'s backward then multiplies
+that inf by a zero cotangent, a NaN, where the port's stays finite.
 """
 
 from __future__ import annotations
@@ -75,6 +83,111 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     keep = (x.dtype if cache is None
             else torch.promote_types(cache.dtype, x.dtype))
     return y, xp[:, -(k - 1):].to(keep)
+
+
+def _ssd_chunked(xdt: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, chunk: int,
+                 initial_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD core over chunks of ``chunk`` positions.  xdt: [b, s, h, p]
+    (x times dt), log_a: [b, s, h] (float32), B, C: [b, s, g, n]; heads
+    grouped as h = g * hg (B / C shared by a group).  Returns (y [b, s, h,
+    p] in xdt's dtype, final state [b, h, p, n] float32).
+
+    A ragged tail is padded with the identity (log_a = 0, x = 0: the
+    state passes through unchanged); each chunk adds its intra-chunk term
+    and the carried state's term, then updates the state."""
+    b, s, h, p = xdt.shape
+    g, n = B.shape[2], B.shape[3]
+    s_orig = s
+    pad = (-s) % chunk
+    if pad:
+        def zpad(t):
+            return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        xdt, log_a, B, C = zpad(xdt), zpad(log_a), zpad(B), zpad(C)
+        s = s + pad
+    nc = s // chunk
+    hg = h // g
+    q = chunk
+
+    xdt = xdt.reshape(b, nc, q, g, hg, p)
+    log_a = log_a.reshape(b, nc, q, g, hg)
+    B = B.reshape(b, nc, q, g, n)
+    C = C.reshape(b, nc, q, g, n)
+
+    tril = torch.ones((q, q), dtype=torch.bool,
+                      device=xdt.device).tril()[None, :, :, None, None]
+    neg_inf = torch.full((), float("-inf"), device=xdt.device)
+    state = (torch.zeros((b, g, hg, p, n), dtype=torch.float32,
+                         device=xdt.device)
+             if initial_state is None
+             else initial_state.reshape(b, g, hg, p, n).float())
+    ys = []
+    for c in range(nc):
+        xdt_c, B_c, C_c = xdt[:, c], B[:, c], C[:, c]
+        xf = xdt_c.float()
+        la = torch.cumsum(log_a[:, c], dim=1)              # [b,q,g,hg] f32
+        # intra-chunk triangular term (exp of -inf above the diagonal: 0
+        # with a finite gradient)
+        seg = la[:, :, None] - la[:, None, :]              # [b,i,j,g,hg]
+        decay = torch.exp(torch.where(tril, seg, neg_inf))
+        cb = torch.einsum("bign,bjgn->bijg", C_c.float(), B_c.float())
+        y_intra = torch.einsum("bijg,bijgh,bjghp->bighp", cb, decay, xf)
+        # inter-chunk term from the carried state
+        y_inter = torch.einsum("bqgn,bghpn->bqghp", C_c.float(),
+                               state) * torch.exp(la)[..., None]
+        # state update
+        la_last = la[:, -1:]                               # [b,1,g,hg]
+        s_c = torch.einsum("bqgn,bqgh,bqghp->bghpn", B_c.float(),
+                           torch.exp(la_last - la), xf)
+        state = state * torch.exp(la_last[:, 0])[..., None, None] + s_c
+        ys.append((y_intra + y_inter).to(xdt_c.dtype))
+    y = torch.stack(ys, dim=1).reshape(b, s, h, p)[:, :s_orig]
+    return y, state.reshape(b, h, p, n)
+
+
+def ssm_block(cfg: ModelConfig, x: torch.Tensor, p: dict,
+              prefix: str) -> torch.Tensor:
+    """The training / prefill forward.  x: [b, s, d] -> [b, s, d]."""
+    return ssm_block_with_state(cfg, x, p, prefix)[0]
+
+
+def ssm_block_with_state(cfg: ModelConfig, x: torch.Tensor, p: dict,
+                         prefix: str,
+                         initial_state: Optional[torch.Tensor] = None,
+                         conv_cache: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                        torch.Tensor]]:
+    """x: [b, s, d] from ``initial_state`` [b, h, p, n] and ``conv_cache``
+    (zeros when None) -> (out [b, s, d] in x's dtype, (final state, new
+    conv cache))."""
+    s_cfg = cfg.ssm
+    d_in, h, conv_dim = ssm_dims(cfg)
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    b, s, _ = x.shape
+
+    zxbcdt = torch.einsum("bsd,de->bse", x, p[f"{prefix}/w_in"].to(x.dtype))
+    z, xBC, dt = torch.split(zxbcdt, [d_in, conv_dim, h], dim=-1)
+    xBC, new_conv_cache = _causal_conv(
+        xBC, p[f"{prefix}/conv_w"].to(x.dtype),
+        p[f"{prefix}/conv_b"].to(x.dtype), conv_cache)
+    xBC = F.silu(xBC)
+    xv, B, C = torch.split(xBC, [d_in, g * n, g * n], dim=-1)
+
+    dt = F.softplus(dt.float() + p[f"{prefix}/dt_bias"].float())
+    a = -torch.exp(p[f"{prefix}/a_log"].float())            # [h], negative
+    log_a = dt * a[None, None, :]                            # [b,s,h]
+
+    xv = xv.reshape(b, s, h, s_cfg.head_dim)
+    xdt = xv * dt[..., None].to(xv.dtype)
+    y, final_state = _ssd_chunked(xdt, log_a, B.reshape(b, s, g, n),
+                                  C.reshape(b, s, g, n),
+                                  min(s_cfg.chunk_size, s), initial_state)
+    y = y + xv * p[f"{prefix}/d_skip"].to(xv.dtype)[None, None, :, None]
+    y = y.reshape(b, s, d_in)
+    y = rms_norm(y * F.silu(z), p[f"{prefix}/norm_scale"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p[f"{prefix}/w_out"].to(y.dtype))
+    return out.to(x.dtype), (final_state, new_conv_cache)
 
 
 def ssm_decode_step(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str,

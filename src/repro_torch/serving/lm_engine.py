@@ -21,8 +21,9 @@ once and holds for all its scheduled keys (the layout does not depend on
 the schedule, and a full-width pack is larger than the residency cache
 keeps).  The other families accept a schedule and run the einsum path on
 every key, as ``repro``'s engine does; their keys still get their own
-pools, caches and executors.  The encoder of an enc-dec model is prefill,
-which neither engine runs: ``cache/xk`` / ``cache/xv`` stay zeros.
+pools, caches and executors.  Prompts are teacher-forced through decode
+and the encoder of an enc-dec model runs in neither engine, as in
+``repro``: ``cache/xk`` / ``cache/xv`` stay zeros.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu")
 and raises without a CUDA device.  Greedy sampling takes the FIRST maximum

@@ -41,6 +41,9 @@ def tiny_config(full: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
         grad_accum=1,
+        attn_chunk_q=32,
+        attn_chunk_kv=32,
+        remat="none",
     )
     if full.n_heads:
         ratio = max(full.n_heads // max(full.n_kv_heads, 1), 1)

@@ -5,8 +5,8 @@
     ``lm_token_stream`` the same batches, sharded or not;
   * ``repro_torch.registry``: the same arch ids, ``list_archs`` and
     ``ASSIGNED_ARCHS``; every config the port carries equal to ``repro``'s
-    field by field; the rest raise ``NotImplementedError`` naming module
-    item 10; ``configs.get_config`` is the registry's;
+    field by field (the registry's every arch); ``configs.get_config`` is
+    the registry's;
   * ``repro_torch.ft``: ``HeartbeatMonitor``, ``StragglerPolicy`` and
     ``plan_elastic_restart`` make the same decisions on the same event
     sequences.

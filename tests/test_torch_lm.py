@@ -40,17 +40,17 @@ from repro_torch.kernels import cuda, ops  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
 from repro_torch.models import decode as tdecode  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.serving import LMServingEngine  # noqa: E402
 from repro_torch.serving.engine import EngineClosedError  # noqa: E402
 
 ARCHS = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b",
          "nemotron-4-340b")
-#: repro's ModelConfig fields the port does not carry: the dry-run and
-#: sharding knobs, which no decode path reads (``grad_accum`` is carried:
-#: the trainer reads it)
-NOT_PORTED = {"scan_layers", "remat", "attn_chunk_q", "attn_chunk_kv",
-              "impl", "seq_shard_residual", "probe_unroll"}
+#: repro's ModelConfig fields the port does not carry, none of which
+#: changes a value on one device (``remat``, ``attn_chunk_q`` /
+#: ``attn_chunk_kv`` and ``grad_accum`` are carried: the sequence forward
+#: and the trainer read them)
+NOT_PORTED = {"scan_layers", "impl", "seq_shard_residual", "probe_unroll"}
 
 
 #: the port's family sub-configs, by field name
@@ -229,21 +229,23 @@ def test_pack_decode_params_is_cached_per_key_and_version():
 
 @pytest.mark.parametrize("name", sorted(LMS))
 def test_non_dense_families_raise(name):
-    """Prefill is not ported: every LM's sequence forward and loss raise
-    naming the item, whatever its family; a family the port does not know
-    is refused by every entry point."""
-    model = build_model(get_config(name))
-    for call in (model.loss, model.forward):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md module item 10, prefill"):
-            call({}, {"tokens": None, "labels": None})
-    cfg = port_config(tiny_config(jget_config("stablelm-3b"))).replace(
+    """Every LM's sequence forward and loss run (their parity with
+    ``repro``: ``tests/test_torch_prefill.py`` and
+    ``tests/test_torch_lm_train.py``); ``name``'s config under a family
+    the port does not know is refused by every entry point, ``Model.loss``
+    and ``Model.forward`` included."""
+    cfg = port_config(tiny_config(jget_config(name))).replace(
         family="unknown", name="some-lm")
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int64),
+             "labels": torch.zeros(1, 4, dtype=torch.int64)}
+    model = Model(cfg)
     for call in (lambda: build_model(cfg),
                  lambda: ttf.param_specs(cfg),
                  lambda: tdecode.cache_specs(cfg, 1, 8),
                  lambda: LMServingEngine(cfg, {}, device="cpu"),
-                 lambda: tdecode.decode_step(cfg, {}, {}, None, None)):
+                 lambda: tdecode.decode_step(cfg, {}, {}, None, None),
+                 lambda: model.loss({}, batch),
+                 lambda: model.forward({}, batch)):
         with pytest.raises(ValueError, match="not an LM family"):
             call()
 

@@ -2,7 +2,8 @@
 ``repro.testing``, on the CPU.
 
   * ``tiny_config`` equal to ``repro``'s field by field for every config
-    the port carries; another family raises naming module item 10;
+    the port carries (the attention chunks and ``remat`` of the sequence
+    forward included);
   * ``make_kernel_inputs`` / ``make_quantized_inputs``: the same numpy
     draws as ``repro``'s, bit for bit, in float32 and bfloat16 (float64 ->
     bfloat16 rounds as ``jnp.asarray`` rounds, checked at values where a

@@ -21,7 +21,9 @@ numpy), same numpy batches, the port on CPU tensors:
     so 1e-3 of its update (measured: up to 2.5e-5 at ``lr = 1e-2`` over 3
     steps).  Loss, accuracy, grad norm and lr are held within 1e-6;
   * int8 gradient compression bit for bit;
-  * the trainer entry point (``launch.train``) on ``--device cpu``.
+  * the trainer entry point (``launch.train``) on ``--device cpu``;
+  * an LM's ``Model.loss`` and ``Model.forward`` (gemma-2b; every family
+    and its gradients in ``tests/test_torch_lm_train.py``).
 """
 
 import dataclasses
@@ -40,6 +42,7 @@ jnp = jax.numpy
 from repro.config import OptimizerConfig as JOptimizerConfig  # noqa: E402
 from repro.config import TrainConfig as JTrainConfig  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
+from repro.testing import tiny_config as jtiny_config  # noqa: E402
 from repro.registry import get_config as jget_config  # noqa: E402
 from repro.training import adamw_init as jadamw_init  # noqa: E402
 from repro.training import adamw_update as jadamw_update  # noqa: E402
@@ -50,8 +53,10 @@ from repro.training import grad_compression as jgc  # noqa: E402
 from repro_torch.config import OptimizerConfig, TrainConfig  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models.decode import lm_params_from_jax  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.registry import get_config  # noqa: E402
+from repro_torch.testing import tiny_config  # noqa: E402
 from repro_torch.training import (adamw_init, adamw_update,  # noqa: E402
                                   lr_schedule, make_train_step)
 from repro_torch.training import grad_compression as tgc  # noqa: E402
@@ -177,10 +182,33 @@ def test_model_forward_matches_repro(arch):
 
 
 def test_lm_loss_and_forward_name_item_10():
-    m = build_model(get_config("gemma-2b"))
-    for call in (m.loss, m.forward):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call({}, {"tokens": None, "labels": None})
+    """Module item 10's sequence forward: ``Model.loss`` and
+    ``Model.forward`` of an LM (gemma-2b at ``tiny_config``) run and equal
+    ``repro``'s on the same parameters and tokens (every family and the
+    gradients: ``tests/test_torch_lm_train.py``)."""
+    jcfg = jtiny_config(jget_config("gemma-2b"))
+    jm = jbuild_model(jcfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tp = lm_params_from_jax({k: np.asarray(v) for k, v in jp.items()},
+                            "cpu")
+    tm = build_model(tiny_config(get_config("gemma-2b")))
+    rng = np.random.RandomState(4)
+    batch = {"tokens": rng.randint(0, 256, (2, 12)).astype(np.int32),
+             "labels": rng.randint(-1, 256, (2, 12)).astype(np.int32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        logits = tm.forward(tp, tb).numpy()
+        loss, metrics = tm.loss(tp, tb)
+    want = np.asarray(jax.jit(jm.forward)(jp, jb))
+    assert np.abs(logits - want).max() <= 3e-5 * max(1.0,
+                                                     np.abs(want).max())
+    jloss, jmetrics = jax.jit(jm.loss)(jp, jb)
+    assert float(loss) == pytest.approx(float(jloss), abs=3e-5)
+    assert sorted(metrics) == sorted(jmetrics)
+    for k in metrics:
+        assert float(metrics[k]) == pytest.approx(float(jmetrics[k]),
+                                                  abs=3e-5), k
 
 
 # ---------------------------------------------------------------------------
@@ -440,8 +468,13 @@ def test_train_entry_point_equals_its_steps():
 
 
 def test_train_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlaunch.train("stablelm-3b", steps=1, tiny=True, device="cpu")
+    """An LM whose forward needs a frontend's embeddings (the token
+    stream has none, as in ``repro``), a mesh (module item 12) and a CUDA
+    device that is not there."""
+    for arch, need in (("whisper-medium", "frame_embeds"),
+                       ("phi-3-vision-4.2b", "img_embeds")):
+        with pytest.raises(ValueError, match=need):
+            tlaunch.train(arch, steps=1, tiny=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         tlaunch.train("top-tagging-gru", steps=1, mesh_shape=(1, 1),
                       device="cpu")
