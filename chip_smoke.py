@@ -202,11 +202,14 @@ In order, it
                 whisper's cross K / V precomputed); gemma-2b at published
                 width in float32, forward == its 32-step decode chain
                 within 5e-4 of max |logit|; stablelm-3b's forward at
-                published width; ``launch.train.train`` of gemma-2b and
-                mamba2-780m at published width (20 steps of 4 x 256
-                tokens): every loss finite and the last five's mean below
-                the first five's, peak allocation, step time, device
-                kernels and idle share;
+                published width; ``launch.train.train`` of gemma-2b,
+                stablelm-3b and mamba2-780m at published width (20 steps
+                of 4 x 256 tokens at the trainer's lr 1e-3, its AdamW in
+                place): every loss finite and, but for stablelm-3b's
+                (which rises: ROADMAP.md §3), the last below the first and
+                the last five's mean below the first five's, peak
+                allocation beside the state (gemma-2b and stablelm-3b
+                under 1.7x), step time, device kernels and idle share;
        rnn_decode  the six taggers at B = 256 as T chained
                 ``rnn_decode_step`` calls: float (``decode_matmul``) vs the
                 xla scan, ``ap_fixed<8,3>`` (``quant_matmul``) bit for bit
@@ -237,6 +240,19 @@ In order, it
                 port's conformance harness (``repro_torch.testing``) on
                 the card and each tagger's training step timed (host
                 clock, synchronised) and traced;
+       serve    the single-card drivers: ``launch.serve.serve_rnn`` for
+                the six taggers (seeded weights, 512 requests through the
+                micro-batcher) in static mode (the cluster scan and
+                ``col_matmul`` launched) and non-static mode
+                (``col_matmul``), and top tagging's GRU with
+                ``--fixed-point`` (the ap_fixed<16,6> emulation: no kernel
+                of the port): every request served once, events/s and p50
+                / p99 finite, the answers bit for bit the engine's
+                ``predict`` and, in float, within 3e-5 of
+                ``backend="xla"``; ``benchmark()`` at B = 1 and 256 on each
+                tagger's default key (one executor build); ``serve_lm`` on
+                gemma-2b's tiny config; ``examples.quickstart`` end to end
+                (AUC > 0.9, <16,6> ratio > 0.98);
      and checks that every kernel of each path was launched (``static``:
      each tagger's hoisted flush on the cluster kernel; ``modes``: every
      tagger's two pipelines and the hoisted scans on it; ``static_wide``:
@@ -315,6 +331,18 @@ its report as a JSON line of its own and no result line.
 runs only phase 3 ``prefill`` and the forward of every LM at published
 width (each drawn, reported and freed in turn) and prints its report as a
 JSON line of its own and no result line.
+
+    python3 chip_smoke.py --serve
+
+runs only phase 3 ``serve`` (the kernels built on first use) and prints
+its report as a JSON line of its own and no result line.
+
+    python3 chip_smoke.py --train-lm ARCH
+
+trains only ``ARCH`` at published width as phase 3 ``prefill`` does
+(``train_lm``) and prints its losses, peak allocation beside its state
+and step time as a JSON line of its own; an LM that does not fit the card
+ends the run with the allocator's out-of-memory error.
 
     python3 chip_smoke.py --batch-invariance [--src DIR]
 
@@ -3234,6 +3262,7 @@ def phase_dense_lms(device) -> tuple:
         init_peak = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        before = torch.cuda.memory_allocated()
         eng = LMServingEngine(cfg, params, max_batch=LM_BATCH,
                               max_seq=LM_SEQ, device=device)
         scheds = {"R1": spec_schedule(1), "R4": spec_schedule(4),
@@ -3252,8 +3281,7 @@ def phase_dense_lms(device) -> tuple:
         t0 = time.perf_counter()
         launches, out = drive(f"dense {name}", serve, ("decode_matmul",))
         serve_s = time.perf_counter() - t0
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        add_launches(total, launches)
         toks = {k: [out[i] for i in v] for k, v in ids.items()}
         check(toks["R1"] == toks["R4"], f"{name}: R=1 and R=4 decoded "
               f"different tokens")
@@ -3314,7 +3342,13 @@ def phase_dense_lms(device) -> tuple:
                   f"{row['tick_latency_p99_s'] * 1e3:.3f} ms, "
                   f"{row['tokens_per_s']:.1f} tokens/s")
         report[name]["forward"] = forward_report(name, cfg, params, device)
-        del eng, params, decs, logits
+        # as in phase_families: all allocated since ``before`` goes (the
+        # einsum check's ``cache`` too), ``params`` only after the check
+        del eng, decs, logits, cache
+        report[name]["left_after_del_gb"] = check_engine_freed(name, before)
+        print(f"  {name}: the deleted engine left "
+              f"{report[name]['left_after_del_gb']:.3f} GB allocated")
+        del params
         torch.cuda.empty_cache()
     return total, report
 
@@ -3334,24 +3368,40 @@ FAMILY_TINY_STEPS = 6
 
 
 def free_card() -> float:
-    """Free what earlier models left on the card and return the GB still
-    allocated.  An engine's decoders and their executors refer to each
-    other (the build callback), so a deleted engine's tensors go only when
-    Python's cycle collector runs: run it before reading a peak."""
-    import gc
-
+    """Hand the allocator's cached blocks back to the card and return the
+    GB still allocated (a deleted engine's tensors are gone by then: its
+    executors hold no reference back to it)."""
     import torch
 
-    gc.collect()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated() / 1e9
 
 
+#: what a deleted engine may leave allocated beside what was there before
+#: it was built (GB)
+ENGINE_LEFT_GB = 1.0
+
+
+def check_engine_freed(name: str, before: int) -> float:
+    """The GB allocated above ``before`` (``torch.cuda.memory_allocated``
+    just before the engine was built), read after the engine and every
+    reference to its decoders were deleted, with no cycle collection:
+    at most ``ENGINE_LEFT_GB``."""
+    import torch
+
+    torch.cuda.synchronize()
+    left = (torch.cuda.memory_allocated() - before) / 1e9
+    check(left <= ENGINE_LEFT_GB, f"{name}: {left:.2f} GB still allocated "
+          f"after the engine was deleted")
+    return left
+
+
 def family_inputs(cfg, batch, max_len, device, seed):
     """A zero decode cache of ``cfg`` on ``device``, with an enc-dec
-    model's ``cache/xk`` / ``cache/xv`` filled from ``seed`` (the encoder
-    is prefill, which the port does not run yet: seeded values make the
-    cross-attention read something)."""
+    model's ``cache/xk`` / ``cache/xv`` filled from ``seed``: both engines
+    leave the encoder's keys and values to the caller, as ``repro``'s do,
+    so seeded values stand in for them and make the cross-attention read
+    something."""
     import torch
 
     from repro_torch.models.decode import init_cache
@@ -3458,6 +3508,7 @@ def phase_families(device) -> tuple:
         init_peak = torch.cuda.max_memory_allocated() / 1e9
         gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         eng = LMServingEngine(cfg, params, max_batch=LM_BATCH,
                               max_seq=LM_SEQ, device=device)
         keys = {k: (spec_schedule(r), SpecConfig(k=n) if n else None)
@@ -3501,8 +3552,7 @@ def phase_families(device) -> tuple:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve_peak = torch.cuda.max_memory_allocated() / 1e9
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        add_launches(total, launches)
         toks = {k: [out[i] for i in v] for k, v in ids.items()}
         for k, v in toks.items():
             check(len(v) == LM_BATCH and all(
@@ -3524,8 +3574,10 @@ def phase_families(device) -> tuple:
         spec_rep = eng.verify_spec_accounting()
         per_tick = 4 * cfg.n_layers
         if vlm:
-            spec_dec = decs["R1 + ngram k4"].spec_dec
-            calls = decs["R1"].ticks + decs["R4"].ticks + spec_dec.rounds
+            # no local name may keep a decoder (and its packed weights)
+            # past ``del eng, decs`` below: check_engine_freed reads them
+            calls = (decs["R1"].ticks + decs["R4"].ticks
+                     + decs["R1 + ngram k4"].spec_dec.rounds)
             check(launches["decode_matmul"] == per_tick * calls,
                   f"{name}: {launches['decode_matmul']} decode_matmul calls "
                   f"for {calls} scheduled ticks and rounds, expected "
@@ -3589,6 +3641,7 @@ def phase_families(device) -> tuple:
             "trace": traces}
         report[name]["forward"] = forward_report(name, cfg, params, device)
         del eng, decs, logits, cache
+        report[name]["left_after_del_gb"] = check_engine_freed(name, before)
         params.clear()
         del params
         free_card()
@@ -3603,7 +3656,8 @@ def phase_families(device) -> tuple:
               f"{len(out)} requests of {LM_PROMPT}+{LM_NEW} tokens on "
               f"{len(keys)} keys in {serve_s:.2f} s; "
               f"{r['decode_matmul_calls']} decode_matmul calls; first-step "
-              f"default vs R1 {err:.3e}; tiny config card vs CPU "
+              f"default vs R1 {err:.3e}; the deleted engine left "
+              f"{r['left_after_del_gb']:.3f} GB; tiny config card vs CPU "
               f"{r['tiny_card_vs_cpu']}; {r['phase_s']:.1f} s in all")
         for k, row in r["keys"].items():
             print(f"  key {row['key']:40s}: {row['ticks']} ticks, p50 "
@@ -3633,11 +3687,20 @@ PREFILL_LMS = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b",
 CHAIN_TOL = 5e-4                 # repro's forward == decode bar
 CHAIN_TINY_SEQ = 12              # decode steps of each tiny chain
 CHAIN_WIDE_SEQ = 32              # gemma-2b f32 at published width
-LM_TRAIN = ("gemma-2b", "mamba2-780m")
+LM_TRAIN = ("gemma-2b", "stablelm-3b", "mamba2-780m")
 LM_TRAIN_STEPS = 20
 LM_TRAIN_BATCH = 4
 LM_TRAIN_SEQ = 256
 LM_TRAIN_TIMED = 5               # synchronised steps timed after two
+#: the LMs of ``LM_TRAIN`` whose loss does not fall in 20 steps at the
+#: trainer's learning rate (``launch.train.train``'s 1e-3, which every LM
+#: trains at): stablelm-3b's rises (ROADMAP.md §3, open).  The phase holds
+#: their losses finite and their peak, and reports the losses unchecked.
+LM_TRAIN_LOSS_OPEN = ("stablelm-3b",)
+#: a dense LM's training peak over its state (params, grads, f32 m and v):
+#: the in-place AdamW holds the state once (the out-of-place one held
+#: gemma-2b at 2.15x)
+LM_TRAIN_PEAK_RATIO = 1.7
 
 
 def prefill_inputs(cfg, batch, seq, device, seed, n_img=None,
@@ -3832,11 +3895,14 @@ def train_lm(name, device) -> dict:
     """``launch.train.train(name, steps=LM_TRAIN_STEPS,
     batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, device="cuda")`` at
     published width (its log, a line a step, read for every loss): every
-    loss finite and the mean of the last five below the first five's; its
-    peak allocation; then ``LM_TRAIN_TIMED`` synchronised steps of
-    ``make_train_step`` on the trained parameters (host clock, after two
-    warm-up steps) and one step's device kernels and idle share from a
-    trace."""
+    loss finite and, but for ``LM_TRAIN_LOSS_OPEN``, the last below the
+    first and the mean of the last five below the first five's; its
+    peak allocation beside its state (params, grads, f32 m and v), for a
+    dense LM under ``LM_TRAIN_PEAK_RATIO`` times it; then
+    ``LM_TRAIN_TIMED`` synchronised steps of the trainer's step
+    (``make_train_step(..., donate=True)``) on the trained parameters
+    (host clock, after two warm-up steps) and one step's device kernels
+    and idle share from a trace."""
     import contextlib
     import io
     import re
@@ -3860,16 +3926,24 @@ def train_lm(name, device) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(v) for v in re.findall(r"loss=(\S+)", log.getvalue())]
+    falls = (losses[-1] < losses[0]
+             and np.mean(losses[-5:]) < np.mean(losses[:5]))
     check(len(losses) == LM_TRAIN_STEPS
           and all(np.isfinite(v) for v in losses)
-          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          and (falls or name in LM_TRAIN_LOSS_OPEN),
           f"train {name}: losses {losses}")
-
     cfg = get_config(name)
+    state_gb = sum(t.numel() * (2 * t.element_size() + 8)
+                   for t in params.values()) / 1e9
+    if cfg.family == "dense":
+        check(peak < LM_TRAIN_PEAK_RATIO * state_gb,
+              f"train {name}: peak {peak:.2f} GB for {state_gb:.2f} GB of "
+              f"state")
+
     opt = OptimizerConfig(lr=1e-3, warmup_steps=5,
                           total_steps=LM_TRAIN_STEPS, weight_decay=0.01)
     step = make_train_step(build_model(cfg), TrainConfig(optimizer=opt),
-                           grad_accum=1)
+                           grad_accum=1, donate=True)
     st = adamw_init(params, opt)
     batch = next(_lm_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device))
     walls = []
@@ -3883,19 +3957,22 @@ def train_lm(name, device) -> dict:
     kernels = sum(g["launches"] for g in trace.get("kernels", {}).values())
     del params, st
     free_card()
-    rep = {"losses": losses, "train_s": wall, "peak_gb": peak,
-           "ms_per_step": float(np.median(walls)), "ms_min": min(walls),
-           "ms_max": max(walls), "device_kernels": kernels,
+    rep = {"losses": losses, "loss_falls": bool(falls), "train_s": wall, "peak_gb": peak,
+           "state_gb": state_gb, "ms_per_step": float(np.median(walls)),
+           "ms_min": min(walls), "ms_max": max(walls),
+           "device_kernels": kernels,
            "busy_ms": trace.get("busy_ms"),
            "idle_share": trace.get("idle_share")}
     print(f"train {name} at published width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, remat {cfg.remat}): {LM_TRAIN_STEPS} steps of "
-          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in {wall:.1f} s, loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five "
-          f"{np.mean(losses[:5]):.4f}, last five {np.mean(losses[-5:]):.4f});"
-          f" peak {peak:.2f} GB; a step {rep['ms_per_step']:.1f} ms median of"
-          f" {LM_TRAIN_TIMED} [{min(walls):.1f}-{max(walls):.1f}] (host "
-          f"clock, synchronised), {kernels} device kernels, busy "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens in "
+          f"{wall:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f} (first "
+          f"five {np.mean(losses[:5]):.4f}, last five "
+          f"{np.mean(losses[-5:]):.4f}); peak {peak:.2f} GB for "
+          f"{state_gb:.2f} GB of state ({peak / state_gb:.2f}x); a step "
+          f"{rep['ms_per_step']:.1f} ms median of {LM_TRAIN_TIMED} "
+          f"[{min(walls):.1f}-{max(walls):.1f}] (host clock, "
+          f"synchronised), {kernels} device kernels, busy "
           f"{trace.get('busy_ms', float('nan')):.1f} of "
           f"{trace.get('span_ms', float('nan')):.1f} ms (idle "
           f"{trace.get('idle_share', float('nan')):.1%}); {card_line()}")
@@ -4500,6 +4577,159 @@ def phase_train(device) -> tuple:
     rep["seconds"] = time.perf_counter() - t0
     print(f"train: {rep['seconds']:.1f} s")
     return launches, rep
+
+
+#: phase 3 ``serve``: ``launch/serve.py``'s request load a (tagger,
+#: mode), two full flushes of the engine's ``max_batch``
+SERVE_REQUESTS = 2 * BATCH
+SERVE_MODES = ("static", "nonstatic")
+SERVE_FP_TAGGER = "top-tagging-gru"   # also served with --fixed-point
+SERVE_BENCH_BATCHES = (1, BATCH)      # benchmark() on the default key
+SERVE_BENCH_ITERS = 20
+SERVE_LM = "gemma-2b"                 # serve_lm's tiny config
+SERVE_LM_REQUESTS = 12
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_run(tag: str, mode: str, fixed_point: bool, device) -> tuple:
+    """``launch.serve.serve_rnn`` of one tagger in one mode (seeded
+    weights, ``SERVE_REQUESTS`` requests through the micro-batcher),
+    driven with the counts set to 0: a static run launches the tagger's
+    cluster scan and ``col_matmul`` (the head), a non-static one
+    ``col_matmul``, ``--fixed-point`` (the ap_fixed<16,6> emulation) no
+    kernel of the port.  Every request served once, events/s and p50 /
+    p99 finite and positive, the answers bit for bit the engine's
+    ``predict`` of the same rows and, in float, within 3e-5 of
+    ``backend="xla"``.  Returns (launches, report, engine)."""
+    from repro_torch.launch.serve import serve_rnn
+    from repro_torch.serving import RNNServingEngine
+
+    scan = "lstm_scan" if tag.endswith("lstm") else "gru_scan"
+    kernels = (() if fixed_point else
+               (scan, "col_matmul") if mode == "static" else ("col_matmul",))
+    path = f"serve {tag} {mode}{' fixed-point' if fixed_point else ''}"
+    launches, rep = drive(path, lambda: serve_rnn(
+        tag, mode, SERVE_REQUESTS, fixed_point, 1, device=device), kernels)
+    if fixed_point:
+        check(sum(launches.values()) == 0,
+              f"{path}: the ap_fixed<16,6> emulation launched {launches}")
+    eng, got, x = rep.pop("engine"), rep.pop("answers"), rep.pop("x")
+    check(rep["served"] == SERVE_REQUESTS and got.shape == (
+        SERVE_REQUESTS, eng.cfg.rnn.n_outputs)
+        and bool(np.isfinite(got).all()),
+        f"{path}: served {rep['served']} of {SERVE_REQUESTS}, answers "
+        f"{got.shape}")
+    check(all(np.isfinite(rep[k]) and rep[k] > 0 for k in (
+        "events_per_s", "latency_p50_ms", "latency_p99_ms")),
+        f"{path}: {rep}")
+    want = eng.predict(x)
+    check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+          f"{path}: served answers differ from predict by "
+          f"{float(np.abs(got - want).max())}")
+    if not fixed_point:
+        ref = RNNServingEngine(eng.cfg, eng.params, mode=mode, impl="xla",
+                               device=device).predict(x)
+        check_served(tag, path, got, ref)
+    rep["launches"] = {k: v for k, v in launches.items() if v}
+    return launches, rep, eng
+
+
+def serve_benchmark(tag: str, eng) -> dict:
+    """``eng.benchmark`` at ``SERVE_BENCH_BATCHES`` on the engine's
+    default key: finite times, one key, one executor build across both
+    batch sizes."""
+    rows = {b: eng.benchmark(b, iters=SERVE_BENCH_ITERS)
+            for b in SERVE_BENCH_BATCHES}
+    key = rows[SERVE_BENCH_BATCHES[0]]["key"]
+    check(all(r["key"] == key and np.isfinite(r["latency_s"])
+              and r["latency_s"] > 0 for r in rows.values()),
+          f"benchmark {tag}: {rows}")
+    check(eng.trace_count(key) == 1, f"benchmark {tag}: key {key} built "
+          f"{eng.trace_count(key)} executors")
+    print(f"benchmark {tag} key {key}: " + "; ".join(
+        f"B={b} {r['latency_s'] * 1e3:.3f} ms, {r['throughput_eps']:.0f} "
+        f"ev/s" for b, r in rows.items())
+        + f" (FPGA model: {rows[1]['latency_cycles']} cycles, II "
+        f"{rows[1]['ii_cycles']}, {rows[1]['dsp']} DSP); one executor")
+    return {str(b): r for b, r in rows.items()}
+
+
+def phase_serve(device) -> tuple:
+    """Phase 3 ``serve``: the single-card drivers of the main path.
+    ``serve_run`` for the six taggers in ``SERVE_MODES`` and
+    ``SERVE_FP_TAGGER`` with ``--fixed-point``; ``serve_benchmark`` on
+    each tagger's static engine (driven with the counts set to 0: the
+    scans and the head launched); ``launch.serve.serve_lm`` on
+    ``SERVE_LM``'s tiny config (the einsum key, no kernel of the port);
+    and ``examples.quickstart`` end to end (150 training steps on the
+    reference, held-out AUC > 0.9, ap_fixed<16,6> ratio > 0.98, a batch-1
+    ``benchmark`` on the emulation: no kernel of the port).  Returns
+    (launches, report)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.launch.serve import serve_lm
+
+    t0 = time.perf_counter()
+    total: dict = {}
+    report: dict = {"runs": {}}
+    engines = {}
+    for tag in TAGGERS:
+        for mode in SERVE_MODES:
+            launches, rep, eng = serve_run(tag, mode, False, device)
+            add_launches(total, launches)
+            report["runs"][f"{tag} {mode}"] = rep
+            if mode == "static":
+                engines[tag] = eng
+    launches, rep, _ = serve_run(SERVE_FP_TAGGER, "static", True, device)
+    add_launches(total, launches)
+    report["runs"][f"{SERVE_FP_TAGGER} static fixed-point"] = rep
+
+    launches, report["benchmark"] = drive(
+        "serve benchmark", lambda: {t: serve_benchmark(t, e)
+                                    for t, e in engines.items()},
+        ("lstm_scan", "gru_scan", "col_matmul"))
+    add_launches(total, launches)
+    del engines
+
+    launches, lm = drive("serve lm", lambda: serve_lm(
+        SERVE_LM, SERVE_LM_REQUESTS, device=device), ())
+    add_launches(total, launches)
+    finished = lm.pop("finished")
+    check(lm["requests"] == SERVE_LM_REQUESTS and all(
+        len(v) >= 2 + 8 for v in finished.values())
+        and sum(launches.values()) == 0,
+        f"serve lm: {lm}, launches {launches}")
+    report["lm"] = lm
+
+    launches, qs = drive("serve quickstart",
+                         lambda: quickstart.main(device=device), ())
+    add_launches(total, launches)
+    ratio = qs["auc_ap16_6"] / qs["auc_float"]
+    check(qs["auc_float"] > AUC_MIN and ratio > AUC_RATIO_MIN
+          and np.isfinite(qs["benchmark"]["latency_s"])
+          and sum(launches.values()) == 0,
+          f"quickstart: {qs}, launches {launches}")
+    report["quickstart"] = qs
+    report["seconds"] = time.perf_counter() - t0
+    print(f"serve: {report['seconds']:.1f} s; {card_line()}")
+    return total, report
+
+
+def only_serve(device) -> dict:
+    """``--serve``: phase 3 ``serve`` alone (kernels built on first use);
+    its report and launch counts."""
+    launches, report = phase_serve(device)
+    return {"launches": launches, "serve": report}
+
+
+def only_train_lm(arch: str):
+    """``--train-lm ARCH``: ``train_lm`` of one LM alone (its
+    peak beside its state, its losses and step time); an LM that does not
+    fit the card ends the run with the allocator's out-of-memory error."""
+    return lambda device: {"train_lm": {arch: train_lm(arch, device)}}
 
 
 def phase_timing(device) -> tuple:
@@ -5435,6 +5665,13 @@ def main() -> int:
                       help="only run phase 3 prefill and every LM's "
                       "forward at published width (see phase_prefill, "
                       "prefill_widths)")
+    what.add_argument("--serve", action="store_true",
+                      help="only run phase 3 serve: launch/serve.py for the "
+                      "six taggers, benchmark(), serve_lm and the "
+                      "quickstart example on the card (see phase_serve)")
+    what.add_argument("--train-lm", metavar="ARCH",
+                      help="only train one LM at published width as phase "
+                      "3 prefill does, and report its peak (see train_lm)")
     what.add_argument("--batch-invariance", action="store_true",
                       help="only report one event's answer across batch "
                       "shapes, launch by launch (see batch_invariance)")
@@ -5449,6 +5686,8 @@ def main() -> int:
               "time_decode": time_decode,
               "time_elementwise": time_elementwise,
               "families": only_families, "prefill": only_prefill,
+              "serve": only_serve,
+              "train_lm": only_train_lm(opts.train_lm),
               "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
@@ -5521,6 +5760,7 @@ def main() -> int:
     launches["rnn_decode"] = phase_rnn_decode(device)
     launches.update(phase_rglru(device))
     launches["train"], train_rep = phase_train(device)
+    launches["serve"], serve_rep = phase_serve(device)
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
@@ -5532,6 +5772,7 @@ def main() -> int:
          "families": families, "prefill": prefill,
          "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
+         "serve": serve_rep,
          "launches": launches,
          "max_abs_err": errs},
         indent=1))

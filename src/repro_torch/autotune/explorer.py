@@ -48,6 +48,7 @@ from repro_torch.core.hls.resources import (estimate_decode_step,
                                             estimate_lm_decode,
                                             estimate_speculative, gate_count)
 from repro_torch.core.quant.fixed_point import is_native_int
+from repro_torch.device import require_device
 from repro_torch.kernels import ops
 
 
@@ -408,11 +409,7 @@ def measure_points(cfg: ModelConfig, points: Sequence[DesignPoint], *,
     Measures the float kernel datapath (the quantizer wraps it uniformly,
     so fixed-point configs do not reorder schedules).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "measure_points(device='cuda'): no CUDA device is available; "
-            "pass device='cpu' to time the kernels' plain versions")
+    device = require_device(device, "measure_points")
     rnn = cfg.rnn
     assert rnn is not None
     g = gate_count(rnn.cell)

@@ -13,6 +13,10 @@ forward needs a frontend's embeddings (whisper's frames, phi-3-vision's
 image patches) is refused with a ``ValueError`` naming them: ``repro``'s
 trainer sends no stub either.  A mesh is ROADMAP.md module item 12.
 
+As ``repro``'s launcher donates the step's parameters and optimizer
+state to XLA, this one updates them in place (``make_train_step(...,
+donate=True)``): the state is held once.
+
 As in ``repro``, ``resume`` restores the parameters and the optimizer
 state of the latest checkpoint and starts the batch stream again at its
 first batch.
@@ -31,6 +35,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import OptimizerConfig, TrainConfig
 from repro_torch.data import (flavor_tagging_dataset, lm_token_stream,
                               quickdraw_dataset, top_tagging_dataset)
+from repro_torch.device import require_device
 from repro_torch.ft import StragglerPolicy
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import required_inputs
@@ -71,11 +76,7 @@ def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
           device: Union[str, torch.device] = "cuda"):
     """Train ``arch`` for ``steps`` steps; returns (params, last logged
     loss), the parameters as tensors on ``device`` that need no gradient."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "train(device='cuda'): no CUDA device is available; pass "
-            "device='cpu' to train on the CPU")
+    device = require_device(device, "train")
     if mesh_shape:
         raise NotImplementedError(
             f"mesh_shape={mesh_shape}: the port has no mesh yet (ROADMAP.md "
@@ -113,7 +114,7 @@ def train(arch: str, steps: int = 100, batch: int = 64, lr: float = 1e-3,
                 m=opt["m"], v=opt["v"])
         print(f"[train] resumed from step {start}")
 
-    step_fn = make_train_step(model, tc, grad_accum=1)
+    step_fn = make_train_step(model, tc, grad_accum=1, donate=True)
     batches = (_rnn_batches(cfg, batch, device=device) if cfg.family == "rnn"
                else _lm_batches(cfg, batch, seq_len, device=device))
 

@@ -39,10 +39,9 @@ fixed-point datapath: the native int8/int4 configs run every gate product
 on the ``quant_matmul`` kernel, every other config the ap_fixed emulation
 cells; the key of a request names its (schedule, fp) pair.  The engine
 runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
-float32 weights there from construction on.
-
-Not in this slice of the port (ROADMAP.md, modules to port):
-``benchmark()`` (item 13).
+float32 weights there from construction on.  ``benchmark`` times one key's
+padded serving shape on that device beside the FPGA model of the same
+schedule (``launch/serve.py`` and the examples are its drivers).
 """
 
 from __future__ import annotations
@@ -60,6 +59,7 @@ from repro_torch.autotune import select as autotune_select
 from repro_torch.config import FixedPointConfig, ModelConfig
 from repro_torch.core.hls import (DesignPoint, HLSDesign, RNNDesignPoint,
                                   estimate_design, estimate_schedule)
+from repro_torch.device import require_device
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY, KernelSchedule,
                                           cache_meta, schedule_key)
 from repro_torch.models.rnn_tagger import RNNTagger
@@ -114,11 +114,7 @@ class RNNServingEngine:
     def __post_init__(self):
         if self.ragged not in RAGGED_POLICIES:
             raise ValueError(f"ragged {self.ragged!r} not in {RAGGED_POLICIES}")
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "RNNServingEngine(device='cuda'): no CUDA device is "
-                "available; pass device='cpu' to serve on the CPU")
+        self.device = require_device(self.device, "RNNServingEngine")
         self.model = RNNTagger(self.cfg, self.params, device=self.device)
         self.params = dict(self.model.weights)
         self.batcher = MicroBatcher(max_batch=self.max_batch)
@@ -245,19 +241,23 @@ class RNNServingEngine:
         through the compile cache; its build is counted in ``counter``
         once, at its first cold signature (a warm start builds nothing,
         so the count stays 0)."""
+        # the closures hold the fields they need, never ``self``: the
+        # engine holds them (``_infer_cache``), and a closure over the
+        # engine would keep a dropped engine's tensors alive until the
+        # cycle collector ran
         traces = getattr(self, counter)
         impl = "pallas" if sched.use_pallas else "xla"
-        model = self.model
+        model, device = self.model, self.device
 
         def built():
             traces[key] = traces.get(key, 0) + 1
 
         def infer(x: np.ndarray, lengths=None) -> np.ndarray:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-                self.device)
+                device)
             if lengths is not None:
                 lengths = torch.from_numpy(
-                    np.asarray(lengths, np.int64)).to(self.device)
+                    np.asarray(lengths, np.int64)).to(device)
             with torch.inference_mode():
                 out = model(xt, fp=fp, impl=impl, schedule=sched,
                             lengths=lengths)
@@ -485,6 +485,38 @@ class RNNServingEngine:
                 for x, s, f in zip(payloads, schedules, fps)]
         self.flush(now=now, force=True)
         return reqs
+
+    # -- measured throughput/latency ----------------------------------------
+
+    def benchmark(self, batch: int, iters: int = 20,
+                  schedule: Optional[KernelSchedule] = None,
+                  fp: Optional[FixedPointConfig] = None) -> Dict[str, float]:
+        """Measured latency/throughput for one schedule key on the engine's
+        device, paired with the analytical estimate of the same schedule
+        object (``latency_cycles``, ``ii_cycles``, ``dsp``: the paper's FPGA
+        model, not the card)."""
+        r = self.cfg.rnn
+        sched, fpr = self.resolve(schedule, fp)
+        key = self._ensure_key(sched, fpr)
+        x = np.random.RandomState(0).randn(
+            batch, r.seq_len, r.input_size).astype(np.float32)
+        # through _predict_padded, NOT _predict_key: every batch size runs
+        # the key's padded serving shape, the one executor its flushes run;
+        # the untimed call readies it (on a cold key: nvcc and the launch
+        # layouts)
+        self._predict_padded(key, x)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            # each call ends in its result on the host (``infer``'s
+            # ``.cpu()`` waits for the card), so the clock reads finished
+            # work
+            self._predict_padded(key, x)
+        dt = (time.perf_counter() - t0) / iters
+        est = estimate_schedule(sched, r, fpr)
+        return {"key": key, "batch": batch, "latency_s": dt,
+                "throughput_eps": batch / dt,
+                "latency_cycles": est.latency_cycles,
+                "ii_cycles": est.ii_cycles, "dsp": est.dsp}
 
     # -- measured vs analytical, per schedule key ---------------------------
 

@@ -70,6 +70,7 @@ would not be the sequential key's (``ROADMAP.md`` §3: a difference from
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Union
 
@@ -78,6 +79,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.hls import estimate_lm_decode
+from repro_torch.device import require_device
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
                                           KernelSchedule, cache_meta,
                                           schedule_key)
@@ -146,9 +148,13 @@ class _KeyedDecoder:
     def _build(self, cfg: ModelConfig, params: Dict,
                compile_cache: CompileCache) -> Callable:
         schedule, packed = self.schedule, self.packed
+        # a weak reference: the decoder holds the executor, so a callback
+        # holding the decoder would keep a dropped engine's KV caches and
+        # packed weights alive until the cycle collector ran
+        me = weakref.ref(self)
 
         def built():
-            self.traces += 1
+            me().traces += 1
 
         def step(cache, tokens, pos):
             with torch.inference_mode():
@@ -199,11 +205,7 @@ class LMServingEngine:
                  cache_dir: Optional[str] = None,
                  spec: Optional[SpecConfig] = None):
         require_lm(cfg, "LMServingEngine")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "LMServingEngine(device='cuda'): no CUDA device is "
-                "available; pass device='cpu' to serve on the CPU")
+        self.device = require_device(device, "LMServingEngine")
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.max_batch = max_batch

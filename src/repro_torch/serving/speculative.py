@@ -51,6 +51,7 @@ layout: the port's pack does not depend on the schedule.
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -377,11 +378,14 @@ class SpeculativeDecoder:
                       if spec.draft is None else None)
         cache = compile_cache or CompileCache(device=self.device)
 
+        # weak: the decoder holds these executors (see _KeyedDecoder._build)
+        me = weakref.ref(self)
+
         def verify_built():
-            self.verify_traces += 1
+            me().verify_traces += 1
 
         def draft_built():
-            self.draft_traces += 1
+            me().draft_traces += 1
 
         def verify(kv, tokens, pos):
             with torch.inference_mode():

@@ -6,7 +6,11 @@ The port of ``repro.training.train_step``.  The returned function is
 gradients come from ``torch.autograd.grad`` over fresh leaf tensors of the
 parameters, a Python loop over the microbatches takes the place of
 ``lax.scan``, and the parameters it returns are new tensors that need no
-gradient.  Gradient shardings are ROADMAP.md module item 12.
+gradient.  ``donate=True`` is the port of ``jax.jit(...,
+donate_argnums=(0, 1))``: the step updates the parameters and the
+optimizer state it is given in place (``adamw_update_``, the same bits)
+and returns them, so a caller that keeps the step's inputs must clone
+them first.  Gradient shardings are ROADMAP.md module item 12.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from repro_torch.config import TrainConfig
 from repro_torch.models.model import Model
 from repro_torch.training.grad_compression import compress_decompress
-from repro_torch.training.optimizer import OptState, adamw_update
+from repro_torch.training.optimizer import (OptState, adamw_update,
+                                            adamw_update_)
 
 
 def _split_microbatches(batch: Dict, accum: int) -> list:
@@ -38,6 +43,7 @@ def make_train_step(
     grad_accum: Optional[int] = None,
     accum_dtype: str = "float32",
     grad_shardings: Optional[Dict] = None,
+    donate: bool = False,
 ) -> Callable:
     if grad_shardings is not None:
         raise NotImplementedError(
@@ -47,6 +53,7 @@ def make_train_step(
     accum = grad_accum if grad_accum is not None else max(cfg.grad_accum, 1)
     opt = train_cfg.optimizer
     acc_dt = getattr(torch, accum_dtype)
+    update = adamw_update_ if donate else adamw_update
 
     def grad_fn(params, mb):
         leaves = {k: p.detach().requires_grad_(True)
@@ -78,8 +85,8 @@ def make_train_step(
         if train_cfg.compress_grads:
             grads = compress_decompress(grads)
 
-        params, opt_state, opt_metrics = adamw_update(
-            params, grads, opt_state, opt)
+        params, opt_state, opt_metrics = update(params, grads, opt_state,
+                                                opt)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -1,7 +1,7 @@
 """The port as a package: what it imports, where it runs, what it refuses.
 
-  * No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax``
-    or any module of ``repro`` (checked in a fresh interpreter, and in the
+  * No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax``,
+    any module of ``repro`` or ``benchmarks`` (checked in a fresh interpreter, and in the
     sources' import statements).
   * Entry points (the engines, ``autotune.measure_points`` and a measured
     ``autotune.select``) run on ``"cuda"`` unless told otherwise, and raise
@@ -58,7 +58,7 @@ def test_no_jax_or_repro_in_sys_modules():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
         "print(len(names))\n")
@@ -81,7 +81,8 @@ def test_sources_import_no_jax_or_repro(path):
         else:
             continue
         for n in names:
-            assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            assert n.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                           "benchmarks"), \
                 f"{path.name} imports {n}"
 
 

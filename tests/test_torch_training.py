@@ -58,7 +58,8 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.registry import get_config  # noqa: E402
 from repro_torch.testing import tiny_config  # noqa: E402
 from repro_torch.training import (adamw_init, adamw_update,  # noqa: E402
-                                  lr_schedule, make_train_step)
+                                  adamw_update_, lr_schedule,
+                                  make_train_step)
 from repro_torch.training import grad_compression as tgc  # noqa: E402
 from repro_torch.training.optimizer import global_norm  # noqa: E402
 
@@ -270,6 +271,70 @@ def test_adamw_update_matches_repro(grad_clip):
     assert float(tm["grad_norm"]) > 10 * max(grad_clip, 1.0)
 
 
+def _same_bits(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k].view(torch.int16 if got[k].dtype ==
+                                       torch.bfloat16 else torch.int32),
+                           want[k].view(torch.int16 if want[k].dtype ==
+                                        torch.bfloat16 else torch.int32)), k
+
+
+@pytest.mark.parametrize("weight_decay", [0.1, 0.0], ids=["wd", "nowd"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0], ids=["clip", "noclip"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_place_equals_functional(dtype, grad_clip,
+                                                 weight_decay):
+    """``adamw_update_`` gives ``adamw_update``'s bits over 4 steps (params
+    in f32 or bf16, the moments in the optimizer's state dtype) and
+    returns the very tensors it was given, written in place."""
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=4,
+                          weight_decay=weight_decay, grad_clip=grad_clip)
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(8)
+    shapes = {"rnn/kernel": (6, 12), "rnn/bias": (12,), "dense0/b": (7,),
+              "layer/norm1/scale": (4,), "head/w": (7, 1)}
+    start = {k: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dt)
+             for k, s in shapes.items()}
+    fp, fst = dict(start), adamw_init(start, opt)
+    ip = {k: v.clone() for k, v in start.items()}
+    ist = adamw_init(ip, opt)
+    ptrs = {k: (ip[k].data_ptr(), ist.m[k].data_ptr(), ist.v[k].data_ptr())
+            for k in ip}
+    for _ in range(4):
+        grads = {k: torch.from_numpy((rng.randn(*s) * 10).astype(
+            np.float32)).to(dt) for k, s in shapes.items()}
+        fp, fst, fm = adamw_update(fp, grads, fst, opt)
+        given_p, given_m, given_v = dict(ip), dict(ist.m), dict(ist.v)
+        ip, ist, im = adamw_update_(ip, grads, ist, opt)
+        _same_bits(ip, fp)
+        _same_bits(ist.m, fst.m)
+        _same_bits(ist.v, fst.v)
+        assert int(ist.step) == int(fst.step)
+        for k in ("grad_norm", "lr"):
+            assert torch.equal(im[k], fm[k])
+        for k in ip:
+            assert ip[k] is given_p[k] and ist.m[k] is given_m[k] \
+                and ist.v[k] is given_v[k]
+            assert (ip[k].data_ptr(), ist.m[k].data_ptr(),
+                    ist.v[k].data_ptr()) == ptrs[k]
+    assert not any(torch.equal(ip[k], start[k]) for k in ip)
+
+
+def test_adamw_update_in_place_refuses_shared_memory():
+    """A tied weight (one tensor under two keys) cannot be updated in
+    place as the functional update does it: refused, nothing written."""
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=0, total_steps=4)
+    w = torch.ones(3, 4)
+    params = {"embed": w, "unembed": w, "head/w": torch.ones(4)}
+    st = adamw_init(params, opt)
+    grads = {k: torch.ones_like(v) for k, v in params.items()}
+    with pytest.raises(ValueError, match="shares memory"):
+        adamw_update_(params, grads, st, opt)
+    assert torch.equal(w, torch.ones(3, 4))
+
+
 def test_no_decay_rule_matches_repro():
     """``_NO_DECAY`` matches substrings: ``dense0/b`` is decayed, paths
     with ``bias`` / ``norm`` / ``scale`` are not."""
@@ -332,6 +397,48 @@ def test_train_step_matches_repro(arch, accum):
                                                    abs=1e-6), k
     assert all(not v.requires_grad for v in tp.values())
     _close(tp, jp, 1e-2 * STEP_OPT["lr"] * STEPS)
+
+
+@pytest.mark.parametrize("arch,accum", [
+    ("top-tagging-gru", 1), ("flavor-tagging-lstm", 2), ("gemma-2b", 1)])
+def test_donated_train_step_equals_functional(arch, accum):
+    """``make_train_step(..., donate=True)`` (the trainer's step) equals
+    the functional step bit for bit over 3 steps, updating the parameters
+    and moments it is given in place (the functional run starts from
+    clones of them)."""
+    cfg = get_config(arch)
+    if cfg.family != "rnn":
+        cfg = tiny_config(cfg)
+    m = build_model(cfg)
+    opt = OptimizerConfig(**STEP_OPT)
+    tc = TrainConfig(optimizer=opt)
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    fp = {k: v.clone() for k, v in p.items()}
+    dp = {k: v.clone() for k, v in p.items()}
+    fst, dst = adamw_init(fp, opt), adamw_init(dp, opt)
+    given = [dp[k] for k in dp] + [dst.m[k] for k in dst.m]
+    fstep = make_train_step(m, tc, grad_accum=accum)
+    dstep = make_train_step(m, tc, grad_accum=accum, donate=True)
+    rng = np.random.RandomState(3)
+    for i in range(STEPS):
+        if cfg.family == "rnn":
+            x, y = _batch(cfg, seed=20 + i)
+            batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+        else:
+            toks = rng.randint(0, cfg.vocab_size, (4, 17))
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                     "labels": torch.from_numpy(toks[:, 1:])}
+        fp, fst, fmet = fstep(fp, fst, batch)
+        dp, dst, dmet = dstep(dp, dst, batch)
+        for k in fmet:
+            assert torch.equal(dmet[k], fmet[k]), k
+    _same_bits(dp, fp)
+    _same_bits(dst.m, fst.m)
+    _same_bits(dst.v, fst.v)
+    kept = [dp[k] for k in dp] + [dst.m[k] for k in dst.m]
+    assert len(kept) == len(given) and all(
+        a is b for a, b in zip(kept, given))
+    assert not any(torch.equal(dp[k], p[k]) for k in p)
 
 
 def test_grad_accum_matches_full_batch():
