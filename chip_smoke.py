@@ -169,6 +169,9 @@ In order, it
                 R = 4 and the default: R = 1 and R = 4 give the same tokens
                 and first-step logits bit for bit, the einsum logits agree
                 within 2e-2, 4·L ``decode_matmul`` calls a scheduled tick;
+                after ``del`` of each engine, and then of its params, at
+                most 1 GB stays allocated (the residency cache holds its
+                sources weakly: no cycle collection needed);
        families  the other LM families at their published widths and full
                 depth, bf16, seeded weights drawn on the card, one model at
                 a time (``FAMILY_LMS``: qwen2-moe-a2.7b, qwen3-moe-30b-a3b,
@@ -253,6 +256,26 @@ In order, it
                 tagger's default key (one executor build); ``serve_lm`` on
                 gemma-2b's tiny config; ``examples.quickstart`` end to end
                 (AUC > 0.9, <16,6> ratio > 0.98);
+       distributed  distribution and launch (no kernel of the port on
+                the path, as none on ``repro``'s; the counts must stay 0):
+                (a) the dry run (``launch/dryrun.py``, a one-process
+                ``"fake"`` group) of gemma-2b, stablelm-3b and mamba2-780m
+                on a one-rank mesh, training at 4 x 256 (``remat="full"``,
+                the trainer's step) and the forward at 2 x 512: its
+                params + AdamW state bytes equal the card's tensors and
+                the bytes asked of the allocator, exactly, its peak estimate
+                printed beside phase ``prefill``'s measured peak; (b)
+                ``FlopCounterMode`` of the forward on meta tensors equal to
+                its count on the card, beside ``model_flops`` and the
+                forward's share of the bf16 peak; (c) the stage pipeline
+                (``core/rnn/pipeline.py``) over 4 ranks sharing the card
+                (spawned here; gloo, one rank if the compute mode is
+                exclusive) for top tagging's LSTM and GRU, plain and
+                hoisted, within 1e-5 of the static scan kernels (rows 1 and
+                3, a comparison outside the counts); (d)
+                ``launch.train.train(mesh_shape=(1, 1))`` of a tiny LM on the
+                card: DTensor params, pinned ``grad_shardings``, every loss
+                within 2e-4 of the unsharded run's;
      and checks that every kernel of each path was launched (``static``:
      each tagger's hoisted flush on the cluster kernel; ``modes``: every
      tagger's two pipelines and the hoisted scans on it; ``static_wide``:
@@ -343,6 +366,11 @@ trains only ``ARCH`` at published width as phase 3 ``prefill`` does
 (``train_lm``) and prints its losses, peak allocation beside its state
 and step time as a JSON line of its own; an LM that does not fit the card
 ends the run with the allocator's out-of-memory error.
+
+    python3 chip_smoke.py --distributed
+
+runs only phase 3 ``distributed`` (the kernels built on first use) and
+prints its report as a JSON line of its own and no result line.
 
     python3 chip_smoke.py --batch-invariance [--src DIR]
 
@@ -3241,7 +3269,7 @@ def phase_dense_lms(device) -> tuple:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda
+    from repro_torch.kernels import cuda, ops
     from repro_torch.models.decode import decode_step, init_cache
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import padded_vocab
@@ -3343,12 +3371,25 @@ def phase_dense_lms(device) -> tuple:
                   f"{row['tokens_per_s']:.1f} tokens/s")
         report[name]["forward"] = forward_report(name, cfg, params, device)
         # as in phase_families: all allocated since ``before`` goes (the
-        # einsum check's ``cache`` too), ``params`` only after the check
-        del eng, decs, logits, cache
+        # einsum check's ``cache`` too, and ``dec``, the loop's last
+        # decoder, whose executor holds the params), ``params`` only after
+        # the check
+        del eng, decs, logits, cache, dec
         report[name]["left_after_del_gb"] = check_engine_freed(name, before)
         print(f"  {name}: the deleted engine left "
               f"{report[name]['left_after_del_gb']:.3f} GB allocated")
+        # the weights too: the residency cache holds its sources weakly,
+        # so the model's params go with their last reference (no cycle
+        # collection), whatever entries the cache keeps
         del params
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() / 1e9 - resident
+        report[name]["left_after_params_del_gb"] = left
+        check(left <= ENGINE_LEFT_GB, f"{name}: {left:.2f} GB still "
+              f"allocated after the engine and its params were deleted")
+        print(f"  {name}: with its params deleted, {left:.3f} GB above the "
+              f"{resident:.2f} GB allocated before init "
+              f"({len(ops.RESIDENT_WEIGHTS)} residency entries)")
         torch.cuda.empty_cache()
     return total, report
 
@@ -4732,6 +4773,389 @@ def only_train_lm(arch: str):
     return lambda device: {"train_lm": {arch: train_lm(arch, device)}}
 
 
+#: phase 3 ``distributed``: the LMs whose training state the dry run
+#: predicts on a one-rank mesh (the three that phase 3 ``prefill`` trains)
+DIST_LMS = LM_TRAIN
+#: ranks of the stage pipeline, all on the one card (gloo, host-staged)
+PIPE_RANKS = 4
+PIPE_TAGGERS = ("top-tagging-lstm", "top-tagging-gru")
+PIPE_BATCH = 16
+PIPE_TOL = 1e-5                  # repro's bar for the pipeline
+#: synchronised forwards timed for the share of the bf16 peak (after one
+#: warm-up; host-clock spans of one forward vary by up to 1.6x, PR 32)
+DIST_FORWARD_REPEATS = 10
+#: the sharded trainer's tiny LM, its steps and repro's sharded-loss bar
+DIST_TRAIN_LM = "stablelm-3b"
+DIST_TRAIN_STEPS = 5
+DIST_TRAIN_TOL = 2e-4
+
+
+def round_block(nbytes: int) -> int:
+    """The caching allocator's block of an ``nbytes`` tensor: a multiple
+    of 512 bytes, at least 512."""
+    return max(512, -(-nbytes // 512) * 512)
+
+
+def allocator_blocks(tensors) -> tuple:
+    """(bytes requested, bytes granted) of the caching allocator's active
+    blocks that hold ``tensors`` (``torch.cuda.memory_snapshot``: each
+    block's ``requested_size`` and ``size``; each block once).  The grant
+    is the request in 512-byte blocks, or more where a cached block was
+    reused without a split."""
+    import torch
+
+    ptrs = {t.data_ptr() for t in tensors}
+    seen = set()
+    requested = granted = 0
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated" and blk["address"] in ptrs \
+                    and blk["address"] not in seen:
+                seen.add(blk["address"])
+                requested += blk.get("requested_size", blk["size"])
+                granted += blk["size"]
+    check(len(seen) == len(ptrs), f"allocator blocks: {len(seen)} of "
+          f"{len(ptrs)} tensors found")
+    return requested, granted
+
+
+def dry_vs_card(name: str, device, measured_peaks: dict) -> dict:
+    """(a) and (b) for one LM at published width: the dry run on a
+    one-rank mesh of the training shape of phase 3 ``prefill``
+    (``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``, ``remat="full"``) and of its
+    forward (``PREFILL_BATCH`` x ``PREFILL_SEQ``); the predicted params +
+    AdamW state bytes equal, exactly, the bytes of the tensors the card
+    allocates for them and to the bytes the caching allocator was asked
+    for (its granted blocks, the prediction in 512-byte blocks and the
+    growth of ``memory_allocated`` over the draw reported beside); the
+    peak estimate beside
+    ``measured_peaks`` (the trainer's ``max_memory_allocated`` from phase
+    3 ``prefill``, where this run has it); ``FlopCounterMode``'s count of
+    the forward on meta tensors equal, exactly, to its count of the same
+    forward on the card, with ``model_flops`` and the forward's share of
+    the bf16 peak (median of ``DIST_FORWARD_REPEATS`` synchronised
+    forwards)."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import OptimizerConfig, ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models.model import build_model
+    from repro_torch.registry import get_config
+    from repro_torch.training import adamw_init
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    train_shape = ShapeConfig("train_lm", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                              "train")
+    fwd_shape = ShapeConfig("forward", PREFILL_SEQ, PREFILL_BATCH, "prefill")
+    mesh = dryrun.dryrun_mesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    # the trainer's step: no microbatches (grad_accum=1)
+    rec = {"train": dryrun.cell_record(cfg, train_shape, mesh, "one_rank",
+                                       grad_accum=1),
+           "forward": dryrun.cell_record(cfg, fwd_shape, mesh, "one_rank")}
+    dry_s = time.perf_counter() - t0
+    dist.destroy_process_group()
+    mem = rec["train"]["memory"]
+    predicted = mem["params_bytes"] + mem["opt_state_bytes"]
+
+    free_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device)
+    st = adamw_init(params, OptimizerConfig())
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    state = (list(params.values()) + list(st.m.values())
+             + list(st.v.values()) + [st.step])
+    exact = sum(t.numel() * t.element_size() for t in state)
+    blocks = sum(round_block(t.numel() * t.element_size()) for t in state)
+    requested, held = allocator_blocks(state)
+    check(predicted == exact == requested, f"distributed {name}: the dry "
+          f"run predicts {predicted} bytes of params + AdamW state, the "
+          f"card's tensors hold {exact}, the allocator was asked for "
+          f"{requested}")
+    del st
+
+    batch = prefill_inputs(cfg, PREFILL_BATCH, PREFILL_SEQ, device, 9)
+    meta_params = model.abstract_params()
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    with torch.inference_mode():
+        with FlopCounterMode(display=False) as on_meta:
+            model.forward(meta_params, meta_batch)
+        with FlopCounterMode(display=False) as on_card:
+            model.forward(params, batch)
+        torch.cuda.synchronize()
+        walls = []
+        for i in range(DIST_FORWARD_REPEATS + 1):
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+    meta_flops, card_flops = on_meta.get_total_flops(), \
+        on_card.get_total_flops()
+    check(meta_flops == card_flops, f"distributed {name}: FlopCounterMode "
+          f"counts {meta_flops} on meta, {card_flops} on the card")
+    med = float(np.median(walls))
+    mf = model_flops(cfg, fwd_shape)
+    del params, batch
+    free_card()
+    measured = measured_peaks.get(name)
+    rep = {"dry_run_s": dry_s, "predicted_state_bytes": predicted,
+           "card_state_bytes": exact, "allocated_growth_bytes": grown,
+           "allocator_requested_bytes": requested,
+           "allocator_granted_bytes": held,
+           "allocator_blocks_of_prediction": blocks,
+           "train_record": rec["train"], "forward_record": rec["forward"],
+           "peak_estimate_gb": mem["peak_bytes"] / 1e9,
+           "max_memory_allocated_gb": measured,
+           "forward_flops_meta": meta_flops,
+           "forward_flops_card": card_flops, "model_flops": mf,
+           "forward_ms": med * 1e3,
+           "forward_ms_range": [min(walls) * 1e3, max(walls) * 1e3],
+           "model_flops_share_bf16_peak": mf / (med * BF16_PEAK),
+           "counted_flops_share_bf16_peak": card_flops / (med * BF16_PEAK)}
+    print(f"distributed {name}: dry run on a 1-rank mesh in {dry_s:.1f} s "
+          f"(train {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, forward "
+          f"{PREFILL_BATCH} x {PREFILL_SEQ}): params + AdamW state "
+          f"predicted {predicted} B == {exact} B on the card "
+          f"({predicted / 1e9:.2f} GB) == {requested} B asked of the "
+          f"allocator (granted {held} B, the prediction in 512-byte blocks "
+          f"{blocks} B; memory_allocated grew {grown} B); peak estimate "
+          f"{rep['peak_estimate_gb']:.2f} GB beside max_memory_allocated "
+          f"{'%.2f GB' % measured if measured else 'not measured in this run'}"
+          f"; forward FLOPs meta {meta_flops:.6e} == card {card_flops:.6e}, "
+          f"model_flops {mf:.6e}; forward {med * 1e3:.2f} ms median of "
+          f"{DIST_FORWARD_REPEATS} (host clock, synchronised) = "
+          f"{rep['model_flops_share_bf16_peak']:.2%} of the bf16 peak "
+          f"(counted FLOPs {rep['counted_flops_share_bf16_peak']:.2%}); "
+          f"{card_line()}")
+    return rep
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def pipeline_inputs(arch: str, seed: int) -> dict:
+    """Seeded numpy inputs of ``arch``'s RNN layer at published width:
+    xs [PIPE_BATCH, T, in], W, U, b (scaled as ``repro``'s pipeline
+    test)."""
+    from repro_torch.registry import get_config
+
+    r = get_config(arch).rnn
+    g = 4 if r.cell == "lstm" else 3
+    rng = np.random.RandomState(seed)
+    return {
+        "xs": rng.randn(PIPE_BATCH, r.seq_len, r.input_size).astype(
+            np.float32),
+        "W": rng.randn(r.input_size, g * r.hidden).astype(np.float32) * .3,
+        "U": rng.randn(r.hidden, g * r.hidden).astype(np.float32) * .3,
+        "b": rng.randn(*((g * r.hidden,) if r.cell == "lstm"
+                         else (2, g * r.hidden))).astype(np.float32) * .1}
+
+
+def pipeline_child(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of (c): ``pipelined_rnn`` of every ``PIPE_TAGGERS`` entry,
+    plain and hoisted, on tensors on the card, over a gloo group of
+    ``world`` ranks; its outputs and host-clock walls under ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.rnn.pipeline import pipelined_rnn
+    from repro_torch.registry import get_config
+
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    res, walls = {}, {}
+    for i, arch in enumerate(PIPE_TAGGERS):
+        r = get_config(arch).rnn
+        args = [torch.from_numpy(v).to(device)
+                for v in pipeline_inputs(arch, 40 + i).values()]
+        for hoist in (False, True):
+            key = f"{arch}/{'hoist' if hoist else 'plain'}"
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = pipelined_rnn(r, *args, hoist_input=hoist)
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            check(o.device == device, f"pipeline rank {rank}: output on "
+                  f"{o.device}")
+            res[key] = o.cpu().numpy()
+    np.savez(Path(out) / f"rank{rank}.npz", **res)
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(walls))
+    dist.destroy_process_group()
+    return 0
+
+
+def check_pipeline(device) -> dict:
+    """(c): ``PIPE_RANKS`` processes (one rank if the card's compute mode is
+    exclusive) run the stage pipeline on the card, spawned here; each
+    rank's answer within ``PIPE_TOL`` of the port's static scan kernel
+    (``ops.lstm_scan`` / ``ops.gru_scan`` on the card: rows 1 and 3, a
+    comparison launch outside every count) on the same inputs."""
+    import socket
+
+    import torch
+
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels.schedule import KernelSchedule
+    from repro_torch.registry import get_config
+
+    mode = compute_mode()
+    ranks = PIPE_RANKS if mode == "Default" else 1
+    out = ROOT / "build" / "pipeline"
+    out.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--pipeline-rank", str(r), str(ranks),
+                               str(port), str(out)])
+             for r in range(ranks)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t0
+    check(rcs == [0] * ranks, f"pipeline ranks exited {rcs}")
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(ranks)]
+    walls = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(ranks)]
+    rep = {"compute_mode": mode, "ranks": ranks, "spawn_s": spawn_s,
+           "errors": {}, "walls_s": walls[0]}
+    for i, arch in enumerate(PIPE_TAGGERS):
+        r = get_config(arch).rnn
+        args = [torch.from_numpy(v).to(device)
+                for v in pipeline_inputs(arch, 40 + i).values()]
+        scan = ops.lstm_scan if r.cell == "lstm" else ops.gru_scan
+        before = dict(cuda.LAUNCHES)
+        with torch.inference_mode():
+            want = scan(*args, schedule=KernelSchedule()).cpu().numpy()
+        torch.cuda.synchronize()
+        kname = f"{r.cell}_scan"
+        check(cuda.LAUNCHES[kname] > before.get(kname, 0),
+              f"pipeline reference: {kname} was not launched")
+        for mode_ in ("plain", "hoist"):
+            key = f"{arch}/{mode_}"
+            err = max(float(np.abs(g[key] - want).max()) for g in got)
+            check(err <= PIPE_TOL, f"pipeline {key}: {err} from the static "
+                  f"scan kernel over {ranks} ranks")
+            rep["errors"][key] = err
+    print(f"distributed pipeline: {ranks} ranks on the one card (compute "
+          f"mode {mode}; gloo, state staged through the host), "
+          f"{PIPE_TAGGERS} at published width, B={PIPE_BATCH}, plain and "
+          f"hoisted: max |pipeline - static scan kernel| "
+          f"{json.dumps(rep['errors'])} (bar {PIPE_TOL}); rank 0's walls "
+          f"{json.dumps(walls[0])} s; {spawn_s:.1f} s with spawning")
+    return rep
+
+
+def check_sharded_trainer(device) -> dict:
+    """(d): ``launch.train.train`` of ``DIST_TRAIN_LM``'s tiny config on
+    the card, unsharded and with ``mesh_shape=(1, 1)`` (a one-rank NCCL
+    group the trainer starts): the sharded run's parameters are DTensors,
+    its step was built with ``grad_shardings``, and every step's loss (read
+    from the step function) within ``DIST_TRAIN_TOL`` of the unsharded
+    run's; whether they are equal bit for bit is reported."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import train as tlaunch
+
+    real = tlaunch.make_train_step
+    losses, pinned = [], []
+
+    def recording(*a, **kw):
+        step = real(*a, **kw)
+        pinned.append(kw.get("grad_shardings") is not None)
+
+        def run(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            loss = out[2]["loss"]
+            losses[-1].append(float(loss.full_tensor() if isinstance(
+                loss, DTensor) else loss))
+            return out
+        return run
+
+    kw = dict(steps=DIST_TRAIN_STEPS, batch=8, seq_len=64, tiny=True,
+              device=device, log_every=DIST_TRAIN_STEPS)
+    tlaunch.make_train_step = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses.append([])
+            tlaunch.train(DIST_TRAIN_LM, **kw)
+            losses.append([])
+            params, _ = tlaunch.train(DIST_TRAIN_LM, mesh_shape=(1, 1), **kw)
+    finally:
+        tlaunch.make_train_step = real
+    single, sharded = losses
+    is_dt = all(isinstance(v, DTensor) for v in params.values())
+    del params
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    err = max(abs(a - b) for a, b in zip(single, sharded))
+    check(len(single) == len(sharded) == DIST_TRAIN_STEPS,
+          f"sharded trainer: {len(single)} / {len(sharded)} steps")
+    check(is_dt and pinned == [False, True],
+          f"sharded trainer: DTensor params {is_dt}, grad_shardings {pinned}")
+    check(err <= DIST_TRAIN_TOL, f"sharded trainer: losses {sharded} vs "
+          f"{single} ({err})")
+    rep = {"lm": DIST_TRAIN_LM, "losses_single": single,
+           "losses_sharded": sharded, "max_abs_diff": err,
+           "bit_equal": single == sharded}
+    print(f"distributed trainer: {DIST_TRAIN_LM} tiny on the card, "
+          f"mesh_shape=(1, 1): DTensor params, grad_shardings pinned; "
+          f"losses {['%.6f' % v for v in sharded]} vs unsharded max diff "
+          f"{err:.3e} (bar {DIST_TRAIN_TOL}; bit for bit: {rep['bit_equal']})")
+    return rep
+
+
+def phase_distributed(device, prefill_report=None) -> tuple:
+    """Phase 3 ``distributed`` (no kernel of the port is on this path, as
+    none is on ``repro``'s: launch counts must stay 0): (a) + (b)
+    ``dry_vs_card`` for ``DIST_LMS``, (c) ``check_pipeline``, (d)
+    ``check_sharded_trainer``.  (e), the dropped model's params, is
+    checked in phase ``dense_lms``.  Returns (launches, a report)."""
+    peaks = {k: v["peak_gb"] for k, v in
+             ((prefill_report or {}).get("train") or {}).items()}
+
+    def run():
+        rep = {"lms": {n: dry_vs_card(n, device, peaks) for n in DIST_LMS}}
+        rep["trainer"] = check_sharded_trainer(device)
+        return rep
+
+    launches, rep = drive("distributed", run, ())
+    check(sum(launches.values()) == 0,
+          f"distributed: kernels of the port launched: {launches}")
+    rep["pipeline"] = check_pipeline(device)
+    return launches, rep
+
+
+def only_distributed(device) -> dict:
+    """``--distributed``: phase 3 ``distributed`` alone; its report."""
+    launches, report = phase_distributed(device)
+    return {"launches": launches, "distributed": report}
+
+
 def phase_timing(device) -> tuple:
     """Kernel, plain and library times and the bound at B = 256, and whole
     scans end to end."""
@@ -5672,10 +6096,18 @@ def main() -> int:
     what.add_argument("--train-lm", metavar="ARCH",
                       help="only train one LM at published width as phase "
                       "3 prefill does, and report its peak (see train_lm)")
+    what.add_argument("--distributed", action="store_true",
+                      help="only run phase 3 distributed: the dry run "
+                      "against the card, the stage pipeline over ranks "
+                      "sharing the card, the (1, 1)-mesh trainer (see "
+                      "phase_distributed)")
     what.add_argument("--batch-invariance", action="store_true",
                       help="only report one event's answer across batch "
                       "shapes, launch by launch (see batch_invariance)")
     ap.add_argument("--cache-child", nargs=2, metavar=("DIR", "TAGGER"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pipeline-rank", nargs=4, type=str,
+                    metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--src", help="with a --time-* or --batch-invariance "
                     "option: import "
@@ -5686,7 +6118,7 @@ def main() -> int:
               "time_decode": time_decode,
               "time_elementwise": time_elementwise,
               "families": only_families, "prefill": only_prefill,
-              "serve": only_serve,
+              "serve": only_serve, "distributed": only_distributed,
               "train_lm": only_train_lm(opts.train_lm),
               "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
@@ -5705,6 +6137,9 @@ def main() -> int:
 
     if opts.cache_child:
         return cache_child(*opts.cache_child)
+    if opts.pipeline_rank:
+        r, w, port, out = opts.pipeline_rank
+        return pipeline_child(int(r), int(w), int(port), out)
     # f32 parity: no TF32 in cuBLAS (hoist stage, references) or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5761,6 +6196,7 @@ def main() -> int:
     launches.update(phase_rglru(device))
     launches["train"], train_rep = phase_train(device)
     launches["serve"], serve_rep = phase_serve(device)
+    launches["distributed"], dist_rep = phase_distributed(device, prefill)
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
@@ -5772,7 +6208,7 @@ def main() -> int:
          "families": families, "prefill": prefill,
          "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
-         "serve": serve_rep,
+         "serve": serve_rep, "distributed": dist_rep,
          "launches": launches,
          "max_abs_err": errs},
         indent=1))

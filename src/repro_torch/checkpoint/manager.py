@@ -11,8 +11,12 @@ a checkpoint written by either package restores in the other:
 bfloat16 is stored as its raw bits (uint16) under the logical dtype
 ``"bfloat16"`` and restored by viewing the bits as ``torch.bfloat16`` (no
 ``ml_dtypes``).  A save is published atomically (temp dir -> fsync ->
-rename).  ``restore(device=...)`` places the arrays; sharded restore is
-ROADMAP.md module item 12.
+rename).  ``restore(device=...)`` places the arrays;
+``restore(shardings=...)`` (path -> ``sharding.api.NamedSharding``, for
+the params and both moments) returns DTensors with those placements, each
+rank keeping its shard of the full, mesh-agnostic array, as ``repro``
+``device_put``s onto the restore mesh.  A checkpoint of a sharded run
+holds full arrays (the trainer gathers them before ``save``).
 """
 
 from __future__ import annotations
@@ -113,11 +117,8 @@ class CheckpointManager:
                 device: Union[str, torch.device] = "cuda",
                 ) -> Tuple[int, Dict, Optional[Dict]]:
         """Returns (step, params, opt dict or None), every array a tensor on
-        ``device`` (the card unless the caller asks for the CPU)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): the port has no sharding yet "
-                "(ROADMAP.md module item 12); pass device=")
+        ``device`` (the card unless the caller asks for the CPU); a key
+        that ``shardings`` names is a DTensor with its placements."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -138,7 +139,10 @@ class CheckpointManager:
                 v = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 v = torch.from_numpy(arr)
-            trees[info["tree"]][info["key"]] = v.to(device)
+            v = v.to(device)
+            sh = (shardings or {}).get(info["key"])
+            trees[info["tree"]][info["key"]] = (
+                sh.distribute(v) if sh is not None else v)
 
         opt = None
         if trees["opt_m"]:

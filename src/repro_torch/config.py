@@ -274,3 +274,61 @@ class FixedPointConfig:
     @property
     def min_value(self) -> float:
         return -(2 ** (self.total_bits - 1)) / self.scale if self.signed else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Shapes (the dry run's cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs whose state is sub-quadratic in context (run long_500k)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) dry-run cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, "full-attention arch: 524k dense KV decode out of scope (DESIGN.md §4)"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Hardware constants (the roofline's device)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """One card's peaks, for the roofline (``launch/roofline.py``).
+
+    ``H100`` is NVIDIA's data sheet for the H100 SXM (dense rates, no
+    sparsity, at the full 700 W power limit): 989 TFLOP/s bf16 on the
+    tensor cores, 67 TFLOP/s float32 outside them, 3.35 TB/s of HBM3,
+    80 GB.  ``link_bw`` is NVLink 4's data-sheet rate, 900 GB/s per GPU
+    counting both directions (18 links of 50 GB/s), so 450 GB/s one way:
+    the rate a ring collective's per-device wire bytes move at."""
+
+    name: str = "h100-sxm"
+    peak_flops_bf16: float = 989e12    # per card
+    peak_flops_f32: float = 67e12      # per card, outside the tensor cores
+    hbm_bw: float = 3.35e12            # bytes/s per card
+    link_bw: float = 450e9             # bytes/s per card, one direction
+    hbm_bytes: int = 80 * 10 ** 9      # 80 GB
+
+
+H100 = HardwareConfig()

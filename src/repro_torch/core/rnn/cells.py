@@ -28,9 +28,12 @@ def rnn_param_specs(rnn: RNNConfig, prefix: str = "rnn") -> ParamSpecs:
     g = 4 if rnn.cell == "lstm" else 3
     bias = (g * h,) if rnn.cell == "lstm" else (2, g * h)
     return {
-        f"{prefix}/kernel": ParamSpec((fin, g * h), "lecun"),
-        f"{prefix}/recurrent": ParamSpec((h, g * h), "rnn_ortho"),
-        f"{prefix}/bias": ParamSpec(bias, "zeros"),
+        f"{prefix}/kernel": ParamSpec((fin, g * h), "lecun",
+                                      logical_axes=("rnn_in", "rnn_gates")),
+        f"{prefix}/recurrent": ParamSpec(
+            (h, g * h), "rnn_ortho", logical_axes=("rnn_hidden", "rnn_gates")),
+        f"{prefix}/bias": ParamSpec(bias, "zeros", logical_axes=(
+            ("rnn_gates",) if rnn.cell == "lstm" else (None, "rnn_gates"))),
     }
 
 

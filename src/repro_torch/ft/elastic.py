@@ -5,8 +5,9 @@ The checkpoint format is mesh-agnostic (full arrays + manifest), so the only
 work is choosing the new mesh shape and rebuilding shardings — which
 ``plan_elastic_restart`` does deterministically so every surviving worker
 computes the SAME plan without coordination.  The port's copy of
-``repro.ft.elastic`` (the mesh and its shardings themselves are ROADMAP.md
-module item 12).
+``repro.ft.elastic``: like ``repro``'s, the module holds the plan only;
+``launch.mesh.make_mesh`` builds the planned mesh and
+``CheckpointManager.restore(shardings=)`` reshards onto it.
 """
 
 from __future__ import annotations

@@ -44,7 +44,9 @@ kernels of kernels/decode_step.py and models/decode.py pack through it.
 
 from __future__ import annotations
 
+import functools
 import math
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
@@ -109,6 +111,76 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+class _PackList(list):
+    """The container of a pack that hands back a source itself: a list
+    (a tuple cannot be weakly referenced), held weakly by its entry."""
+
+
+class _PackDict(dict):
+    """As :class:`_PackList`, for a dict of packed tensors."""
+
+
+class _Src:
+    """In an entry's skeleton, the place of the pack's i-th source."""
+
+    __slots__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = i
+
+
+def _storage_ptr(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _alias(t: torch.Tensor) -> torch.Tensor:
+    """A tensor on ``t``'s storage, sizes, strides and offset that does
+    not reference ``t`` or its base (a view does, through ``_base``)."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+
+
+def _skeleton(tree, srcs: Tuple):
+    """``tree`` with every leaf that IS a source replaced by its ``_Src``
+    marker and every leaf on a source's storage (a view) by an
+    ``_alias``; (skeleton, whether a marker was placed)."""
+    if isinstance(tree, torch.Tensor):
+        for i, a in enumerate(srcs):
+            if tree is a:
+                return _Src(i), True
+        ptrs = {_storage_ptr(a) for a in srcs if a.numel()}
+        if tree.numel() and _storage_ptr(tree) in ptrs:
+            return _alias(tree), False
+        return tree, False
+    if isinstance(tree, dict):
+        out = {k: _skeleton(v, srcs) for k, v in tree.items()}
+        return ({k: v[0] for k, v in out.items()},
+                any(v[1] for v in out.values()))
+    if isinstance(tree, (list, tuple)):
+        out = [_skeleton(v, srcs) for v in tree]
+        return type(tree)(v[0] for v in out), any(v[1] for v in out)
+    return tree, False
+
+
+def _rebuild(skel, srcs: Tuple, top: bool = True):
+    """The pack result of ``skel`` with its markers filled from ``srcs``
+    (the top container a weakly referenceable ``_PackList`` /
+    ``_PackDict``)."""
+    if isinstance(skel, _Src):
+        return srcs[skel.i]
+    if isinstance(skel, dict):
+        out = {k: _rebuild(v, srcs, False) for k, v in skel.items()}
+        return _PackDict(out) if top else out
+    if isinstance(skel, (list, tuple)):
+        out = [_rebuild(v, srcs, False) for v in skel]
+        return _PackList(out) if top else type(skel)(out)
+    return skel
+
+
+class _Entry:
+    __slots__ = ("refs", "skel", "packed", "live", "nbytes")
+
+
 class WeightResidency:
     """Host-side cache of packed weight layouts.
 
@@ -119,14 +191,30 @@ class WeightResidency:
     tensors are not, so an entry is keyed on each source's identity AND its
     version counter (``tensor._version``, which every in-place operation
     bumps): an in-place update of a source misses the cache and repacks.
-    An entry keeps a strong reference to every source, so CPython cannot
-    recycle an ``id`` while the entry lives, and a hit also checks each
-    source ``is`` the remembered one.  Sources that cannot be keyed this
-    way (numpy arrays, inference-mode tensors, which carry no version
-    counter) pack uncached.  Eviction is LRU, bounded by the entry count
-    and by the packed tensors' total bytes, so a pack larger than
-    ``max_bytes`` (a full-width LM's decode layout) is evicted as soon as
-    it is stored: its caller must keep its own reference.
+
+    An entry holds its sources weakly: a ``weakref.ref`` to each, whose
+    callback drops the entry (and its bytes) when that source dies, and a
+    hit checks each ``ref() is`` the given source.  So a dropped model's
+    weights are freed at once, whatever else the cache holds, and an
+    ``id`` cannot be reused while an entry keyed on it lives: the entry
+    dies with its source, before CPython can recycle the ``id``.
+
+    A pack may hand back a source itself (the f32 scan weights'
+    ``.float().contiguous()`` of an f32 contiguous tensor) or a view of one
+    (``resident_matrix``'s reshape, the LM decode pack's norm slices); held
+    as they are, those would keep the source alive (a view through its
+    ``_base``).  So an entry stores a view as a base-less alias on the same
+    storage (``_alias``: the memory stays while the entry lives, the
+    source object does not), and the place of a source handed back as
+    itself as a marker: such a pack's result is rebuilt from the live
+    sources, and its container (``_PackList`` / ``_PackDict``) is held
+    weakly, so a caller that keeps it gets the same object back.  Nothing
+    is left uncached.  Sources that cannot be keyed this way (numpy
+    arrays, inference-mode tensors, which carry no version counter) pack
+    uncached.  Eviction is LRU, bounded by the entry count and by the
+    packed tensors' total bytes, so a pack larger than ``max_bytes`` (a
+    full-width LM's decode layout) is evicted as soon as it is stored: its
+    caller must keep its own reference.
     """
 
     def __init__(self, max_entries: int = 128,
@@ -136,8 +224,7 @@ class WeightResidency:
         self.hits = 0
         self.misses = 0
         self.bytes = 0
-        self._entries: "OrderedDict[Tuple, Tuple[Tuple, object, int]]" = \
-            OrderedDict()
+        self._entries: "OrderedDict[Tuple, _Entry]" = OrderedDict()
 
     @staticmethod
     def _nbytes(packed) -> int:
@@ -145,8 +232,28 @@ class WeightResidency:
 
     @staticmethod
     def _cacheable(srcs: Tuple) -> bool:
-        return all(isinstance(a, torch.Tensor) and not a.is_inference()
+        # plain tensors only: not a DTensor, not a meta tensor (no storage
+        # to tell a view from a copy by)
+        return all(type(a) in (torch.Tensor, torch.nn.Parameter)
+                   and not a.is_inference() and a.device.type != "meta"
                    for a in srcs)
+
+    def _drop(self, ck: Tuple, ref: weakref.ref) -> None:
+        """A source of entry ``ck`` died: drop the entry."""
+        ent = self._entries.get(ck)
+        if ent is not None and any(r is ref for r in ent.refs):
+            del self._entries[ck]
+            self.bytes -= ent.nbytes
+
+    def _result(self, ent: _Entry, srcs: Tuple):
+        if ent.packed is not None:
+            return ent.packed
+        out = ent.live() if ent.live is not None else None
+        if out is None:
+            out = _rebuild(ent.skel, srcs)
+            ent.live = (weakref.ref(out)
+                        if isinstance(out, (_PackList, _PackDict)) else None)
+        return out
 
     def get(self, srcs, key: str, pack: Callable[[], object]):
         """Packed layout for ``srcs`` (one tensor or a tuple) under ``key``."""
@@ -156,20 +263,27 @@ class WeightResidency:
             return pack()
         ck = (key,) + tuple((id(a), a._version) for a in srcs)
         ent = self._entries.get(ck)
-        if ent is not None and all(a is b for a, b in zip(ent[0], srcs)):
+        if ent is not None and all(r() is a for r, a in zip(ent.refs, srcs)):
             self.hits += 1
             self._entries.move_to_end(ck)
-            return ent[1]
+            return self._result(ent, srcs)
         self.misses += 1
         packed = pack()
-        nb = self._nbytes(packed)
-        self._entries[ck] = (srcs, packed, nb)
-        self.bytes += nb
+        ent = _Entry()
+        ent.nbytes = self._nbytes(packed)
+        skel, marked = _skeleton(packed, srcs)
+        ent.skel, ent.live = skel, None
+        ent.packed = None if marked else skel
+        drop = functools.partial(self._drop, ck)
+        ent.refs = tuple(weakref.ref(a, drop) for a in srcs)
+        self._entries[ck] = ent
+        self.bytes += ent.nbytes
+        out = self._result(ent, srcs)
         while self._entries and (len(self._entries) > self.max_entries
                                  or self.bytes > self.max_bytes):
-            _, (_, _, old_nb) = self._entries.popitem(last=False)
-            self.bytes -= old_nb
-        return packed
+            _, old = self._entries.popitem(last=False)
+            self.bytes -= old.nbytes
+        return out
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -13,9 +13,9 @@ back to its dtype) once, q and k/v padded to chunk multiples, a Python
 loop over q chunks, each attending to its causal kv prefix only (``hi``
 chunks: the triangular FLOP count), with an online-softmax merge of f32
 accumulators (m, l, o) over the kv chunks, where ``repro`` runs a
-``lax.scan``.  Its sequence-parallel variant (``transformer._sp_attention``)
-belongs to ``ROADMAP.md`` module item 12: on one device ``repro`` takes
-this path.
+``lax.scan``.  Its sequence-parallel variant is
+``transformer._sp_attention``, which a sharding context in mode 'sp'
+selects.
 """
 
 from __future__ import annotations

@@ -56,6 +56,7 @@ from repro_torch.models.mlp import glu_activation, mlp
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import rglru_decode_step
 from repro_torch.models.ssm import ssm_decode_step, ssm_dims
+from repro_torch.sharding.api import constrain
 
 Device = Union[str, torch.device]
 
@@ -84,14 +85,17 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
         kv_heads, head_dim]."""
     tf.require_lm(cfg, "cache_specs")
     L, hk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads_r", "head_dim")
     specs: ParamSpecs = {}
     if cfg.family == "ssm":
         _, h, conv_dim = ssm_dims(cfg)
         s = cfg.ssm
         specs["cache/state"] = ParamSpec(
-            (L, batch, h, s.head_dim, s.d_state), "zeros", "float32")
+            (L, batch, h, s.head_dim, s.d_state), "zeros", "float32",
+            logical_axes=("layers", "batch", "ssm_heads", None, None))
         specs["cache/conv"] = ParamSpec(
-            (L, batch, s.d_conv - 1, conv_dim), "zeros", cache_dtype)
+            (L, batch, s.d_conv - 1, conv_dim), "zeros", cache_dtype,
+            logical_axes=("layers", "batch", None, "ssm_inner"))
         return specs
     if cfg.family == "hybrid":
         rg = cfg.rglru
@@ -103,25 +107,34 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
         groups += [(f"cache/hybrem{j}", rg.pattern[j], (batch,))
                    for j in range(rem)]
         for pre, kind, lead in groups:
+            la = ("layers", "batch")[-len(lead):]
             if kind == "rglru":
-                specs[f"{pre}_state"] = ParamSpec(lead + (w,), "zeros",
-                                                  "float32")
+                specs[f"{pre}_state"] = ParamSpec(
+                    lead + (w,), "zeros", "float32",
+                    logical_axes=la + ("lru_width",))
                 specs[f"{pre}_conv"] = ParamSpec(
-                    lead + (rg.conv_width - 1, w), "zeros", cache_dtype)
+                    lead + (rg.conv_width - 1, w), "zeros", cache_dtype,
+                    logical_axes=la + (None, "lru_width"))
             else:
                 for n in ("k", "v"):
-                    specs[f"{pre}_{n}"] = ParamSpec(lead + (W, hk, hd),
-                                                    "zeros", cache_dtype)
-                specs[f"{pre}_pos"] = ParamSpec(lead + (W,), "zeros",
-                                                "int32")
+                    specs[f"{pre}_{n}"] = ParamSpec(
+                        lead + (W, hk, hd), "zeros", cache_dtype,
+                        logical_axes=la + ("kv_seq", "kv_heads_r",
+                                           "head_dim"))
+                specs[f"{pre}_pos"] = ParamSpec(
+                    lead + (W,), "zeros", "int32",
+                    logical_axes=la + ("kv_seq",))
         return specs
     if cfg.enc_dec:
         shape = (cfg.n_decoder_layers, batch, max_len, hk, hd)
-        return {k: ParamSpec(shape, "zeros", cache_dtype)
+        return {k: ParamSpec(shape, "zeros", cache_dtype,
+                             logical_axes=kv_axes)
                 for k in ("cache/k", "cache/v", "cache/xk", "cache/xv")}
     shape = (L, batch, max_len, hk, hd)
-    return {"cache/k": ParamSpec(shape, "zeros", cache_dtype),
-            "cache/v": ParamSpec(shape, "zeros", cache_dtype)}
+    return {"cache/k": ParamSpec(shape, "zeros", cache_dtype,
+                                 logical_axes=kv_axes),
+            "cache/v": ParamSpec(shape, "zeros", cache_dtype,
+                                 logical_axes=kv_axes)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -178,6 +191,8 @@ def _attn_decode(cfg: ModelConfig, x, p, pre, ck, cv, pos, window=0,
     q, k, v = _qkv(cfg, x, p, pre, pos, rope)
     ck = _update_cache(ck, k, pos)
     cv = _update_cache(cv, v, pos)
+    ck = constrain(ck, "batch", "kv_seq", "kv_heads_r", "head_dim")
+    cv = constrain(cv, "batch", "kv_seq", "kv_heads_r", "head_dim")
     o = decode_attention(q, ck.to(x.dtype), cv.to(x.dtype), pos + 1,
                          window=window)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
@@ -347,6 +362,8 @@ def _dense_steps(cfg: ModelConfig, params: Dict, packed: Dict, cache: Dict,
             k = apply_rope(k, p[:, None], cfg.rope_theta)
             ck = _update_cache(ck, k, p)
             cv = _update_cache(cv, v, p)
+        ck = constrain(ck, "batch", "kv_seq", "kv_heads_r", "head_dim")
+        cv = constrain(cv, "batch", "kv_seq", "kv_heads_r", "head_dim")
         os_ = [decode_attention(q, ck.to(x.dtype), cv.to(x.dtype), p + 1,
                                 window=cfg.attn_window).to(x.dtype)
                for q, p in zip(qs, ps)]
@@ -360,6 +377,8 @@ def _dense_steps(cfg: ModelConfig, params: Dict, packed: Dict, cache: Dict,
         else:
             act = ACTIVATIONS["relu2" if cfg.mlp_type == "relu2" else "gelu"]
             mids = [act(z) for z in zs]
+        mids = [constrain(m.reshape(B, 1, -1), "batch", "seq_nosp",
+                          "ffn").reshape(B, -1) for m in mids]
         hs = [h + o.reshape(B, 1, -1)
               for h, o in zip(hs, mm(mids, p_l["__wdown"]))]
         cks.append(ck)

@@ -46,12 +46,13 @@ def norm_specs(cfg: ModelConfig, prefix: str,
     from repro_torch.models.init import ParamSpec
 
     lead = (stacked,) if stacked else ()
+    ax = ("layers",) * len(lead) + ("embed_nofsdp",)
     init_scale = "zeros" if cfg.norm_type == "rmsnorm" else "ones"
     out = {f"{prefix}/scale": ParamSpec(lead + (cfg.d_model,), init_scale,
-                                        cfg.param_dtype)}
+                                        cfg.param_dtype, logical_axes=ax)}
     if cfg.norm_type == "layernorm":
         out[f"{prefix}/bias"] = ParamSpec(lead + (cfg.d_model,), "zeros",
-                                          cfg.param_dtype)
+                                          cfg.param_dtype, logical_axes=ax)
     return out
 
 

@@ -1,7 +1,7 @@
 """MLP blocks of the dense decoder: SwiGLU / GeGLU / squared-ReLU / GELU.
 
-The port of ``repro/models/mlp.py`` (the einsum path; sharding constraints
-are dropped: the port runs on one device).
+The port of ``repro/models/mlp.py`` (the einsum path, with ``repro``'s
+sharding constraint on the hidden activations).
 """
 
 from __future__ import annotations
@@ -12,17 +12,23 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models.init import ParamSpec
 from repro_torch.models.layers import ACTIVATIONS
+from repro_torch.sharding.api import constrain
 
 
 def mlp_specs(cfg: ModelConfig, prefix: str, stacked=None,
               d_ff=None) -> dict:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     lead = (stacked,) if stacked else ()
+    la = ("layers",) * len(lead)
     dt = cfg.param_dtype
-    specs = {f"{prefix}/w_up": ParamSpec(lead + (d, f), "lecun", dt),
-             f"{prefix}/w_down": ParamSpec(lead + (f, d), "lecun", dt)}
+    up = la + ("embed", "ffn")
+    specs = {f"{prefix}/w_up": ParamSpec(lead + (d, f), "lecun", dt,
+                                         logical_axes=up),
+             f"{prefix}/w_down": ParamSpec(lead + (f, d), "lecun", dt,
+                                           logical_axes=la + ("ffn", "embed"))}
     if cfg.mlp_type in ("swiglu", "geglu"):
-        specs[f"{prefix}/w_gate"] = ParamSpec(lead + (d, f), "lecun", dt)
+        specs[f"{prefix}/w_gate"] = ParamSpec(lead + (d, f), "lecun", dt,
+                                              logical_axes=up)
     return specs
 
 
@@ -44,4 +50,5 @@ def mlp(cfg: ModelConfig, x: torch.Tensor, p: dict,
         act = ACTIVATIONS["relu2" if cfg.mlp_type == "relu2" else "gelu"]
         h = act(torch.einsum("bsd,df->bsf", x,
                              p[f"{prefix}/w_up"].to(x.dtype)))
+    h = constrain(h, "batch", "seq_nosp", "ffn")
     return torch.einsum("bsf,fd->bsd", h, p[f"{prefix}/w_down"].to(x.dtype))

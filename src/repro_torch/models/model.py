@@ -13,13 +13,14 @@ single-step decode is ``models/decode.py``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import rnn_tagger, transformer
-from repro_torch.models.init import ParamSpecs, init_params
+from repro_torch.models.init import (ParamSpecs, abstract_params, init_params,
+                                     param_bytes)
 
 
 @dataclass(frozen=True)
@@ -32,13 +33,23 @@ class Model:
         return transformer.param_specs(self.cfg)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device: Union[str, torch.device] = "cuda") -> Dict:
+             device: Union[str, torch.device] = "cuda",
+             place: Optional[Callable] = None) -> Dict:
         """Seeded parameters on ``device``, drawn from ``generator`` (seed 0
         on ``device`` when none is given: a full-width LM is drawn on the
-        card, not copied there)."""
+        card, not copied there); ``place(path, tensor)`` maps each as it is
+        drawn (``init_params``)."""
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        return init_params(self.param_specs(), generator, device)
+        return init_params(self.param_specs(), generator, device, place)
+
+    def abstract_params(self, ctx=None) -> Dict:
+        """Meta-device stand-ins of the parameters (DTensors under a
+        context on a ``DeviceMesh``): the dry run's, with no allocation."""
+        return abstract_params(self.param_specs(), ctx)
+
+    def param_bytes(self) -> int:
+        return param_bytes(self.param_specs())
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """The training loss of ``batch`` and its metrics: a tagger's

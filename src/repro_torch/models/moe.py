@@ -1,5 +1,5 @@
 """Mixture-of-Experts block: token-choice top-k routing with a per-expert
-capacity, on one device.
+capacity.
 
 The port of ``repro/models/moe.py`` (``padded_n_experts``, ``moe_specs``,
 ``moe_block``, ``_moe_tokens``): router softmax in float32, each token's
@@ -18,9 +18,13 @@ into its own slice of an [e, t, d] buffer (within one expert the token
 indices are distinct, so this is a scatter, not an accumulate), which is
 then summed over e.  ``repro``'s ``.at[idx].add`` ported to ``index_add_``
 would accumulate with atomics on a CUDA tensor, so two calls with the same
-inputs could differ in the last bit.  On one device there are no phantom
-experts (the expert count is padded to the model axis, of size 1) and no
-shard-map combine.
+inputs could differ in the last bit.  Under a sharding context the
+expert count is padded to a multiple of the model axis (the phantom
+experts' router logits are -1e30, so no token reaches them), the chunking
+counts the tokens of one data-parallel shard, and ``constrain`` pins the
+dispatch buffers to the expert axis, as in ``repro``; on one device there
+are no phantom experts.  ``repro``'s ``_shard_map_combine`` has no caller
+there (its scatter measured better) and is not ported.
 """
 
 from __future__ import annotations
@@ -32,14 +36,18 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.init import ParamSpec
+from repro_torch.sharding.api import constrain, current_context
 
 _CHUNK_TOKENS = 8192   # token budget of one chunk's dispatch buffers
 
 
 def padded_n_experts(cfg: ModelConfig) -> int:
-    """Experts padded to a multiple of the model axis: on one device (an
-    axis of 1), the expert count itself."""
-    return cfg.moe.n_experts
+    """Experts padded to a multiple of the active context's model axis
+    (without a context, the expert count itself)."""
+    e = cfg.moe.n_experts
+    ctx = current_context()
+    tp = ctx.axis_sizes.get("model", 1) if ctx is not None else 1
+    return -(-e // tp) * tp
 
 
 def moe_specs(cfg: ModelConfig, prefix: str, stacked=None,
@@ -49,20 +57,25 @@ def moe_specs(cfg: ModelConfig, prefix: str, stacked=None,
     f = m.d_ff_expert or cfg.d_ff
     e = n_experts_padded or m.n_experts
     lead = (stacked,) if stacked else ()
+    la = ("layers",) * len(lead)
     dt = cfg.param_dtype
+
+    def spec(shape, axes):
+        return ParamSpec(lead + shape, "lecun", dt, logical_axes=la + axes)
+
     specs = {
-        f"{prefix}/router": ParamSpec(lead + (d, e), "lecun", dt),
-        f"{prefix}/we_gate": ParamSpec(lead + (e, d, f), "lecun", dt),
-        f"{prefix}/we_up": ParamSpec(lead + (e, d, f), "lecun", dt),
-        f"{prefix}/we_down": ParamSpec(lead + (e, f, d), "lecun", dt),
+        f"{prefix}/router": spec((d, e), ("embed_nofsdp", "experts")),
+        f"{prefix}/we_gate": spec((e, d, f), ("experts", "embed", None)),
+        f"{prefix}/we_up": spec((e, d, f), ("experts", "embed", None)),
+        f"{prefix}/we_down": spec((e, f, d), ("experts", None, "embed")),
     }
     if m.n_shared_experts:
         fs = m.n_shared_experts * f
         specs.update({
-            f"{prefix}/ws_gate": ParamSpec(lead + (d, fs), "lecun", dt),
-            f"{prefix}/ws_up": ParamSpec(lead + (d, fs), "lecun", dt),
-            f"{prefix}/ws_down": ParamSpec(lead + (fs, d), "lecun", dt),
-            f"{prefix}/shared_gate": ParamSpec(lead + (d, 1), "lecun", dt),
+            f"{prefix}/ws_gate": spec((d, fs), ("embed", "ffn")),
+            f"{prefix}/ws_up": spec((d, fs), ("embed", "ffn")),
+            f"{prefix}/ws_down": spec((fs, d), ("ffn", "embed")),
+            f"{prefix}/shared_gate": spec((d, 1), ("embed_nofsdp", None)),
         })
     return specs
 
@@ -82,8 +95,14 @@ def moe_block(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str, *,
     with the chunk), so the dispatch buffers stay bounded; a decode step's
     b tokens are one chunk."""
     b, s, d = x.shape
+    ctx = current_context()
+    dp = 1
+    if ctx is not None:
+        for a in ctx.data_axes:
+            dp *= ctx.axis_sizes.get(a, 1)
+    per_dev = (b * s) // max(dp, 1)
     n_chunks = 1
-    while (b * s // n_chunks > _CHUNK_TOKENS and s % (n_chunks * 2) == 0
+    while (per_dev // n_chunks > _CHUNK_TOKENS and s % (n_chunks * 2) == 0
            and s // (n_chunks * 2) >= 1):
         n_chunks *= 2
     if n_chunks == 1:
@@ -109,9 +128,14 @@ def _moe_tokens(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str, *,
 
     w_router = p[f"{prefix}/router"]
     e = w_router.shape[-1]
+    e_real = m.n_experts
 
     logits = torch.einsum("td,de->te", xf,
                           w_router.to(xf.dtype)).float()        # [t, e]
+    if e > e_real:
+        phantom = torch.arange(e, device=logits.device) >= e_real
+        logits = torch.where(phantom[None, :],
+                             torch.full_like(logits, -1e30), logits)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k(probs, m.top_k)                        # [t, k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -126,11 +150,13 @@ def _moe_tokens(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str, *,
     sel_w = torch.where(sel_w > 0, sel_w, torch.zeros_like(sel_w))
 
     xe = xf[sel_idx.reshape(-1)].reshape(e, cap, d)
+    xe = constrain(xe, "experts", "expert_cap", None)
     wg = p[f"{prefix}/we_gate"].to(xe.dtype)
     wu = p[f"{prefix}/we_up"].to(xe.dtype)
     wd = p[f"{prefix}/we_down"].to(xe.dtype)
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, wg)) * torch.einsum(
         "ecd,edf->ecf", xe, wu)
+    h = constrain(h, "experts", "expert_cap", None)
     ye = torch.einsum("ecf,efd->ecd", h, wd)                    # [e, C, d]
     ye = ye * sel_w[..., None].to(ye.dtype)
 
@@ -138,25 +164,26 @@ def _moe_tokens(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str, *,
     # indices within an expert), then the sum over e
     buf = ye.new_zeros((e, t, d)).scatter(
         1, sel_idx[..., None].expand(e, cap, d), ye)
-    out = buf.sum(0)
+    out = constrain(buf.sum(0), "batch", None)
 
     # shared experts (always-on) + learned gate (qwen2-moe style)
     if m.n_shared_experts:
         g = F.silu(torch.einsum("bsd,df->bsf", x,
                                 p[f"{prefix}/ws_gate"].to(x.dtype)))
         u = torch.einsum("bsd,df->bsf", x, p[f"{prefix}/ws_up"].to(x.dtype))
-        ys = torch.einsum("bsf,fd->bsd", g * u,
+        hs = constrain(g * u, "batch", "seq_nosp", "ffn")
+        ys = torch.einsum("bsf,fd->bsd", hs,
                           p[f"{prefix}/ws_down"].to(x.dtype))
         gate = torch.sigmoid(torch.einsum(
             "bsd,do->bso", x, p[f"{prefix}/shared_gate"].to(x.dtype)))
         out = out + (gate * ys).reshape(t, d)
 
     # aux losses: load balance (Switch) + router z-loss
-    me = combine_te.mean(0) * m.n_experts                # frac prob mass
+    me = combine_te.mean(0) * e_real                     # frac prob mass
     routed = torch.zeros_like(probs).scatter(1, top_i, 1.0)
-    ce = routed.mean(0) * m.n_experts / m.top_k
+    ce = routed.mean(0) * e_real / m.top_k
     aux = {
-        "moe_load_balance": (me * ce).sum() / m.n_experts,
+        "moe_load_balance": (me[:e_real] * ce[:e_real]).sum() / e_real,
         "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
     }
     return out.reshape(b, s, d).to(x.dtype), aux

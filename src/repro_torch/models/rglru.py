@@ -27,6 +27,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.init import ParamSpec
 from repro_torch.models.layers import ACTIVATIONS
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding.api import constrain
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -36,19 +37,24 @@ def rglru_specs(cfg: ModelConfig, prefix: str, stacked=None) -> dict:
     d = cfg.d_model
     w = rg.lru_width or d
     lead = (stacked,) if stacked else ()
+    la = ("layers",) * len(lead)
     dt = cfg.param_dtype
+
+    def spec(shape, axes, init, scale=1.0):
+        return ParamSpec(lead + shape, init, dt, scale, la + axes)
+
     return {
-        f"{prefix}/w_x": ParamSpec(lead + (d, w), "lecun", dt),
-        f"{prefix}/w_gate": ParamSpec(lead + (d, w), "lecun", dt),
-        f"{prefix}/conv_w": ParamSpec(lead + (rg.conv_width, w), "lecun",
-                                      dt, 3.0),
-        f"{prefix}/conv_b": ParamSpec(lead + (w,), "zeros", dt),
-        f"{prefix}/lambda": ParamSpec(lead + (w,), "ones", dt),
-        f"{prefix}/wa_gate": ParamSpec(lead + (w, w), "lecun", dt),
-        f"{prefix}/wi_gate": ParamSpec(lead + (w, w), "lecun", dt),
-        f"{prefix}/ba_gate": ParamSpec(lead + (w,), "zeros", dt),
-        f"{prefix}/bi_gate": ParamSpec(lead + (w,), "zeros", dt),
-        f"{prefix}/w_out": ParamSpec(lead + (w, d), "lecun", dt),
+        f"{prefix}/w_x": spec((d, w), ("embed", "lru_width"), "lecun"),
+        f"{prefix}/w_gate": spec((d, w), ("embed", "lru_width"), "lecun"),
+        f"{prefix}/conv_w": spec((rg.conv_width, w), ("conv", "lru_width"),
+                                 "lecun", 3.0),
+        f"{prefix}/conv_b": spec((w,), ("lru_width",), "zeros"),
+        f"{prefix}/lambda": spec((w,), ("lru_width",), "ones"),
+        f"{prefix}/wa_gate": spec((w, w), ("lru_width", None), "lecun"),
+        f"{prefix}/wi_gate": spec((w, w), ("lru_width", None), "lecun"),
+        f"{prefix}/ba_gate": spec((w,), ("lru_width",), "zeros"),
+        f"{prefix}/bi_gate": spec((w,), ("lru_width",), "zeros"),
+        f"{prefix}/w_out": spec((w, d), ("lru_width", "embed"), "lecun"),
     }
 
 
@@ -135,6 +141,7 @@ def rglru_mix(cfg: ModelConfig, x: torch.Tensor, p: dict, prefix: str,
     gate = ACTIVATIONS["gelu"](
         torch.einsum("bsd,dw->bsw", x, p[f"{prefix}/w_gate"].to(x.dtype)))
     xb = torch.einsum("bsd,dw->bsw", x, p[f"{prefix}/w_x"].to(x.dtype))
+    xb = constrain(xb, "batch", "seq_nosp", "lru_width")
     xc, new_conv_cache = _causal_conv(
         xb, p[f"{prefix}/conv_w"].to(x.dtype),
         p[f"{prefix}/conv_b"].to(x.dtype), conv_cache)

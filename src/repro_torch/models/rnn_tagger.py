@@ -40,11 +40,15 @@ def param_specs(cfg: ModelConfig) -> ParamSpecs:
     specs = dict(rnn_param_specs(rnn, "rnn"))
     prev = rnn.hidden
     for i, width in enumerate(rnn.dense_sizes):
-        specs[f"dense{i}/w"] = ParamSpec((prev, width), "lecun")
-        specs[f"dense{i}/b"] = ParamSpec((width,), "zeros")
+        specs[f"dense{i}/w"] = ParamSpec((prev, width), "lecun",
+                                         logical_axes=(None, None))
+        specs[f"dense{i}/b"] = ParamSpec((width,), "zeros",
+                                         logical_axes=(None,))
         prev = width
-    specs["head/w"] = ParamSpec((prev, rnn.n_outputs), "lecun")
-    specs["head/b"] = ParamSpec((rnn.n_outputs,), "zeros")
+    specs["head/w"] = ParamSpec((prev, rnn.n_outputs), "lecun",
+                                logical_axes=(None, None))
+    specs["head/b"] = ParamSpec((rnn.n_outputs,), "zeros",
+                                logical_axes=(None,))
     return specs
 
 

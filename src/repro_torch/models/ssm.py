@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models.init import ParamSpec
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding.api import constrain
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -44,20 +45,25 @@ def ssm_specs(cfg: ModelConfig, prefix: str, stacked=None) -> dict:
     d = cfg.d_model
     d_in, h, conv_dim = ssm_dims(cfg)
     lead = (stacked,) if stacked else ()
+    la = ("layers",) * len(lead)
     dt = cfg.param_dtype
+
+    def spec(shape, axes, init, scale=1.0):
+        return ParamSpec(lead + shape, init, dt, scale, la + axes)
+
     # in_proj emits [z (d_in), xBC (conv_dim), dt (h)]
     return {
-        f"{prefix}/w_in": ParamSpec(
-            lead + (d, 2 * d_in + 2 * s.n_groups * s.d_state + h), "lecun",
-            dt),
-        f"{prefix}/conv_w": ParamSpec(lead + (s.d_conv, conv_dim), "lecun",
-                                      dt, 3.0),
-        f"{prefix}/conv_b": ParamSpec(lead + (conv_dim,), "zeros", dt),
-        f"{prefix}/dt_bias": ParamSpec(lead + (h,), "zeros", dt),
-        f"{prefix}/a_log": ParamSpec(lead + (h,), "ones", dt),
-        f"{prefix}/d_skip": ParamSpec(lead + (h,), "ones", dt),
-        f"{prefix}/norm_scale": ParamSpec(lead + (d_in,), "zeros", dt),
-        f"{prefix}/w_out": ParamSpec(lead + (d_in, d), "lecun", dt),
+        f"{prefix}/w_in": spec(
+            (d, 2 * d_in + 2 * s.n_groups * s.d_state + h),
+            ("embed", "ssm_inner"), "lecun"),
+        f"{prefix}/conv_w": spec((s.d_conv, conv_dim), ("conv", "ssm_inner"),
+                                 "lecun", 3.0),
+        f"{prefix}/conv_b": spec((conv_dim,), ("ssm_inner",), "zeros"),
+        f"{prefix}/dt_bias": spec((h,), ("ssm_heads",), "zeros"),
+        f"{prefix}/a_log": spec((h,), ("ssm_heads",), "ones"),
+        f"{prefix}/d_skip": spec((h,), ("ssm_heads",), "ones"),
+        f"{prefix}/norm_scale": spec((d_in,), ("ssm_inner",), "zeros"),
+        f"{prefix}/w_out": spec((d_in, d), ("ssm_inner", "embed"), "lecun"),
     }
 
 
@@ -180,6 +186,7 @@ def ssm_block_with_state(cfg: ModelConfig, x: torch.Tensor, p: dict,
 
     xv = xv.reshape(b, s, h, s_cfg.head_dim)
     xdt = xv * dt[..., None].to(xv.dtype)
+    xdt = constrain(xdt, "batch", "seq_nosp", "ssm_heads", None)
     y, final_state = _ssd_chunked(xdt, log_a, B.reshape(b, s, g, n),
                                   C.reshape(b, s, g, n),
                                   min(s_cfg.chunk_size, s), initial_state)

@@ -14,10 +14,14 @@ decoder over ``_encode``'s output), the layer stack, the final norm.  A
 Python loop over the stacked layers takes the place of ``lax.scan``, and
 ``_remat`` maps ``cfg.remat`` onto ``torch.utils.checkpoint`` (values do
 not depend on it).  ``lm_loss`` is the stable cross entropy with the
-z-loss.  Sharding constraints are dropped and the sequence-parallel
-attention (``_sp_attention``) is not ported: the port runs on one device,
-where ``repro`` takes the heads branch (``ROADMAP.md`` module item 12).
-The single-step decode path is ``models/decode.py``.
+z-loss.  ``constrain`` stands at ``repro``'s places (the identity
+without a sharding context).  Attention modes, as in ``repro`` (chosen by
+the context's overrides, ``sharding/auto.py``): 'tp' gathers the sequence
+and shards heads (the exact triangular blockwise schedule); 'sp' keeps
+the sequence sharded, one q chunk per TP rank against the whole KV
+(``_sp_attention``: rectangular masked blocks, ``_masked_rect``), for
+archs whose head count does not divide the TP axis.  The single-step
+decode path is ``models/decode.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import blockwise_attention
+from repro_torch.models.attention import (NEG_INF, _finalize, _gqa_scores,
+                                          _gqa_values, _merge,
+                                          blockwise_attention)
 from repro_torch.models.init import ParamSpec, ParamSpecs
 from repro_torch.models.layers import (apply_rope, embed, norm, norm_specs,
                                        softcap, weak_scale)
@@ -38,6 +44,7 @@ from repro_torch.models.mlp import mlp, mlp_specs
 from repro_torch.models.moe import moe_block, moe_specs, padded_n_experts
 from repro_torch.models.rglru import rglru_mix, rglru_specs
 from repro_torch.models.ssm import ssm_block, ssm_specs
+from repro_torch.sharding.api import constrain, current_context
 
 #: the LM families (every ``ModelConfig.family`` but the taggers' "rnn")
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -54,16 +61,21 @@ def require_lm(cfg: ModelConfig, what: str) -> None:
 def _attn_specs(cfg: ModelConfig, prefix: str, stacked=None) -> ParamSpecs:
     d = cfg.d_model
     lead = (stacked,) if stacked else ()
+    la = ("layers",) * len(lead)
     dt = cfg.param_dtype
     return {
         f"{prefix}/wq": ParamSpec(lead + (d, cfg.n_heads, cfg.head_dim),
-                                  "lecun", dt),
+                                  "lecun", dt, logical_axes=la + (
+                                      "embed", "heads", "head_dim")),
         f"{prefix}/wk": ParamSpec(lead + (d, cfg.n_kv_heads, cfg.head_dim),
-                                  "lecun", dt),
+                                  "lecun", dt, logical_axes=la + (
+                                      "embed", "kv_heads", "head_dim")),
         f"{prefix}/wv": ParamSpec(lead + (d, cfg.n_kv_heads, cfg.head_dim),
-                                  "lecun", dt),
+                                  "lecun", dt, logical_axes=la + (
+                                      "embed", "kv_heads", "head_dim")),
         f"{prefix}/wo": ParamSpec(lead + (cfg.n_heads, cfg.head_dim, d),
-                                  "lecun", dt),
+                                  "lecun", dt, logical_axes=la + (
+                                      "heads", "head_dim", "embed")),
     }
 
 
@@ -118,13 +130,16 @@ def param_specs(cfg: ModelConfig) -> ParamSpecs:
     d, V = cfg.d_model, padded_vocab(cfg)
     dt = cfg.param_dtype
     specs: ParamSpecs = {
-        "embed/table": ParamSpec((V, d), "embed", dt, 0.02),
+        "embed/table": ParamSpec((V, d), "embed", dt, 0.02,
+                                 ("vocab", "embed")),
     }
     specs.update(norm_specs(cfg, "final_norm"))
     if not cfg.tie_embeddings:
-        specs["unembed/w"] = ParamSpec((d, V), "lecun", dt)
+        specs["unembed/w"] = ParamSpec((d, V), "lecun", dt,
+                                       logical_axes=("embed", "vocab"))
     if cfg.frontend == "vision":
-        specs["img_proj/w"] = ParamSpec((d, d), "lecun", dt)
+        specs["img_proj/w"] = ParamSpec((d, d), "lecun", dt,
+                                        logical_axes=("embed", None))
     if cfg.enc_dec:
         specs.update(_layer_specs(cfg, cfg.n_encoder_layers, "encoder"))
         specs.update(_layer_specs(cfg, cfg.n_decoder_layers, "xdecoder"))
@@ -151,12 +166,24 @@ def logits_fn(cfg: ModelConfig, params: Dict,
     else:
         logits = torch.einsum("bsd,dv->bsv", x,
                               params["unembed/w"].to(x.dtype))
-    return softcap(logits, cfg.logits_softcap)
+    logits = softcap(logits, cfg.logits_softcap)
+    return constrain(logits, "batch", "seq_nosp", "vocab")
 
 
 # ---------------------------------------------------------------------------
 # Attention block and layer bodies
 # ---------------------------------------------------------------------------
+
+
+def _attn_meta() -> Tuple[str, int]:
+    """(attention mode, TP width) of the active context: ('tp', 0)
+    without one."""
+    ctx = current_context()
+    if ctx is None:
+        return "tp", 0
+    mode = ctx.overrides.get("__attn_mode__", "tp")
+    tp = ctx.axis_sizes.get("model", 1)
+    return mode, tp
 
 
 def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
@@ -166,8 +193,11 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
     """Pre-normed input -> attention output (before the residual add).
     x: [b, s, d]; ``kv_source`` (cross-attention) gives k and v.  Rotary
     embeddings at positions ``arange(s) + pos_offset``, none for the audio
-    family or cross-attention."""
+    family or cross-attention.  Under a context in mode 'sp' with TP > 1
+    a causal block runs ``_sp_attention``, else the heads-TP blockwise
+    schedule."""
     s = x.shape[1]
+    mode, tp = _attn_meta()
     xs = kv_source if kv_source is not None else x
     q = torch.einsum("bsd,dhk->bshk", x, p[f"{prefix}/wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", xs, p[f"{prefix}/wk"].to(x.dtype))
@@ -176,49 +206,123 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
         pos = torch.arange(s, device=x.device) + pos_offset
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    o = blockwise_attention(q, k, v, causal=causal, window=window,
-                            chunk_q=cfg.attn_chunk_q,
-                            chunk_kv=cfg.attn_chunk_kv)
+    if mode == "sp" and tp > 1 and causal:
+        # sequence stays sharded; KV gathered (small for MQA/GQA archs)
+        q = constrain(q, "batch", "seq", None, "head_dim")
+        k = constrain(k, "batch", None, None, "head_dim")
+        v = constrain(v, "batch", None, None, "head_dim")
+        o = _sp_attention(q, k, v, causal=causal, window=window, tp=tp,
+                          chunk_kv=min(cfg.attn_chunk_kv, 512))
+    else:
+        # heads-TP: gather sequence, shard heads (exact triangular schedule)
+        q = constrain(q, "batch", None, "heads", "head_dim")
+        k = constrain(k, "batch", None, "kv_heads", "head_dim")
+        v = constrain(v, "batch", None, "kv_heads", "head_dim")
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                chunk_q=cfg.attn_chunk_q,
+                                chunk_kv=cfg.attn_chunk_kv)
     return torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
                         p[f"{prefix}/wo"].to(x.dtype))
 
 
+def _sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int, tp: int,
+                  chunk_kv: int) -> torch.Tensor:
+    """Sequence-parallel attention: q cut into ``tp`` chunks along the
+    sequence (the chunk-grid dim sharded over 'model', one chunk per
+    rank), each attending to the whole (gathered) KV with rectangular
+    masked blocks (``_masked_rect``).  About 2x the triangular FLOPs for
+    causal, as in ``repro``.  q: [b, s, h, d], s a multiple of ``tp``."""
+    b, s, h, d = q.shape
+    if s % tp:
+        raise ValueError(f"_sp_attention: seq {s} % tp {tp}")
+    cq = s // tp
+    qg = constrain(q.reshape(b, tp, cq, h, d),
+                   "batch", "seq_chunks", None, None, None)
+    o = torch.stack([_masked_rect(qg[:, i], k, v, i * cq, causal, window,
+                                  chunk_kv) for i in range(tp)], dim=1)
+    o = constrain(o, "batch", "seq_chunks", None, None, None)
+    return o.reshape(b, s, h, d)
+
+
+def _masked_rect(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_off: int, causal: bool, window: int,
+                 chunk_kv: int) -> torch.Tensor:
+    """Rectangular blockwise attention for one q chunk at offset
+    ``q_off``: qc [b, cq, h, d] against every kv block of k / v [b, sk,
+    hk, d] (``sk // chunk`` blocks), the causal / window mask applied to
+    each, with the online-softmax merge of f32 accumulators; returned in
+    qc's dtype."""
+    b, cq, h, d = qc.shape
+    sk = k.shape[1]
+    ck = min(chunk_kv, sk)
+    nk = sk // ck
+    qs = weak_scale(qc, 1.0 / math.sqrt(d))
+    dev = qc.device
+    q_pos = torch.arange(cq, device=dev) + q_off
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    acc = (torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev),
+           torch.zeros((b, h, cq), dtype=torch.float32, device=dev),
+           torch.zeros((b, cq, h, d), dtype=torch.float32, device=dev))
+    for j in range(nk):
+        k_pos = j * ck + torch.arange(ck, device=dev)
+        mask = torch.zeros((cq, ck), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask | (k_pos[None, :] > q_pos[:, None])
+        if window > 0:
+            mask = mask | (k_pos[None, :] <= q_pos[:, None] - window)
+        s = _gqa_scores(qs, k[:, j * ck:(j + 1) * ck])
+        s = torch.where(mask[None, None], neg, s)
+        m = s.amax(dim=-1)
+        pexp = torch.exp(s - m[..., None])
+        o = _gqa_values(pexp, v[:, j * ck:(j + 1) * ck])
+        acc = _merge(acc, m, pexp.sum(dim=-1), o)
+    return _finalize(*acc).to(qc.dtype)
+
+
+def _residual_in(x: torch.Tensor) -> torch.Tensor:
+    return constrain(x, "batch", "seq", "embed_act")
+
+
 def dense_layer(cfg, x, p, pre, *, causal=True, kv_source=None,
                 cross=False):
-    h = norm(cfg, x, p, f"{pre}/norm1")
-    x = x + attention_block(cfg, h, p, f"{pre}/attn", causal=causal)
+    h = norm(cfg, _residual_in(x), p, f"{pre}/norm1")
+    x = _residual_in(x + attention_block(cfg, h, p, f"{pre}/attn",
+                                         causal=causal))
     if cross:
         hx = norm(cfg, x, p, f"{pre}/norm_x")
-        x = x + attention_block(cfg, hx, p, f"{pre}/xattn", causal=False,
-                                kv_source=kv_source)
+        x = _residual_in(x + attention_block(cfg, hx, p, f"{pre}/xattn",
+                                             causal=False,
+                                             kv_source=kv_source))
     h2 = norm(cfg, x, p, f"{pre}/norm2")
-    return x + mlp(cfg, h2, p, f"{pre}/mlp")
+    return _residual_in(x + mlp(cfg, h2, p, f"{pre}/mlp"))
 
 
 def moe_layer(cfg, x, p, pre, *, train):
     """An attention block, then the routed experts.  Returns (x, aux)."""
-    h = norm(cfg, x, p, f"{pre}/norm1")
-    x = x + attention_block(cfg, h, p, f"{pre}/attn", causal=True)
+    h = norm(cfg, _residual_in(x), p, f"{pre}/norm1")
+    x = _residual_in(x + attention_block(cfg, h, p, f"{pre}/attn",
+                                         causal=True))
     h2 = norm(cfg, x, p, f"{pre}/norm2")
     h2, aux = moe_block(cfg, h2, p, f"{pre}/moe", train=train)
-    return x + h2, aux
+    return _residual_in(x + h2), aux
 
 
 def ssm_layer(cfg, x, p, pre):
-    h = norm(cfg, x, p, f"{pre}/norm1")
-    return x + ssm_block(cfg, h, p, f"{pre}/ssm")
+    h = norm(cfg, _residual_in(x), p, f"{pre}/norm1")
+    return _residual_in(x + ssm_block(cfg, h, p, f"{pre}/ssm"))
 
 
 def hybrid_layer(cfg, x, p, pre, kind):
-    h = norm(cfg, x, p, f"{pre}/norm1")
+    h = norm(cfg, _residual_in(x), p, f"{pre}/norm1")
     if kind == "rglru":
         h = rglru_mix(cfg, h, p, f"{pre}/mix")
     else:
         h = attention_block(cfg, h, p, f"{pre}/attn", causal=True,
                             window=cfg.rglru.window)
-    x = x + h
+    x = _residual_in(x + h)
     h2 = norm(cfg, x, p, f"{pre}/norm2")
-    return x + mlp(cfg, h2, p, f"{pre}/mlp")
+    return _residual_in(x + mlp(cfg, h2, p, f"{pre}/mlp"))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +419,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     if cfg.enc_dec:
         enc = _encode(cfg, params, frame_embeds.to(cdt))
         x = embed(tokens, params["embed/table"], cdt)
-        x = _add_sinusoidal(weak_scale(x, math.sqrt(cfg.d_model)))
+        x = _residual_in(_add_sinusoidal(weak_scale(x,
+                                                    math.sqrt(cfg.d_model))))
         x = _run_stack(cfg, x, params, "xdecoder",
                        lambda h, p: dense_layer(cfg, h, p, "xdecoder",
                                                 causal=True, cross=True,
@@ -330,6 +435,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         img = torch.einsum("bnd,de->bne", img_embeds.to(cdt),
                            params["img_proj/w"].to(cdt))
         x = torch.cat([img, x], dim=1)
+    x = _residual_in(x)
 
     if cfg.family == "ssm":
         x = _run_stack(cfg, x, params, "decoder",
@@ -374,7 +480,8 @@ def _encode(cfg: ModelConfig, params: Dict,
             frames: torch.Tensor) -> torch.Tensor:
     """The enc-dec encoder: sinusoidal positions, bidirectional layers
     without rotary embeddings, its final norm.  frames: [b, s, d]."""
-    x = _run_stack(cfg, _add_sinusoidal(frames), params, "encoder",
+    x = _run_stack(cfg, _residual_in(_add_sinusoidal(frames)), params,
+                   "encoder",
                    lambda h, p: dense_layer(cfg, h, p, "encoder",
                                             causal=False),
                    cfg.n_encoder_layers)
@@ -396,6 +503,15 @@ def _add_sinusoidal(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor split along its vocab (last) dim."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(logits, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim in (-1, logits.ndim - 1)
+        for pl in logits.placements)
+
+
 def lm_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
             labels: torch.Tensor, z_loss: float = 1e-4
             ) -> Tuple[torch.Tensor, Dict]:
@@ -412,7 +528,14 @@ def lm_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     shifted = logits - m.detach()
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
     lab = torch.clamp(labels, min=0).long()
-    picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        # vocab-parallel pick (Megatron-style, as repro's): each shard's
+        # one-hot product, summed over the vocab; the same value as the
+        # gather (one nonzero term), with no gather across shards
+        hot = torch.arange(logits.shape[-1], device=lab.device) == lab[..., None]
+        picked = (logits * hot.to(logits.dtype)).sum(-1)
+    else:
+        picked = torch.gather(logits, -1, lab[..., None])[..., 0]
     nll = lse - picked
     mask = (labels >= 0).float()
     denom = torch.clamp(mask.sum(), min=1.0)

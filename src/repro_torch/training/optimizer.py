@@ -44,12 +44,11 @@ def adamw_init(params: Dict[str, torch.Tensor],
                opt: OptimizerConfig) -> OptState:
     dt = getattr(torch, opt.state_dtype)
     device = next(iter(params.values())).device if params else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
-                                  device=p.device)
+    # zeros_like keeps a DTensor parameter's placements in its moments
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        m={k: zeros(p) for k, p in params.items()},
-        v={k: zeros(p) for k, p in params.items()},
+        m={k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
+        v={k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
     )
 
 
@@ -130,8 +129,9 @@ def adamw_update_(
     seen: Dict[int, str] = {}
     for k, p in params.items():
         for what, t in (("", p), ("m of ", state.m[k]), ("v of ", state.v[k])):
-            if t.numel() == 0:
-                continue
+            t = getattr(t, "_local_tensor", t)       # a DTensor's shard
+            if t.numel() == 0 or t.device.type == "meta":
+                continue                         # no memory to share
             other = seen.setdefault(t.data_ptr(), what + k)
             if other != what + k:
                 raise ValueError(

@@ -10,7 +10,13 @@ gradient.  ``donate=True`` is the port of ``jax.jit(...,
 donate_argnums=(0, 1))``: the step updates the parameters and the
 optimizer state it is given in place (``adamw_update_``, the same bits)
 and returns them, so a caller that keeps the step's inputs must clone
-them first.  Gradient shardings are ROADMAP.md module item 12.
+them first.  ``grad_shardings`` (path -> ``sharding.api.NamedSharding``,
+``models.init.param_shardings``) pins every gradient of a DTensor
+parameter to its parameter's placements (``_shard_grads``), in the
+accumulation branch and the plain one, as ``repro`` pins them with
+``with_sharding_constraint``: a gradient DTensor left as autograd gives it
+(a replicated parameter's gradient is a pending sum over the data axes)
+is reduced into the parameter's layout before the update.
 """
 
 from __future__ import annotations
@@ -45,15 +51,20 @@ def make_train_step(
     grad_shardings: Optional[Dict] = None,
     donate: bool = False,
 ) -> Callable:
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: the port has no sharding yet (ROADMAP.md "
-            "module item 12)")
     cfg = model.cfg
     accum = grad_accum if grad_accum is not None else max(cfg.grad_accum, 1)
     opt = train_cfg.optimizer
     acc_dt = getattr(torch, accum_dtype)
     update = adamw_update_ if donate else adamw_update
+
+    def _shard_grads(g: Dict) -> Dict:
+        """Pin gradients to the parameter shardings (reduce-scatters into
+        the sharded layout instead of all-reduced replicas)."""
+        if grad_shardings is None:
+            return g
+        return {k: grad_shardings[k].distribute(v)
+                if k in grad_shardings and hasattr(v, "device_mesh") else v
+                for k, v in g.items()}
 
     def grad_fn(params, mb):
         leaves = {k: p.detach().requires_grad_(True)
@@ -66,12 +77,13 @@ def make_train_step(
 
     def train_step(params, opt_state: OptState, batch: Dict):
         if accum > 1:
-            g_acc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                     for k, p in params.items()}
+            g_acc = _shard_grads({k: torch.zeros_like(p, dtype=acc_dt)
+                                  for k, p in params.items()})
             loss_sum = 0.0
             ms = []
             for mb in _split_microbatches(batch, accum):
                 (loss, metrics), g = grad_fn(params, mb)
+                g = _shard_grads(g)
                 g_acc = {k: a + g[k].to(a.dtype) for k, a in g_acc.items()}
                 loss_sum = loss_sum + loss
                 ms.append(metrics)
@@ -81,6 +93,7 @@ def make_train_step(
                        for k in ms[0]}
         else:
             (loss, metrics), grads = grad_fn(params, batch)
+            grads = _shard_grads(grads)
 
         if train_cfg.compress_grads:
             grads = compress_decompress(grads)

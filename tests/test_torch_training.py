@@ -464,11 +464,16 @@ def test_grad_accum_matches_full_batch():
 
 def test_train_step_rejects_what_is_not_ported():
     _, _, tm, _ = _setup("top-tagging-gru")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(tm, TrainConfig(), grad_shardings={})
-    step = make_train_step(tm, TrainConfig(), grad_accum=3)
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
     x, y = _batch(tm.cfg, seed=0)
+    b = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+    # gradient shardings that name no DTensor leave plain tensors alone
+    pinned = make_train_step(tm, TrainConfig(), grad_shardings={})(
+        tp, adamw_init(tp, OptimizerConfig()), b)[0]
+    plain = make_train_step(tm, TrainConfig())(
+        tp, adamw_init(tp, OptimizerConfig()), b)[0]
+    assert all(torch.equal(pinned[k], plain[k]) for k in plain)
+    step = make_train_step(tm, TrainConfig(), grad_accum=3)
     with pytest.raises(ValueError, match="accum 3"):
         step(tp, adamw_init(tp, OptimizerConfig()),
              {"x": torch.from_numpy(x), "y": torch.from_numpy(y)})
@@ -576,14 +581,14 @@ def test_train_entry_point_equals_its_steps():
 
 def test_train_refuses_what_is_not_ported(monkeypatch):
     """An LM whose forward needs a frontend's embeddings (the token
-    stream has none, as in ``repro``), a mesh (module item 12) and a CUDA
-    device that is not there."""
+    stream has none, as in ``repro``), a mesh of several ranks with no
+    process group, and a CUDA device that is not there."""
     for arch, need in (("whisper-medium", "frame_embeds"),
                        ("phi-3-vision-4.2b", "img_embeds")):
         with pytest.raises(ValueError, match=need):
             tlaunch.train(arch, steps=1, tiny=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlaunch.train("top-tagging-gru", steps=1, mesh_shape=(1, 1),
+    with pytest.raises(RuntimeError, match="process group of 8 ranks"):
+        tlaunch.train("top-tagging-gru", steps=1, mesh_shape=(2, 4),
                       device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
