@@ -12,7 +12,9 @@ launches its kernel, and nowhere else, so a caller can show that a run went
 through the kernels; :data:`ENTRIES` counts the same calls by C entry
 point, which tells a kernel's routes apart (the hoisted and pipeline
 scans on the cluster kernel or, past its H, ``*_block`` on the block
-kernel).  :data:`COUNTS` counts the ``nvcc`` runs and the card's
+kernel); :func:`launch_total` sums :data:`LAUNCHES` for a reader that
+wants the launches between two moments (``repro_torch.tracing``).
+:data:`COUNTS` counts the ``nvcc`` runs and the card's
 residency queries (``scan_layout.card_resident``): what a warm compile
 cache entry spares a first request.
 
@@ -165,6 +167,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: (library, function) -> the resolved ctypes function
 _fns: Dict[Tuple[str, str], Callable] = {}
+
+
+def launch_total() -> int:
+    """Every kernel launch counted in :data:`LAUNCHES` since the last
+    :func:`reset_launches`: the difference of two readings with no reset
+    between them is the launches between them."""
+    return sum(LAUNCHES.values())
 
 
 def reset_launches() -> None:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch import tracing
 from repro_torch.config import FixedPointConfig, ModelConfig
 from repro_torch.core.quant.fixed_point import is_native_int, quantize
 from repro_torch.core.rnn.cells import rnn_param_specs
@@ -143,11 +144,18 @@ def forward(
     row's answer has the same bits in every batch; the reference and the
     ap_fixed emulation keep the head on the reference product, as their
     cells."""
+    rec = tracing.ACTIVE
+    if rec is not None:
+        span = rec.open("model.forward")
+        inner = rec.open("rnn.scan")
     rnn = cfg.rnn
     p = params
     h = rnn_layer(rnn, x, p["rnn/kernel"], p["rnn/recurrent"],
                   p["rnn/bias"], fp=fp, mode=mode, impl=impl,
                   schedule=schedule, lengths=lengths)
+    if rec is not None:
+        rec.close(inner)
+        rec.open("model.head")
 
     def q(t):
         return t if fp is None else quantize(t, fp)
@@ -169,10 +177,14 @@ def forward(
         h = q(torch.relu(h))
     logits = dense(h, q(p["head/w"])) + q(p["head/b"])
     if return_logits:
-        return logits
-    if rnn.output_activation == "sigmoid":
-        return sigmoid(q(logits))
-    return torch.softmax(logits.float(), dim=-1)
+        out = logits
+    elif rnn.output_activation == "sigmoid":
+        out = sigmoid(q(logits))
+    else:
+        out = torch.softmax(logits.float(), dim=-1)
+    if rec is not None:
+        rec.close(span)                  # and model.head inside it
+    return out
 
 
 def loss_fn(cfg: ModelConfig, params: Mapping[str, torch.Tensor],

@@ -42,6 +42,9 @@ runs on ``device`` ("cuda" unless the caller asks for "cpu") and holds its
 float32 weights there from construction on.  ``benchmark`` times one key's
 padded serving shape on that device beside the FPGA model of the same
 schedule (``launch/serve.py`` and the examples are its drivers).
+Inside a ``repro_torch.tracing.recording()``, ``predict`` and
+``predict_one`` record a request's spans (the root and, in its executor,
+staging, the copy in, the forward and the copy back) and its counters.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.autotune import DesignTarget, SpaceSpec
 from repro_torch.autotune import select as autotune_select
 from repro_torch.config import FixedPointConfig, ModelConfig
@@ -253,15 +257,29 @@ class RNNServingEngine:
             traces[key] = traces.get(key, 0) + 1
 
         def infer(x: np.ndarray, lengths=None) -> np.ndarray:
-            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-                device)
+            rec = tracing.ACTIVE
+            if rec is not None:
+                span = rec.open("engine.stage")
+            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
             if lengths is not None:
-                lengths = torch.from_numpy(
-                    np.asarray(lengths, np.int64)).to(device)
+                lengths = torch.from_numpy(np.asarray(lengths, np.int64))
+            if rec is not None:
+                rec.close(span)
+                span = rec.open("engine.h2d")
+            xt = xt.to(device)
+            if lengths is not None:
+                lengths = lengths.to(device)
+            if rec is not None:
+                rec.close(span)
             with torch.inference_mode():
                 out = model(xt, fp=fp, impl=impl, schedule=sched,
                             lengths=lengths)
-            return out.cpu().numpy()
+            if rec is not None:
+                span = rec.open("engine.d2h")
+            out = out.cpu().numpy()
+            if rec is not None:
+                rec.close(span)
+            return out
 
         one = counter == "_one_traces"
         return CachedExecutor(
@@ -293,10 +311,17 @@ class RNNServingEngine:
         """[b, T, in] -> [b, n_outputs] under the request's schedule and
         fixed-point config (or the schedule auto-picked for its
         ``target``)."""
-        self._check_open()
-        schedule, fp = self._with_target(target, schedule, fp)
-        key = self._ensure_key(*self.resolve(schedule, fp))
-        return self._predict_key(key, x)
+        rec = tracing.ACTIVE
+        if rec is not None:
+            root = rec.open_call("engine.predict", len(x), self.compile_cache)
+        try:
+            self._check_open()
+            schedule, fp = self._with_target(target, schedule, fp)
+            key = self._ensure_key(*self.resolve(schedule, fp))
+            return self._predict_key(key, x)
+        finally:
+            if rec is not None:
+                rec.close_call(root, self.compile_cache)
 
     def predict_ragged(self, xs: List[np.ndarray],
                        schedule: Optional[KernelSchedule] = None,
@@ -377,21 +402,28 @@ class RNNServingEngine:
         schedule or its ``target``'s.  Steady-state wall-clock is recorded
         per key and reported by ``serve_report`` as the ``fast_path``
         column."""
-        self._check_open()
-        schedule, fp = self._with_target(target, schedule, fp)
-        sched, fpr = self.resolve(schedule, fp)
-        key = self._ensure_key(sched, fpr)   # registers specs for reporting
-        fn = self._one_cache.get(key)
-        if fn is None:
-            fn = self._one_cache[key] = self._make_infer(key, sched, fpr,
-                                                         "_one_traces")
-        readied = fn.compiled_signatures()
-        t0 = time.perf_counter()
-        out = fn(np.asarray(x)[None])[0]
-        if fn.compiled_signatures() == readied:   # steady state
-            self._one_stats.setdefault(key, KeyStats()).record_one(
-                time.perf_counter() - t0)
-        return out
+        rec = tracing.ACTIVE
+        if rec is not None:
+            root = rec.open_call("engine.predict_one", 1, self.compile_cache)
+        try:
+            self._check_open()
+            schedule, fp = self._with_target(target, schedule, fp)
+            sched, fpr = self.resolve(schedule, fp)
+            key = self._ensure_key(sched, fpr)   # registers specs to report
+            fn = self._one_cache.get(key)
+            if fn is None:
+                fn = self._one_cache[key] = self._make_infer(
+                    key, sched, fpr, "_one_traces")
+            readied = fn.compiled_signatures()
+            t0 = time.perf_counter()
+            out = fn(np.asarray(x)[None])[0]
+            if fn.compiled_signatures() == readied:   # steady state
+                self._one_stats.setdefault(key, KeyStats()).record_one(
+                    time.perf_counter() - t0)
+            return out
+        finally:
+            if rec is not None:
+                rec.close_call(root, self.compile_cache)
 
     def one_trace_count(self, key: str) -> int:
         return self._one_traces.get(key, 0)
