@@ -372,6 +372,18 @@ ends the run with the allocator's out-of-memory error.
 runs only phase 3 ``distributed`` (the kernels built on first use) and
 prints its report as a JSON line of its own and no result line.
 
+    python3 chip_smoke.py --graphs
+
+checks only the serving executors' CUDA graph replay
+(``serving/graphs.py``, :func:`check_graphs`; also run after phase 3
+``distributed`` in the full run): replayed answers bit for bit the eager
+ones for static, non-static and pipeline QuickDraw LSTM at B = 1, 256
+and 2048, 100 consecutive replays unaliased, 4 launches and 1 replay
+recorded for a bulk call, the graph's kernels under their own names in
+the trace; and prints the host wall of eager and replayed calls and a
+chunk's copy onto the card (CUDA's pageable copy against staging
+through a pinned buffer), as a JSON line of its own and no result line.
+
     python3 chip_smoke.py --batch-invariance [--src DIR]
 
 builds the kernels and prints, for every case of phase 3's batch
@@ -6063,6 +6075,176 @@ def no_nan(obj):
     return None if isinstance(obj, float) and obj != obj else obj
 
 
+#: the batches of the graph replay check: predict_one's, a flush's and the
+#: bulk cell's chunk
+GRAPH_BATCHES = (1, BATCH, 2048)
+#: consecutive replays of the aliasing check, over GRAPH_CHUNKS chunks
+GRAPH_REPLAYS = 100
+GRAPH_CHUNKS = 4
+
+
+def copy_in_us(x, device, threads: int, calls: int = 200) -> dict:
+    """Median time (us) from the start of a chunk's copy to the card to its
+    end (synchronised), at ``threads`` of PyTorch's threads, the ways in
+    turns: ``pageable``, CUDA's asynchronous copy from ``x`` (what a
+    replayed call does); ``pinned_np`` / ``pinned_torch``, ``np.copyto`` /
+    PyTorch's ``copy_`` into a pinned buffer, then its copy."""
+    import torch
+
+    pinned = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+    view = pinned.numpy()
+    dst = torch.empty(x.shape, dtype=torch.float32, device=device)
+    ways = {
+        "pageable": lambda: dst.copy_(torch.from_numpy(x), non_blocking=True),
+        "pinned_np": lambda: (np.copyto(view, x),
+                              dst.copy_(pinned, non_blocking=True)),
+        "pinned_torch": lambda: (pinned.copy_(torch.from_numpy(x)),
+                                 dst.copy_(pinned, non_blocking=True))}
+    was = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        runs = {k: [] for k in ways}
+        for _ in range(calls):
+            for k, way in ways.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                way()
+                torch.cuda.synchronize()
+                runs[k].append(time.perf_counter() - t)
+    finally:
+        torch.set_num_threads(was)
+    return {k: float(np.median(v)) * 1e6 for k, v in runs.items()}
+
+
+def check_graphs(device) -> dict:
+    """The serving executors' CUDA graph replay (``serving/graphs.py``) on
+    the card, on QuickDraw LSTM (the bulk cell's tagger).  For static,
+    non-static and pipeline schedules at B in ``GRAPH_BATCHES``: the first
+    ``predict`` eager, the second captured, two more replayed, each
+    replayed answer bit for bit the eager one, one capture and three
+    replays counted.  At B = 2048: ``GRAPH_REPLAYS`` consecutive replays
+    over ``GRAPH_CHUNKS`` chunks, every answer its chunk's eager one and no
+    two sharing memory; a replayed call recorded by ``tracing`` with 4
+    launches and 1 replay; 20 replayed calls under ``torch.profiler`` list
+    the cluster scan and ``col_matmul`` under their own names, 12 kernels
+    a call; the host wall of the bulk and the ``predict_one`` executor's
+    call, eager against replayed, in turns; a chunk's copy onto the card,
+    CUDA's from pageable memory against staging through a pinned
+    buffer (:func:`copy_in_us`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.schedule import KernelSchedule
+
+    tag = "quickdraw-lstm"
+    report = {}
+    for mode in ("static", "nonstatic", "pipeline"):
+        cfg, _, eng = tagger_engine(tag, device,
+                                    schedule=KernelSchedule(mode=mode))
+        for b in GRAPH_BATCHES:
+            x = tagger_events(cfg, b, 700 + b)
+            graphs0 = dict(cuda.GRAPHS)
+            eager = eng.predict(x)
+            replayed = [eng.predict(x) for _ in range(3)]
+            grew = {k: cuda.GRAPHS[k] - graphs0[k] for k in graphs0}
+            same = all(np.array_equal(r.view(np.int32), eager.view(np.int32))
+                       for r in replayed)
+            check(same and grew == {"captures": 1, "replays": 3},
+                  f"graphs {tag} {mode} B={b}: replayed answers equal the "
+                  f"eager one: {same}; counted {grew}")
+            report[f"{mode}_B{b}"] = {"bits_equal": same, **grew}
+            print(f"graphs {tag} {mode} B={b}: 1 eager, 1 capture, 2 "
+                  f"replays: answers bit for bit the eager one")
+        eng.close()
+
+    cfg, _, eng = tagger_engine(tag, device)
+    chunks = [tagger_events(cfg, GRAPH_BATCHES[-1], 800 + i)
+              for i in range(GRAPH_CHUNKS)]
+    eng.predict(chunks[0])
+    eng.predict(chunks[0])
+    (replay,) = eng._replays
+    want = [replay._eager(c, None) for c in chunks]
+    got = [eng.predict(chunks[i % GRAPH_CHUNKS])
+           for i in range(GRAPH_REPLAYS)]
+    right = all(np.array_equal(g.view(np.int32),
+                               want[i % GRAPH_CHUNKS].view(np.int32))
+                for i, g in enumerate(got))
+    shared = sum(np.may_share_memory(g, h)
+                 for i, g in enumerate(got) for h in got[:i])
+    check(right and not shared,
+          f"graphs: {GRAPH_REPLAYS} replays over {GRAPH_CHUNKS} chunks: "
+          f"each its chunk's eager answer {right}, {shared} pairs share "
+          f"memory")
+    print(f"graphs: {GRAPH_REPLAYS} consecutive replays over "
+          f"{GRAPH_CHUNKS} chunks: each its chunk's eager answer bit for "
+          f"bit, no two sharing memory")
+
+    with tracing.recording() as rec:
+        for c in chunks:
+            eng.predict(c)
+    roots = [s.counters for s in rec.spans if s.parent == -1]
+    names = sorted({s.name for s in rec.spans if s.parent != -1})
+    check(all(r["launches"] == 4 and r["graph_replays"] == 1
+              and r["graph_captures"] == 0 for r in roots)
+          and names == ["engine.d2h", "engine.h2d", "engine.replay"],
+          f"graphs: recorded replayed calls {roots}, spans {names}")
+    print(f"graphs: a replayed bulk call records {roots[0]}, spans {names}")
+
+    calls = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            eng.predict(chunks[i % GRAPH_CHUNKS])
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in ops if "memcpy" not in n.lower()
+               and "memset" not in n.lower()]
+    scans = sum("cluster_scan_kernel<0, false" in n for n in kernels)
+    heads = sum("col_matmul_kernel" in n for n in kernels)
+    check(scans == calls and heads == 3 * calls
+          and len(kernels) == 12 * calls,
+          f"graphs: the trace of {calls} replayed calls lists {scans} "
+          f"cluster scans, {heads} col_matmul, {len(kernels)} kernels "
+          f"(names {sorted(set(n[:60] for n in kernels))})")
+    print(f"graphs: the trace of {calls} replayed calls lists {scans} "
+          f"cluster scans, {heads} col_matmul, {len(kernels) / calls:g} "
+          f"kernels and {(len(ops) - len(kernels)) / calls:g} copies a call")
+    report["trace"] = {"kernels_per_call": len(kernels) / calls,
+                       "copies_per_call": (len(ops) - len(kernels)) / calls,
+                       "names": sorted(set(ops))}
+
+    one = chunks[0][:1]
+    eng.predict_one(one[0])
+    eng.predict_one(one[0])
+    replay_one = eng._replays[1]
+    for what, fn, xs in (("bulk", replay, chunks),
+                         ("one", replay_one, [one])):
+        walls = {"eager": [], "replayed": []}
+        for _ in range(5):
+            for how, call in (("eager", lambda c: fn._eager(c, None)),
+                              ("replayed", fn)):
+                t = time.perf_counter()
+                for i in range(100):
+                    call(xs[i % len(xs)])
+                walls[how].append((time.perf_counter() - t) / 100 * 1e3)
+        report[f"{what}_executor_wall_ms"] = walls
+        print(f"graphs: host wall of the {what} executor's call (ms, 5 "
+              f"rounds of 100, in turns): eager "
+              f"{[round(w, 4) for w in walls['eager']]}, replayed "
+              f"{[round(w, 4) for w in walls['replayed']]}")
+    report["copy_in_us"] = {t: copy_in_us(chunks[0], device, t)
+                            for t in (1, 8)}
+    print(f"graphs: a chunk ({chunks[0].nbytes} B) onto the card, median "
+          f"us to the copy's end, by PyTorch's threads: "
+          f"{report['copy_in_us']}")
+    eng.close()
+    check(not replay.graphs(), "graphs: close() left a graph")
+    return report
+
+
 def main() -> int:
     import argparse
 
@@ -6101,6 +6283,9 @@ def main() -> int:
                       "against the card, the stage pipeline over ranks "
                       "sharing the card, the (1, 1)-mesh trainer (see "
                       "phase_distributed)")
+    what.add_argument("--graphs", action="store_true",
+                      help="only check the serving executors' CUDA graph "
+                      "replay (see check_graphs)")
     what.add_argument("--batch-invariance", action="store_true",
                       help="only report one event's answer across batch "
                       "shapes, launch by launch (see batch_invariance)")
@@ -6120,6 +6305,7 @@ def main() -> int:
               "families": only_families, "prefill": only_prefill,
               "serve": only_serve, "distributed": only_distributed,
               "train_lm": only_train_lm(opts.train_lm),
+              "graphs": check_graphs,
               "batch_invariance": report_batch_invariance}
     only = next((k for k in timing if getattr(opts, k)), None)
     if opts.src:
@@ -6197,6 +6383,7 @@ def main() -> int:
     launches["train"], train_rep = phase_train(device)
     launches["serve"], serve_rep = phase_serve(device)
     launches["distributed"], dist_rep = phase_distributed(device, prefill)
+    graphs_rep = check_graphs(device)
     rows, scans = phase_timing(device)
 
     out_dir = ROOT / "build"
@@ -6208,7 +6395,7 @@ def main() -> int:
          "families": families, "prefill": prefill,
          "autotune": autotune_rows,
          "robustness": robustness, "train": train_rep,
-         "serve": serve_rep, "distributed": dist_rep,
+         "serve": serve_rep, "distributed": dist_rep, "graphs": graphs_rep,
          "launches": launches,
          "max_abs_err": errs},
         indent=1))

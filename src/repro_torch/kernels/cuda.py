@@ -13,8 +13,11 @@ through the kernels; :data:`ENTRIES` counts the same calls by C entry
 point, which tells a kernel's routes apart (the hoisted and pipeline
 scans on the cluster kernel or, past its H, ``*_block`` on the block
 kernel); :func:`launch_total` sums :data:`LAUNCHES` for a reader that
-wants the launches between two moments (``repro_torch.tracing``).
-:data:`COUNTS` counts the ``nvcc`` runs and the card's
+wants the launches between two moments (``repro_torch.tracing``).  A
+CUDA graph's replay adds the launches its capture made
+(:func:`count_launches`; ``serving/graphs.py``), so the counts stay those
+of the kernels that ran, and :data:`GRAPHS` counts its captures and
+replays.  :data:`COUNTS` counts the ``nvcc`` runs and the card's
 residency queries (``scan_layout.card_resident``): what a warm compile
 cache entry spares a first request.
 
@@ -117,6 +120,9 @@ ENTRIES: Dict[str, int] = {}
 #: ``nvcc`` runs and residency queries of the card, since import
 COUNTS: Dict[str, int] = {"nvcc": 0, "residency": 0}
 
+#: CUDA graphs captured and replayed by the serving executors, since import
+GRAPHS: Dict[str, int] = {"captures": 0, "replays": 0}
+
 
 class Recording:
     """What the runs inside one :func:`recording` used: libraries, C entry
@@ -147,6 +153,14 @@ def recording(dry: bool = False) -> Iterator[Recording]:
         _RECORDINGS.remove(rec)
 
 
+def recording_mode() -> Optional[str]:
+    """"dry" inside a dry :func:`recording`, "live" inside another, else
+    None."""
+    if not _RECORDINGS:
+        return None
+    return "dry" if any(rec.dry for rec in _RECORDINGS) else "live"
+
+
 def record_layout(args: tuple, layout: tuple) -> None:
     """Note a launch layout resolved for ``args`` in every recording."""
     for rec in _RECORDINGS:
@@ -174,6 +188,26 @@ def launch_total() -> int:
     :func:`reset_launches`: the difference of two readings with no reset
     between them is the launches between them."""
     return sum(LAUNCHES.values())
+
+
+def launches_since(before: Tuple[Dict[str, int], Dict[str, int]]
+                   ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The launches counted in :data:`LAUNCHES` and :data:`ENTRIES` since
+    ``before`` (``(dict(LAUNCHES), dict(ENTRIES))``), nonzero only."""
+    return tuple({k: n - was.get(k, 0) for k, n in now.items()
+                  if n != was.get(k, 0)}
+                 for now, was in zip((LAUNCHES, ENTRIES), before))
+
+
+def count_launches(launches: Dict[str, int], entries: Dict[str, int],
+                   times: int = 1) -> None:
+    """Add ``times`` x a :func:`launches_since` reading to the counts: a
+    graph's replay adds what its capture launched, and the capture, which
+    runs nothing, takes it back (``times=-1``)."""
+    for name, n in launches.items():
+        LAUNCHES[name] += times * n
+    for name, n in entries.items():
+        ENTRIES[name] = ENTRIES.get(name, 0) + times * n
 
 
 def reset_launches() -> None:

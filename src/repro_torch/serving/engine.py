@@ -45,6 +45,10 @@ schedule (``launch/serve.py`` and the examples are its drivers).
 Inside a ``repro_torch.tracing.recording()``, ``predict`` and
 ``predict_one`` record a request's spans (the root and, in its executor,
 staging, the copy in, the forward and the copy back) and its counters.
+On a CUDA device each executor of the float kernel datapath replays its
+warmed calls as CUDA graphs (serving/graphs.py): a signature's first call
+runs eagerly, its second is captured, and later ones copy the input onto
+the card and replay one graph.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from repro_torch.device import require_device
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY, KernelSchedule,
                                           cache_meta, schedule_key)
 from repro_torch.models.rnn_tagger import RNNTagger
+from repro_torch.serving import graphs
 from repro_torch.serving.batcher import (KeyStats, MicroBatcher, Request,
                                          _pad_stack)
 from repro_torch.serving.compile_cache import (ArgSpec, CachedExecutor,
@@ -114,6 +119,9 @@ class RNNServingEngine:
     _one_traces: Dict[str, int] = field(default_factory=dict, repr=False)
     _one_stats: Dict[str, KeyStats] = field(default_factory=dict, repr=False)
     _closed: bool = field(default=False, repr=False)
+    # the executors that replay CUDA graphs (serving/graphs.py)
+    _replays: List[graphs.GraphReplay] = field(default_factory=list,
+                                               repr=False)
 
     def __post_init__(self):
         if self.ragged not in RAGGED_POLICIES:
@@ -281,6 +289,16 @@ class RNNServingEngine:
                 rec.close(span)
             return out
 
+        if graphs.replays(device, fp, sched.use_pallas):
+            def run(xt: torch.Tensor) -> torch.Tensor:
+                return model(xt, fp=fp, impl=impl, schedule=sched)
+
+            # the live dict the ParameterDict registers its tensors in:
+            # each call reads it in a few us (the ParameterDict's values()
+            # take several times that)
+            infer = graphs.GraphReplay(infer, run,
+                                       model.weights._parameters, device)
+            self._replays.append(infer)
         one = counter == "_one_traces"
         return CachedExecutor(
             infer, self.compile_cache, key,
@@ -444,11 +462,14 @@ class RNNServingEngine:
         return self.flush(now=now, force=True)
 
     def close(self, now: Optional[float] = None) -> List[Request]:
-        """Drain, then refuse all new work (idempotent)."""
+        """Drain, then refuse all new work and drop the executors' CUDA
+        graphs (idempotent)."""
         if self._closed:
             return []
         flushed = self.drain(now=now)
         self._closed = True
+        for replay in self._replays:
+            replay.close()
         return flushed
 
     # -- schedule-keyed serving ---------------------------------------------

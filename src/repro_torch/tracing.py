@@ -14,7 +14,11 @@ A span marks one layer boundary of a request: ``engine.predict`` (or
 ``engine.h2d`` (the copy to the device), ``model.forward`` (issuing the
 tagger's kernels: ``rnn.scan`` and ``model.head`` inside it) and
 ``engine.d2h`` (``.cpu().numpy()``: the wait for the device's queue and
-the copy back).  The root's self time is the engine's own work: target
+the copy back).  A call that replays a CUDA graph (serving/graphs.py)
+holds ``engine.h2d`` (the copy into the graph's static input),
+``engine.replay`` (the graph's launch) and ``engine.d2h`` (the wait and
+the copy out) instead; the call that captures it ``engine.capture``
+before them.  The root's self time is the engine's own work: target
 and key resolution, the executor's signature lookup, ``inference_mode``.
 
 Off, a span site costs one read of :data:`ACTIVE` and a branch on it; it
@@ -23,8 +27,10 @@ allocates nothing and calls nothing.  On, a span costs two
 recording's per-thread buffer (ints and names: nothing for the cycle
 collector to walk); a root also reads, before it opens and after it closes, the counters of
 its call: ``rows`` (events), ``launches`` (the port's kernel launches,
-``cuda.launch_total``) and ``builds`` (signatures the compile cache
-readied cold plus ``nvcc`` runs: a kernel built again shows here).
+``cuda.launch_total``, a CUDA graph's replay included), ``builds``
+(signatures the compile cache readied cold plus ``nvcc`` runs: a kernel
+built again shows here), ``graph_replays`` (1 where the executor replayed
+a CUDA graph, else 0) and ``graph_captures`` (graphs captured).
 
 Records stay in memory; :attr:`Recording.spans` is filled when the
 recording ends, on ``time.perf_counter_ns``'s clock, with
@@ -41,7 +47,8 @@ import contextlib
 import itertools
 import threading
 import time
-from typing import Dict, Iterator, List, Mapping, NamedTuple, Optional
+from typing import (Dict, Iterator, List, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 
@@ -58,7 +65,7 @@ class Span(NamedTuple):
     end_ns: int
     parent: int          # index of the enclosing span in ``spans``, or -1
     call: int            # shared by every span of one request
-    counters: Mapping[str, int]   # a root's rows, launches, builds; else {}
+    counters: Mapping[str, int]   # a root's COUNTERS; else {}
 
     @property
     def duration_ns(self) -> int:
@@ -80,8 +87,15 @@ def _wall_offset(reads: int = 5) -> int:
     return best[1]
 
 
-def _builds(cache) -> int:
-    return cache.cold_compiles + cuda.COUNTS["nvcc"]
+#: the counters a root span reads at its edges, in order (``rows`` is
+#: given at its open)
+COUNTERS = ("rows", "launches", "builds", "graph_replays", "graph_captures")
+
+
+def _counts(cache) -> Tuple[int, int, int, int]:
+    """launches, builds, graph replays, graph captures, so far."""
+    return (cuda.launch_total(), cache.cold_compiles + cuda.COUNTS["nvcc"],
+            cuda.GRAPHS["replays"], cuda.GRAPHS["captures"])
 
 
 class _Buffer:
@@ -95,9 +109,9 @@ class _Buffer:
         self.parents: List[int] = []    # index in this buffer, or -1
         self.calls: List[int] = []
         self.stack: List[int] = []      # the open spans, innermost last
-        #: root index -> its place in ``counts``: rows, then launches and
-        #: builds (the readings at its open; their deltas once closed), then
-        #: 1 once closed by :meth:`Recording.close_call`
+        #: root index -> its place in ``counts``: rows, then the other
+        #: COUNTERS (the readings at its open; their deltas once closed),
+        #: then 1 once closed by :meth:`Recording.close_call`
         self.counted: Dict[int, int] = {}
         self.counts: List[int] = []
 
@@ -158,21 +172,23 @@ class Recording:
     def open_call(self, name: str, rows: int, cache) -> int:
         """Open a request's root span: ``cache`` is the engine's
         ``CompileCache``, whose cold count ``builds`` reads."""
-        launches, builds = cuda.launch_total(), _builds(cache)
+        counts = _counts(cache)
         i = self.open(name)
         buf = self._local.buf
         buf.counted[i] = len(buf.counts)
-        buf.counts.extend((rows, launches, builds, 0))
+        buf.counts.append(rows)
+        buf.counts.extend(counts)
+        buf.counts.append(0)
         return i
 
     def close_call(self, i: int, cache) -> None:
         self.close(i)
-        launches, builds = cuda.launch_total(), _builds(cache)
+        counts = _counts(cache)
         buf = self._local.buf
-        j, c = buf.counted[i], buf.counts
-        c[j + 1] = launches - c[j + 1]
-        c[j + 2] = builds - c[j + 2]
-        c[j + 3] = 1
+        j, c = buf.counted[i] + 1, buf.counts
+        for k, n in enumerate(counts):
+            c[j + k] = n - c[j + k]
+        c[j + len(counts)] = 1
 
     def _finish(self) -> None:
         # a span still open (on another thread) when the recording ends
@@ -185,9 +201,9 @@ class Recording:
                     continue
                 index[i] = len(spans)
                 j = buf.counted.get(i)
-                counters = ({} if j is None or not buf.counts[j + 3] else
-                            dict(zip(("rows", "launches", "builds"),
-                                     buf.counts[j:j + 3])))
+                n = len(COUNTERS)
+                counters = ({} if j is None or not buf.counts[j + n] else
+                            dict(zip(COUNTERS, buf.counts[j:j + n])))
                 spans.append(Span(buf.names[i], buf.starts[i], end,
                                   index.get(buf.parents[i], -1),
                                   buf.calls[i], counters))

@@ -1,18 +1,25 @@
 """The port's tracer (``repro_torch.tracing``) on a CPU engine: nothing is
 recorded while it is off, one request gives one tree of spans sharing a
 call id, the root's self time and its children add up to it to the ns,
-and the root's counters (rows, launches, builds) read their deltas."""
+and the root's counters (rows, launches, builds, graph replays and
+captures) read their deltas.  Then the executors' CUDA graph replay
+(``serving/graphs.py``): a CPU engine never captures; its capture policy,
+driven on the CPU through a stand-in for the graph."""
 
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import tracing
+from repro_torch.config import FixedPointConfig
 from repro_torch.kernels import cuda
+from repro_torch.kernels.schedule import KernelSchedule
 from repro_torch.models import rnn_tagger
 from repro_torch.models.rnn_tagger import RNNTagger
 from repro_torch.registry import get_config
+from repro_torch.serving import graphs
 from repro_torch.serving.engine import RNNServingEngine
 
 TAG = "top-tagging-gru"
@@ -221,3 +228,180 @@ def test_launch_total_sums_the_launches(monkeypatch):
     assert cuda.launch_total() == 5
     cuda.reset_launches()
     assert cuda.launch_total() == 0
+
+
+# -- CUDA graph replay (serving/graphs.py) ---------------------------------
+
+#: the spans of a replayed request, under its root
+REPLAYED = ["engine.h2d", "engine.replay", "engine.d2h"]
+
+
+def counted(rec, name):
+    return [s.counters[name] for s in rec.spans if s.parent == -1]
+
+
+def test_cpu_engine_never_captures(engine, params, x):
+    """A CPU engine keeps the eager spans on every call, replays nothing and
+    answers with the bits of the tagger's forward on the same weights."""
+    want = rnn_tagger.forward(get_config(TAG), params, torch.from_numpy(x),
+                              impl="pallas",
+                              schedule=engine.resolved_schedule).numpy()
+    with tracing.recording() as rec:
+        got = [engine.predict(x) for _ in range(4)]
+        engine.predict_one(x[0])
+    assert engine._replays == []
+    assert counted(rec, "graph_replays") == [0] * 5
+    assert counted(rec, "graph_captures") == [0] * 5
+    for r in [i for i, s in enumerate(rec.spans) if s.parent == -1]:
+        assert [s.name for s in rec.spans[r + 1:r + 1 + len(CHILDREN)]] \
+            == [n for n, _ in CHILDREN]
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+
+
+@pytest.mark.parametrize("device,fp,kernels,want", [
+    ("cuda", None, True, True),
+    ("cuda", FixedPointConfig(8, 3), True, False),
+    ("cuda", FixedPointConfig(16, 6), True, False),
+    ("cuda", None, False, False),
+    ("cpu", None, True, False),
+])
+def test_which_executors_capture(device, fp, kernels, want):
+    assert graphs.replays(torch.device(device), fp, kernels) is want
+
+
+class StandIn:
+    """A CPU stand-in for :class:`graphs.CudaGraph`: static buffers, the
+    forward run once at capture (whose launches the replay takes back)
+    and again at each replay, counting and recording nothing then, as a
+    graph's kernels run without ``cuda.launch`` or the host's spans."""
+
+    def __init__(self, run, device_in, host_out):
+        self.run, self.device_in, self.host_out = run, device_in, host_out
+        host_out.copy_(run(device_in.clone()))
+
+    def replay(self):
+        before = (dict(cuda.LAUNCHES), dict(cuda.ENTRIES))
+        rec, tracing.ACTIVE = tracing.ACTIVE, None
+        try:
+            with torch.inference_mode():
+                self.host_out.copy_(self.run(self.device_in.clone()))
+        finally:
+            tracing.ACTIVE = rec
+        cuda.count_launches(*cuda.launches_since(before), times=-1)
+
+    def wait(self):
+        pass
+
+
+@pytest.fixture
+def replaying(monkeypatch, params):
+    """A CPU engine whose float kernel executors replay through
+    :class:`StandIn`; each forward counts one ``lstm_scan`` launch."""
+    monkeypatch.setattr(graphs, "replays",
+                        lambda device, fp, kernels: fp is None and kernels)
+    monkeypatch.setattr(graphs, "CudaGraph", StandIn)
+    monkeypatch.setattr(cuda, "LAUNCHES", dict.fromkeys(cuda.LAUNCHES, 0))
+    monkeypatch.setattr(cuda, "ENTRIES", {})
+    monkeypatch.setattr(cuda, "GRAPHS", {"captures": 0, "replays": 0})
+    layer = rnn_tagger.rnn_layer
+
+    def launching(*a, **kw):
+        cuda.LAUNCHES["lstm_scan"] += 1
+        cuda.ENTRIES["lstm_scan"] = cuda.ENTRIES.get("lstm_scan", 0) + 1
+        return layer(*a, **kw)
+
+    monkeypatch.setattr(rnn_tagger, "rnn_layer", launching)
+    return RNNServingEngine(get_config(TAG),
+                            {k: v.clone() for k, v in params.items()},
+                            device="cpu", max_batch=4)
+
+
+@pytest.mark.parametrize("root", list(ENTRIES))
+def test_second_call_captures_and_later_calls_replay(replaying, x, root):
+    with tracing.recording() as rec:
+        got = [request(replaying, root, x) for _ in range(4)]
+    assert counted(rec, "graph_captures") == [0, 1, 0, 0]
+    assert counted(rec, "graph_replays") == [0, 1, 1, 1]
+    assert counted(rec, "launches") == [1] * 4
+    assert cuda.LAUNCHES["lstm_scan"] == cuda.ENTRIES["lstm_scan"] == 4
+    assert cuda.GRAPHS == {"captures": 1, "replays": 3}
+    roots = [i for i, s in enumerate(rec.spans) if s.parent == -1]
+    assert [s.name for s in rec.spans[roots[0] + 1:roots[1]]] == \
+        [n for n, _ in CHILDREN]
+    assert [s.name for s in rec.spans[roots[3] + 1:]] == REPLAYED
+    assert rec.spans[roots[1] + 1].name == "engine.capture"
+    assert [s.name for s in rec.spans[roots[2] + 1:roots[3]]] == REPLAYED
+    for g in got[1:]:
+        np.testing.assert_array_equal(g, got[0])
+
+
+def test_a_dry_warm_up_is_not_the_eager_call(replaying, x):
+    """``prewarm`` runs the executor inside a dry ``cuda.recording``,
+    which launches nothing: the first real call is still eager."""
+    assert replaying.prewarm()[replaying._ensure_key(
+        *replaying.resolve())]["status"] == "cold"
+    with tracing.recording() as rec:
+        for _ in range(3):
+            replaying.predict(x)
+    assert counted(rec, "graph_captures") == [0, 1, 0]
+    assert counted(rec, "graph_replays") == [0, 1, 1]
+
+
+def test_each_shape_captures_its_own_graph(replaying, x):
+    for rows in (4, 2, 4, 2, 4):
+        replaying._infer_cache[replaying._ensure_key(*replaying.resolve())](
+            x[:rows])
+    assert cuda.GRAPHS == {"captures": 2, "replays": 3}
+    assert replaying._replays[0].graphs() == 2
+
+
+def test_fp_and_ragged_calls_stay_eager(replaying, params, x):
+    fixed = RNNServingEngine(get_config(TAG), params, device="cpu",
+                             max_batch=4, fp=FixedPointConfig(16, 6))
+    for _ in range(3):
+        fixed.predict(x)
+    replaying.ragged = "mask"
+    for _ in range(3):
+        replaying.predict_ragged([x[0], x[1][:7], x[2]])
+    assert fixed._replays == []
+    assert cuda.GRAPHS == {"captures": 0, "replays": 0}
+
+
+def test_an_in_place_weight_update_captures_again(replaying, params, x):
+    for _ in range(3):
+        replaying.predict(x)
+    w = replaying.model.weights["head/b"]
+    with torch.no_grad():
+        w.add_(0.25)
+    with tracing.recording() as rec:
+        got = replaying.predict(x)
+        replaying.predict(x)
+    assert counted(rec, "graph_captures") == [1, 0]
+    assert counted(rec, "graph_replays") == [1, 1]
+    moved = {k: v.clone() for k, v in params.items()}
+    moved["head/b"] += 0.25
+    want = RNNServingEngine(get_config(TAG), moved, device="cpu",
+                            max_batch=4).predict(x)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_replayed_answers_never_alias(replaying):
+    xs = np.random.RandomState(5).randn(6, 4, 20, 6).astype(np.float32)
+    want = [rnn_tagger.forward(
+        get_config(TAG), replaying.params, torch.from_numpy(xi),
+        impl="pallas", schedule=replaying.resolved_schedule).numpy()
+        for xi in xs]
+    got = [replaying.predict(xs[i % len(xs)]) for i in range(14)]
+    assert cuda.GRAPHS["replays"] == 13
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g, want[i % len(xs)])
+        assert not any(np.shares_memory(g, h) for h in got[:i])
+
+
+def test_close_drops_the_graphs(replaying, x):
+    for _ in range(3):
+        replaying.predict(x)
+    assert replaying._replays[0].graphs() == 1
+    replaying.close()
+    assert replaying._replays[0].graphs() == 0
