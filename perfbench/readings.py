@@ -3,14 +3,15 @@
     python3 perfbench/readings.py --workload <cell> --seeds 12 \
         --control-seeds 4 [--first-seed N] [--out FILE]
 
-For each of ``--seeds`` seeds: the cell's weights, events and engine, as a
-run makes them, the traffic's entry called on as many pool items as a run
-compares (``check_calls``), and those answers held to the float32
-reference (the program's reading).  For each of ``--control-seeds``
-seeds: the reference computed with TF32 products, the precision below the
-configuration's float32, put in the program's place on the same events
-(the control's reading).  Prints one JSON line per seed and a summary;
-the benchmark's own runs do not run this.
+For each of ``--seeds`` seeds: the cell's weights, inputs and program, as
+a run makes them, the traffic's entry called on as many pool items as a
+run compares (``check_calls``), and those answers held to the reference
+(the program's reading).  For each of ``--control-seeds`` seeds: the
+entry's ``control``, the reference in the precision below the
+configuration's put in the program's place on the same inputs (the
+control's reading; for the taggers, TF32 products for float32).  Prints
+one JSON line per seed and, for each side, each number's least and
+largest reading; the benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -39,24 +40,8 @@ def program_reading(cell, seed, device):
 
 
 def control_reading(cell, seed, device):
-    import torch
-
-    from perfbench.reference import (make_weights, matmul_precision,
-                                     tagger_blocks)
-
-    cfg = cell.cfg
-    weights = make_weights(cfg, seed, device)
-    pool = run.make_pool(cell, seed)
-    bench = run.Bench(cell, weights, pool, None, None, {})
-    n = len(pool)
-    kept = [(j % n, None) for j in range(cell.traffic["check_calls"])]
-
-    def tf32(x):
-        with matmul_precision(True):
-            return tagger_blocks(cfg, weights, x)
-
-    with torch.inference_mode():
-        return run.compare(bench, kept, answer=tf32)
+    """The control's checks, by the cell's entry (its ``control``)."""
+    return spec.entry(cell.traffic["entry"]).control(cell, seed, device)
 
 
 def main(argv=None) -> int:
@@ -83,16 +68,18 @@ def main(argv=None) -> int:
     for k in range(args.control_seeds):
         seed = args.first_seed + 1000 + k
         checks = control_reading(cell, seed, device)
-        rows.append({"side": "control_tf32", "seed": seed,
+        rows.append({"side": "control", "seed": seed,
                      **{n: v for n, (v, _) in checks.items()}})
         print(json.dumps(rows[-1]), flush=True)
     summary = {"workload": args.workload, "device":
                torch.cuda.get_device_name(device)}
-    for side in ("program", "control_tf32"):
-        gaps = [r["prob_gap_max"] for r in rows if r["side"] == side]
-        if gaps:
-            summary[side] = {"min": min(gaps), "max": max(gaps),
-                             "n": len(gaps)}
+    for side in ("program", "control"):
+        got = [r for r in rows if r["side"] == side]
+        names = [n for n in got[0] if n not in ("side", "seed",
+                                                 "reference_s")] if got else []
+        summary[side] = {n: {"min": min(r[n] for r in got),
+                             "max": max(r[n] for r in got), "n": len(got)}
+                         for n in names if all(n in r for r in got)}
     print(json.dumps(summary), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

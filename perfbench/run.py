@@ -4,22 +4,24 @@
         --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration and a
-traffic mix (``perfbench/configs``, ``perfbench/traffic``).  Set-up makes
-the tagger's weights on the card from the seed, a pool of events from the
-seed, and ``repro_torch``'s ``RNNServingEngine`` on those weights; warms
-the traffic's one shape; then one client calls the traffic's entry
-(``predict`` on chunks, or ``predict_one``) back to back, with no think
-time, for ``--seconds`` (a closed loop).  Each call is timed on the host
-clock from the call to its answer on the host.  ``--trace 1`` runs the
-same window, cut to ``TRACE_SECONDS``, under ``torch.profiler`` and reports
-the per-layer metrics in place of the end-to-end ones.
+traffic mix (``perfbench/configs``, ``perfbench/traffic``).  The traffic's
+``"entry"`` names the module that makes the program and judges it,
+``perfbench/entries/<entry>.py`` (``spec.entry``): its set-up makes the
+weights and a pool of inputs from the seed, the program on those weights,
+and warms the traffic's shapes.  Then one client calls the entry's call
+on the pool's items back to back, with no think time, for ``--seconds``
+(a closed loop); each call answers ``events_per_call`` events and is
+timed on the host clock from the call to its answer on the host.
+``--trace 1`` runs the same window, cut to ``TRACE_SECONDS``, under
+``torch.profiler`` and reports the per-layer metrics in place of the
+end-to-end ones.
 
-After the window, a sample of its calls drawn from the seed is held to the
-plain float32 reference (``perfbench/reference.py``) on the same weights
-and events: the widest gap of a class probability against the
-configuration's limit.  The last line of standard output is the result
-(JSON); the numbers compared are the last lines of standard error.  With
-no card, or fewer than the cell asks for, it exits 3 and prints no result.
+After the window, a sample of its calls drawn from the seed is held by
+the entry's ``compare`` to a plain reference on the same weights and
+inputs, each number against its limit in the configuration.  The last
+line of standard output is the result (JSON); the numbers compared are
+the last lines of standard error.  With no card, or fewer than the cell
+asks for, it exits 3 and prints no result.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import sys  # noqa: E402
 import traceback  # noqa: E402
 from dataclasses import dataclass  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import Callable, Dict, List, Mapping, Optional  # noqa: E402
+from typing import (Callable, Dict, List, Mapping, Optional,  # noqa: E402
+                    Sequence)
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -45,6 +48,8 @@ if sys.path and Path(sys.path[0]).resolve() == HERE:
 for _p in (ROOT, ROOT / "src"):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
+# the entries import this module as perfbench.run: one module, one T0
+sys.modules.setdefault("perfbench.run", sys.modules[__name__])
 
 import numpy as np  # noqa: E402
 
@@ -72,84 +77,23 @@ class Bench:
 
     cell: spec.Cell
     weights: Dict            # the benchmark's weights (the reference's)
-    pool: np.ndarray         # [calls in the pool, rows, T, in]
+    pool: Sequence           # the inputs, one item a call
     engine: object
     call: Callable           # the traffic's entry on one pool item
     stamps: Dict[str, float]  # set-up's steps, seconds since the start
 
 
-def check_sizes(model_cfg, cfg: Mapping) -> None:
-    """The program's registry entry has the configuration's sizes."""
-    r = model_cfg.rnn
-    have = {"cell": r.cell, "seq_len": r.seq_len, "input_size":
-            r.input_size, "hidden": r.hidden, "dense_sizes":
-            list(r.dense_sizes), "n_outputs": r.n_outputs,
-            "output_activation": r.output_activation}
-    want = {k: cfg[k] for k in have}
-    if have != want:
-        raise ValueError(f"{cfg['arch']}: the program's config {have} is "
-                         f"not the benchmark's {want}")
-
-
-def make_pool(cell: spec.Cell, seed: int) -> np.ndarray:
-    from perfbench.generators import GENERATORS
-
-    cfg, t = cell.cfg, cell.traffic
+def build(cell: spec.Cell, seed: int, device,
+          stamps: Optional[Dict[str, float]] = None) -> Bench:
+    """The cell's entry's set-up: weights, inputs and the program, warmed
+    at the traffic's shapes.  ``stamps`` collects the seconds since the
+    start at each step."""
+    t = cell.traffic
     if (t["loop"], t["clients"], t["think_ms"]) != ("closed", 1, 0):
         raise ValueError("the harness drives one closed-loop client with "
                          "no think time")
-    rows = t["events_per_call"]
-    n = t["pool_events"] // rows * rows
-    x = GENERATORS[t["generator"]](n, np.random.default_rng(seed))
-    if x.shape[1:] != (cfg["seq_len"], cfg["input_size"]):
-        raise ValueError(f"{t['generator']} makes events {x.shape[1:]}, "
-                         f"{cfg['arch']} takes ({cfg['seq_len']}, "
-                         f"{cfg['input_size']})")
-    return x.reshape(n // rows, rows, *x.shape[1:])
-
-
-def build(cell: spec.Cell, seed: int, device,
-          stamps: Optional[Dict[str, float]] = None) -> Bench:
-    """Weights, events and the program's engine, warmed at the traffic's
-    shape.  ``stamps`` collects the seconds since the start at each step."""
-    import torch
-
-    stamps = {} if stamps is None else stamps
-    from perfbench.reference import make_weights
-    from repro_torch.kernels.schedule import KernelSchedule
-    from repro_torch.registry import get_config
-    from repro_torch.serving.engine import RNNServingEngine
-
-    stamps["program"] = time.perf_counter() - T0
-    cfg, traffic = cell.cfg, cell.traffic
-    if cfg.get("fp") is not None:
-        raise ValueError("fixed-point configurations are not run yet")
-    model_cfg = get_config(cfg["arch"])
-    check_sizes(model_cfg, cfg)
-    weights = make_weights(cfg, seed, device)
-    stamps["weights"] = time.perf_counter() - T0
-    pool = make_pool(cell, seed)
-    stamps["events"] = time.perf_counter() - T0
-    engine = RNNServingEngine(
-        model_cfg, {k: v.clone() for k, v in weights.items()},
-        schedule=KernelSchedule(**cfg["schedule"]), device=device,
-        cache_dir=str(CACHE_DIR) if device.type == "cuda" else None)
-    if traffic["entry"] == "predict":
-        call = engine.predict
-    elif traffic["entry"] == "predict_one":
-        def call(x, one=engine.predict_one):
-            return one(x[0])[None]
-    else:
-        raise ValueError(f"unknown entry {traffic['entry']!r}")
-    stamps["engine"] = time.perf_counter() - T0
-    for i in range(traffic["warmup_calls"]):
-        call(pool[i % len(pool)])
-        if not i:
-            stamps["first_call"] = time.perf_counter() - T0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stamps["warm"] = time.perf_counter() - T0
-    return Bench(cell, weights, pool, engine, call, stamps)
+    return spec.entry(cell.traffic["entry"]).build(
+        cell, seed, device, {} if stamps is None else stamps)
 
 
 class Sample:
@@ -224,37 +168,11 @@ def window(bench: Bench, seconds: float, seed: int, traced: bool):
 
 
 def compare(bench: Bench, kept, answer: Optional[Callable] = None) -> Dict:
-    """The sampled calls' answers against the reference on the same
-    weights and events: ``{name: [value, limit]}``.  ``answer`` (the
-    control) stands in for the program's answers."""
-    import torch
-
-    from perfbench.reference import matmul_precision, tagger_blocks
-
-    cfg = bench.cell.cfg
-    dev = next(iter(bench.weights.values())).device
-    idx = [i for i, _ in kept]
-    x = torch.from_numpy(bench.pool[idx].reshape(
-        -1, cfg["seq_len"], cfg["input_size"])).to(dev)
-    with torch.inference_mode():
-        with matmul_precision(False):
-            ref = tagger_blocks(cfg, bench.weights, x).cpu().numpy()
-        if answer is not None:
-            got = answer(x).cpu().numpy()
-        else:
-            outs = [o for _, o in kept]
-            shape = (bench.cell.traffic["events_per_call"],
-                     cfg["n_outputs"])
-            bad = sum(o is None or np.shape(o) != shape for o in outs)
-            if bad:
-                return {"answers_missing": [bad, 0]}
-            got = np.concatenate([np.asarray(o) for o in outs])
-    gap = np.abs(got.astype(np.float64) - ref)
-    nonfinite = int((~np.isfinite(got)).any(axis=1).sum())
-    return {"answers_missing": [0, 0],
-            "nonfinite_rows": [nonfinite, 0],
-            "prob_gap_max": [float(np.nan_to_num(gap, nan=np.inf).max()),
-                             cfg["check"]["prob_gap_max"]]}
+    """The sampled calls' answers against the reference, by the cell's
+    entry: ``{name: [value, limit]}``.  ``answer`` (the control) stands
+    in for the program's answers."""
+    return spec.entry(bench.cell.traffic["entry"]).compare(
+        bench, kept, answer)
 
 
 def passed(checks: Mapping) -> bool:

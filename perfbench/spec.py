@@ -2,10 +2,18 @@
 
 A cell (an entry of ``workloads``) names a configuration
 (``configs/<name>.json`` under ``paths``, as the configuration's ``file``
-says) and a traffic mix (``traffic/<name>.json``).  A metric named
+says) and a traffic mix (``traffic/<name>.json``).  The traffic's
+``"entry"`` names the module that builds the program and judges its
+answers, ``entries/<entry>.py`` (modules whose names start with ``_`` are
+their helpers): ``build(cell, seed, device, stamps) -> run.Bench``,
+``compare(bench, kept, answer=None) -> {check: [value, limit]}`` and
+``check_config(cfg, traffic=None)``, which raises where the program's
+registry disagrees with the configuration's file; and, for
+``readings.py``, ``control(cell, seed, device)``, the control's checks.  A metric named
 ``<quantity>.<split>`` or ``<quantity>`` is read by
 ``metrics/<quantity>.py`` (``metrics/<name>.py`` first, where one
-exists): a module with ``read(window) -> float | None``.
+exists): a module with ``read(window) -> float | None``.  So a new model,
+traffic mix or metric is a new file, found by its name.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ from typing import Dict, List, Mapping, Optional
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: where traffic mixes and entry modules are found, read at each call
+TRAFFIC = HERE / "traffic"
+ENTRIES = HERE / "entries"
 
 
 @dataclass
@@ -65,8 +76,7 @@ def make_cell(name: str, workload: Mapping, config_file: Path,
               per_layer: List[Mapping] = ()) -> Cell:
     """A cell from its configuration's file and its traffic mix's name."""
     return Cell(name, workload, json.loads(Path(config_file).read_text()),
-                json.loads((HERE / "traffic" / f"{traffic}.json")
-                           .read_text()),
+                json.loads((TRAFFIC / f"{traffic}.json").read_text()),
                 list(end_to_end), list(per_layer))
 
 
@@ -76,19 +86,38 @@ def metric_file(name: str) -> Path:
         HERE / "metrics" / f"{name.split('.')[0]}.py"
 
 
-_READERS: Dict[Path, ModuleType] = {}
+_MODULES: Dict[Path, ModuleType] = {}
+
+
+def load(path: Path, package: str) -> ModuleType:
+    """The module in ``path`` as ``perfbench.<package>.<stem>``, loaded
+    once."""
+    if path not in _MODULES:
+        spec = importlib.util.spec_from_file_location(
+            f"perfbench.{package}.{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _MODULES[path] = mod
+    return _MODULES[path]
 
 
 def reader(name: str) -> ModuleType:
     """The module that reads metric ``name``."""
-    path = metric_file(name)
-    if path not in _READERS:
-        spec = importlib.util.spec_from_file_location(
-            f"perfbench.metrics.{path.stem}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _READERS[path] = mod
-    return _READERS[path]
+    return load(metric_file(name), "metrics")
+
+
+def entry_names() -> List[str]:
+    return sorted(p.stem for p in ENTRIES.glob("*.py")
+                  if not p.stem.startswith("_"))
+
+
+def entry(name: str) -> ModuleType:
+    """The module of traffic entry ``name``."""
+    path = ENTRIES / f"{name}.py"
+    if name.startswith("_") or not path.exists():
+        raise KeyError(f"no entry {name!r} in {ENTRIES}; entries: "
+                       f"{entry_names()}")
+    return load(path, "entries")
 
 
 def read_metrics(metrics: List[Mapping], window) -> Dict[str, Dict]:

@@ -2,8 +2,15 @@
 broken underneath: a run without the harness's look for a card, on the
 CPU at a size a test holds (chunks of 16 events), must come out not
 correct for each fault a cell can have, and correct without one.  (One
-card: there is no exchange between cards to leave out.)"""
+card: there is no exchange between cards to leave out.)
 
+These are the taggers' faults: they run on the cells whose traffic entry
+is in ``ENTRIES``.  Another entry brings its faults in a module of its
+own, ``test_perfbench_faults_<entry>.py`` or any ``test_*.py`` here, with
+the ``ENTRIES`` it covers; ``test_every_entry_has_its_faults`` holds
+every cell to one."""
+
+import ast
 import dataclasses
 
 import numpy as np
@@ -14,7 +21,8 @@ from perfbench import run, spec
 from repro_torch.models import rnn_tagger
 from repro_torch.serving.engine import RNNServingEngine
 
-CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
+#: the traffic entries whose cells these faults break
+ENTRIES = ("predict", "predict_one")
 #: the cells measured and left out for their spread (PERF.md §7): their
 #: entries (``predict_one``, the non-static schedule) stay tested
 OFF_BENCHMARK = {
@@ -31,6 +39,10 @@ def cell_of(name):
                               spec.HERE / "configs" / f"{config}.json",
                               traffic)
     return spec.resolve(name)
+
+
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]
+         if cell_of(w["name"]).traffic["entry"] in ENTRIES]
 
 
 def small(name):
@@ -120,3 +132,19 @@ def test_failed_calls_are_counted(monkeypatch):
     monkeypatch.setattr(RNNServingEngine, "predict", flaky)
     r = one_run("quickdraw-lstm.bulk")
     assert r["failed"] > 0 and not r["correct"]
+
+
+def test_every_entry_has_its_faults():
+    """Each cell's traffic entry is named in the ``ENTRIES`` of some test
+    module here, which breaks its timed path."""
+    covered = set()
+    for path in spec.HERE.joinpath("tests").glob("test_*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "ENTRIES"
+                    for t in node.targets):
+                covered |= set(ast.literal_eval(node.value))
+    entries = {cell_of(name).traffic["entry"] for name in
+               [w["name"] for w in spec.load_benchmark()["workloads"]]
+               + sorted(OFF_BENCHMARK)}
+    assert entries <= covered, sorted(entries - covered)

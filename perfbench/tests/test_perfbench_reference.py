@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import run
+from perfbench import spec
 from perfbench.reference import make_weights, tagger
 from perfbench.spec import HERE, load_benchmark, make_cell
 
@@ -89,7 +89,7 @@ def test_make_weights_layout_and_seed():
 
 
 def test_check_sizes_refuses_another_config():
-    from repro_torch.registry import get_config
     cfg = dict(config("quickdraw-lstm"), hidden=64)
-    with pytest.raises(ValueError):
-        run.check_sizes(get_config("quickdraw-lstm"), cfg)
+    for entry in ("predict", "predict_one"):
+        with pytest.raises(ValueError):
+            spec.entry(entry).check_config(cfg)

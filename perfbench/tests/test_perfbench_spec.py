@@ -62,26 +62,51 @@ def test_cell_resolves(name):
     assert cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
         assert callable(spec.reader(m["name"]).read)
-    cfg, t = cell.cfg, cell.traffic
-    x = GENERATORS[t["generator"]](3, np.random.default_rng(1))
-    assert x.shape == (3, cfg["seq_len"], cfg["input_size"])
-    assert x.dtype == np.float32
+    t = cell.traffic
+    assert (t["loop"], t["clients"], t["think_ms"]) == ("closed", 1, 0)
+    assert t["events_per_call"] >= 1 and t["check_calls"] >= 1
+    assert t["pool_events"] >= t["events_per_call"]
+    # the entry's own look: the tagger's checks that the traffic's
+    # generator makes float32 events of the configuration's shape
+    spec.entry(t["entry"]).check_config(cell.cfg, t)
 
 
 def test_configs():
-    from repro_torch.registry import get_config
-
-    from perfbench.run import check_sizes
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
-    used = {w["config"] for w in BENCH["workloads"]}
     for c in BENCH["configs"]:
-        assert c["name"] in used
+        cells = [spec.resolve(w["name"]) for w in BENCH["workloads"]
+                 if w["config"] == c["name"]]
+        assert cells
         assert c["file"].startswith("perfbench/")
-        assert c["reduced"] == []
         cfg = json.loads((spec.ROOT / c["file"]).read_text())
-        check_sizes(get_config(cfg["arch"]), cfg)
-        assert cfg["check"]["prob_gap_max"] > 0
+        # every cut is named, by a key of the configuration's file
+        assert isinstance(c["reduced"], list)
+        assert set(c["reduced"]) <= set(cfg), c["reduced"]
+        for cell in cells:
+            spec.entry(cell.traffic["entry"]).check_config(cfg)
+        assert cfg["check"] and all(lim > 0 for lim in
+                                    cfg["check"].values())
+
+
+def test_entries_found_by_name():
+    names = spec.entry_names()
+    assert {"predict", "predict_one"} <= set(names)
+    assert not any(n.startswith("_") for n in names)
+    for name in names:
+        mod = spec.entry(name)
+        for fn in ("build", "compare", "check_config"):
+            assert callable(getattr(mod, fn)), (name, fn)
+    assert {w["traffic"] for w in BENCH["workloads"]} <= \
+        {p.stem for p in spec.TRAFFIC.glob("*.json")}
+    for path in spec.TRAFFIC.glob("*.json"):
+        assert json.loads(path.read_text())["entry"] in names, path
+
+
+@pytest.mark.parametrize("name", ["_tagger", "predict_many"])
+def test_unknown_entry_names_those_there_are(name):
+    with pytest.raises(KeyError, match="predict_one"):
+        spec.entry(name)
 
 
 def test_generators_are_seeded():
