@@ -53,6 +53,23 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class GraniteConfig:
+    """Granite 4.0's scalars (``model_type`` ``granitemoehybrid``): the
+    token embeddings times ``embedding_multiplier``, each sublayer's output
+    times ``residual_multiplier`` before its residual add, the attention's
+    softmax scale ``attention_multiplier`` (in place of 1/sqrt(head_dim)),
+    the logits divided by ``logits_scaling``; and no rotary embeddings
+    (Granite 4.0-H's ``position_embedding_type`` "nope", the only one the
+    port has).  None on a config leaves every one of these as the other
+    families compute it."""
+
+    embedding_multiplier: float
+    attention_multiplier: float
+    residual_multiplier: float
+    logits_scaling: float
+
+
+@dataclass(frozen=True)
 class RNNConfig:
     """Paper-core recurrent layer configuration (LSTM / GRU taggers)."""
 
@@ -93,6 +110,12 @@ class ModelConfig:
     constraint).  Two defaults differ from ``repro``'s: ``family`` ("rnn",
     not "dense") and ``compute_dtype`` ("float32", not "bfloat16"); every
     LM config of the port sets both explicitly (``configs/*.py``).
+
+    Two fields are the port's own (:data:`PORT_ONLY_FIELDS`), at their
+    defaults on every architecture ``repro`` has: ``pattern``, a hybrid's
+    block kinds when they are not Griffin's (``rglru.pattern``): "mamba"
+    (a Mamba-2 mixer, ``ssm``'s widths) and "attn" (full causal
+    attention); and ``granite``, Granite's scalars (:class:`GraniteConfig`).
     """
 
     name: str = "unnamed"
@@ -119,6 +142,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    pattern: Tuple[str, ...] = ()      # hybrid block kinds; () -> rglru's
+    granite: Optional[GraniteConfig] = None
 
     # encoder-decoder (whisper)
     enc_dec: bool = False
@@ -188,13 +213,16 @@ class ModelConfig:
             mlp = m.n_experts * 3 * d * dff + d * m.n_experts
             mlp += m.n_shared_experts * 3 * d * dff
         if self.family == "hybrid":
-            rg = self.rglru
-            w = rg.lru_width or d
-            n_rec = sum(1 for p in self._pattern_for_layers() if p == "rglru")
-            n_att = L - n_rec
-            rec = 2 * d * w + rg.conv_width * w + 3 * w + w * d  # in/out proj + conv + gates
-            return (emb + n_rec * (rec + mlp + 2 * d)
-                    + n_att * (attn + mlp + 2 * d) + d)
+            mixer = {"local_attn": attn, "attn": attn}
+            if self.rglru is not None:
+                w = self.rglru.lru_width or d
+                # in/out proj + conv + gates
+                mixer["rglru"] = (2 * d * w + self.rglru.conv_width * w
+                                  + 3 * w + w * d)
+            if self.ssm is not None:
+                mixer["mamba"] = self._mamba_params()
+            return (emb + sum(mixer[k] + mlp + 2 * d
+                              for k in self._pattern_for_layers()) + d)
         per_layer = attn + mlp + 2 * d
         if self.enc_dec:
             # encoder + decoder stacks; decoder layers add cross-attention
@@ -202,9 +230,30 @@ class ModelConfig:
             return emb + L * per_layer + self.n_decoder_layers * (attn + d) + d
         return emb + L * per_layer + d
 
+    @property
+    def hybrid_pattern(self) -> Tuple[str, ...]:
+        """The hybrid's repeating block kinds: ``pattern``, else Griffin's
+        ``rglru.pattern``."""
+        return self.pattern or self.rglru.pattern
+
     def _pattern_for_layers(self):
-        pat = self.rglru.pattern
+        pat = self.hybrid_pattern
         return [pat[i % len(pat)] for i in range(self.n_layers)]
+
+    def _mamba_params(self) -> int:
+        """One Mamba-2 mixer of a hybrid, every tensor of its specs
+        (``models/ssm.py::ssm_specs``).  The ssm family's count above is
+        ``repro``'s, which leaves out the conv bias, ``dt_bias`` and the
+        gated norm's scale; it is kept for parity."""
+        s, d = self.ssm, self.d_model
+        d_in = s.expand * d
+        h = d_in // s.head_dim
+        conv_dim = d_in + 2 * s.n_groups * s.d_state
+        return (d * (2 * d_in + 2 * s.n_groups * s.d_state + h)  # in_proj
+                + (s.d_conv + 1) * conv_dim                      # conv w, b
+                + 3 * h                                          # dt_bias, A_log, D
+                + d_in                                           # gated norm
+                + d_in * d)                                      # out_proj
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: routed top-k + shared only)."""
@@ -219,6 +268,11 @@ class ModelConfig:
                       + d * m.n_experts)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return emb + L * (attn + mlp_active + 2 * d) + d
+
+
+#: ModelConfig fields that ``repro``'s ModelConfig does not have; every
+#: architecture ``repro`` has leaves them at their defaults
+PORT_ONLY_FIELDS = ("pattern", "granite")
 
 
 @dataclass(frozen=True)

@@ -42,11 +42,14 @@ def attention_model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
         if cfg.enc_dec:
             # one token: self cache S + cross cache S (both sized by shape)
             return 4.0 * B * H * hd * (S + S) * cfg.n_decoder_layers
-        if cfg.rglru is not None:
-            n_att = sum(1 for i in range(cfg.n_layers)
-                        if cfg.rglru.pattern[i % len(cfg.rglru.pattern)]
-                        == "local_attn")
-            return 4.0 * B * H * hd * min(cfg.rglru.window, S) * n_att
+        if cfg.family == "hybrid":
+            # local attention over its window, full attention (the
+            # port's own hybrids) over the whole cache, nothing elsewhere
+            kinds = cfg._pattern_for_layers()
+            if cfg.rglru is not None:
+                n_att = kinds.count("local_attn")
+                return 4.0 * B * H * hd * min(cfg.rglru.window, S) * n_att
+            return 4.0 * B * H * hd * S * kinds.count("attn")
         # one token attends to the whole cache
         return 4.0 * B * H * hd * S * cfg.n_layers
     if cfg.enc_dec:
@@ -56,12 +59,13 @@ def attention_model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
         cross = 4 * B * Stxt * S * H * hd * cfg.n_decoder_layers
         return enc + dec + cross
     per_layer = 2.0 * B * S * S * H * hd          # causal half of 4BS^2Hhd
-    if cfg.rglru is not None:
-        n_att = sum(1 for i in range(cfg.n_layers)
-                    if cfg.rglru.pattern[i % len(cfg.rglru.pattern)]
-                    == "local_attn")
-        w = min(cfg.rglru.window, S)
-        return 4.0 * B * S * w * H * hd * n_att * 0.5 * 2
+    if cfg.family == "hybrid":
+        kinds = cfg._pattern_for_layers()
+        if cfg.rglru is not None:
+            n_att = kinds.count("local_attn")
+            w = min(cfg.rglru.window, S)
+            return 4.0 * B * S * w * H * hd * n_att * 0.5 * 2
+        return per_layer * kinds.count("attn")
     return per_layer * cfg.n_layers
 
 

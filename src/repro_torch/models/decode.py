@@ -1,7 +1,9 @@
 """Single-token decode for every LM family: the paper's "static mode"
 state update at LM scale (the state is resident: a KV cache, an SSM state,
 an LRU state and a local-attention ring; one step processes each new
-token).
+token).  A hybrid may hold two kinds side by side: granite-4.0-h-micro's
+Mamba-2 layers keep an SSM state and a conv tail, its attention layers a
+full-length KV cache, in one cache dict.
 
 The port of ``repro/models/decode.py``:
 
@@ -17,10 +19,12 @@ The port of ``repro/models/decode.py``:
     stay plain tensor ops, as ``repro`` leaves them to XLA outside any
     kernel.
   * moe (routed experts, ``models/moe.py``), ssm (``models/ssm.py``),
-    hybrid (RG-LRU and ring-buffer local attention, ``models/rglru.py``)
-    and enc-dec (sinusoidal positions, self- and cross-attention) accept
-    a schedule and ignore it, as ``repro`` does: their per-token math is
-    einsums and elementwise ops outside any Pallas kernel.
+    hybrid (Griffin's RG-LRU and ring-buffer local attention,
+    ``models/rglru.py``; or Mamba-2 and NoPE full attention with Granite's
+    scalars, ``cfg.pattern``) and enc-dec (sinusoidal positions, self- and
+    cross-attention) accept a schedule and ignore it, as ``repro`` does:
+    their per-token math is einsums and elementwise ops outside any Pallas
+    kernel.
 
 ``decode_steps`` is the speculative verify pass: S tokens a row in one
 pass with the bits of S sequential steps (dense and vlm under a kernel
@@ -42,6 +46,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_step import decode_matmul
 from repro_torch.kernels.ops import resident
@@ -50,7 +55,9 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.attention import (decode_attention,
                                           decode_attention_masked)
 from repro_torch.models.init import ParamSpec, ParamSpecs
-from repro_torch.models.layers import (ACTIVATIONS, apply_rope, embed, norm,
+from repro_torch.models.layers import (ACTIVATIONS, apply_rope,
+                                      attention_scale, embed, embed_scale,
+                                      norm, residual_scale, uses_rope,
                                       weak_scale)
 from repro_torch.models.mlp import glu_activation, mlp
 from repro_torch.models.moe import moe_block
@@ -79,7 +86,10 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
         an RG-LRU's ``_state`` [.., batch, width] (float32) and ``_conv``,
         a local-attention ring's ``_k`` / ``_v`` [.., batch, W, kv_heads,
         head_dim] and ``_pos`` [.., batch, W] (int32, position + 1; 0 is
-        empty), W = min(window, max_len);
+        empty), W = min(window, max_len); a Mamba-2 block's ``_state``
+        [.., batch, heads, head_dim, d_state] (float32) and ``_conv``
+        [.., batch, d_conv-1, conv_dim]; a full-attention block's ``_k`` /
+        ``_v`` [.., batch, max_len, kv_heads, head_dim];
       * enc-dec: the decoder's ``cache/k`` / ``cache/v`` and the encoder's
         ``cache/xk`` / ``cache/xv``, each [L_dec, batch, max_len,
         kv_heads, head_dim]."""
@@ -99,16 +109,31 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
         return specs
     if cfg.family == "hybrid":
         rg = cfg.rglru
-        w = rg.lru_width or cfg.d_model
-        W = min(rg.window, max_len)
-        n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
+        pattern = cfg.hybrid_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pattern))
         groups = [(f"cache/hyb{j}", kind, (n_super, batch))
-                  for j, kind in enumerate(rg.pattern)]
-        groups += [(f"cache/hybrem{j}", rg.pattern[j], (batch,))
+                  for j, kind in enumerate(pattern)]
+        groups += [(f"cache/hybrem{j}", pattern[j], (batch,))
                    for j in range(rem)]
         for pre, kind, lead in groups:
             la = ("layers", "batch")[-len(lead):]
-            if kind == "rglru":
+            if kind == "mamba":
+                _, h, conv_dim = ssm_dims(cfg)
+                s = cfg.ssm
+                specs[f"{pre}_state"] = ParamSpec(
+                    lead + (h, s.head_dim, s.d_state), "zeros", "float32",
+                    logical_axes=la + ("ssm_heads", None, None))
+                specs[f"{pre}_conv"] = ParamSpec(
+                    lead + (s.d_conv - 1, conv_dim), "zeros", cache_dtype,
+                    logical_axes=la + (None, "ssm_inner"))
+            elif kind == "attn":
+                for n in ("k", "v"):
+                    specs[f"{pre}_{n}"] = ParamSpec(
+                        lead + (max_len, hk, hd), "zeros", cache_dtype,
+                        logical_axes=la + ("kv_seq", "kv_heads_r",
+                                           "head_dim"))
+            elif kind == "rglru":
+                w = rg.lru_width or cfg.d_model
                 specs[f"{pre}_state"] = ParamSpec(
                     lead + (w,), "zeros", "float32",
                     logical_axes=la + ("lru_width",))
@@ -116,6 +141,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                     lead + (rg.conv_width - 1, w), "zeros", cache_dtype,
                     logical_axes=la + (None, "lru_width"))
             else:
+                W = min(rg.window, max_len)
                 for n in ("k", "v"):
                     specs[f"{pre}_{n}"] = ParamSpec(
                         lead + (W, hk, hd), "zeros", cache_dtype,
@@ -187,14 +213,16 @@ def _qkv(cfg: ModelConfig, x, p, pre, pos, rope=True):
 
 def _attn_decode(cfg: ModelConfig, x, p, pre, ck, cv, pos, window=0,
                  rope=True):
-    """x: [b,1,d] pre-normed.  Returns (out [b,1,d], new_ck, new_cv)."""
-    q, k, v = _qkv(cfg, x, p, pre, pos, rope)
+    """x: [b,1,d] pre-normed.  Returns (out [b,1,d], new_ck, new_cv).
+    No rotary embeddings under Granite's NoPE; its softmax scale where it
+    has one."""
+    q, k, v = _qkv(cfg, x, p, pre, pos, rope and uses_rope(cfg))
     ck = _update_cache(ck, k, pos)
     cv = _update_cache(cv, v, pos)
     ck = constrain(ck, "batch", "kv_seq", "kv_heads_r", "head_dim")
     cv = constrain(cv, "batch", "kv_seq", "kv_heads_r", "head_dim")
     o = decode_attention(q, ck.to(x.dtype), cv.to(x.dtype), pos + 1,
-                         window=window)
+                         scale=attention_scale(cfg), window=window)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
                        p[f"{pre}/wo"].to(x.dtype))
     return out, ck, cv
@@ -411,9 +439,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     under any schedule, is the einsum path."""
     tf.require_lm(cfg, "decode_step")
     cdt = getattr(torch, cfg.compute_dtype)
-    x = embed(tokens, params["embed/table"], cdt)
-    if cfg.family in ("dense", "vlm", "hybrid") or cfg.enc_dec:
-        x = weak_scale(x, math.sqrt(cfg.d_model))
+    x = embed_scale(cfg, embed(tokens, params["embed/table"], cdt))
     if schedule is not None and decode_schedulable(cfg):
         if packed is None:
             packed = pack_decode_params(cfg, params)
@@ -474,36 +500,58 @@ def _ssm_layers(cfg, params, cache, new_cache, x):
     return x
 
 
+#: the span of each hybrid block kind's mixer (``tracing``)
+_MIXER_SPANS = {"mamba": "hybrid.mamba", "attn": "hybrid.attn",
+                "local_attn": "hybrid.attn", "rglru": "hybrid.rglru"}
+
+
 def _hybrid_block(cfg, x, p, pre, kind, c, pos):
-    """One Griffin layer ``pre`` (an RG-LRU or a local-attention block,
+    """One hybrid layer ``pre`` (its mixer: an RG-LRU, Griffin's local
+    attention, a Mamba-2 state update or full attention over the KV cache;
     then the MLP) over its cache entries ``c`` (``cache/{pre}_*`` without
-    the prefix); ``c`` is updated in place (a dict)."""
+    the prefix); ``c`` is updated in place (a dict).  Spans
+    ``hybrid.<mixer>`` and ``hybrid.mlp`` while a recording is on."""
+    rec = tracing.ACTIVE
+    if rec is not None:
+        span = rec.open(_MIXER_SPANS[kind])
     hn = norm(cfg, x, p, f"{pre}/norm1")
-    if kind == "rglru":
+    if kind == "mamba":
+        out, (c["state"], c["conv"]) = ssm_decode_step(
+            cfg, hn, p, f"{pre}/ssm", c["state"], c["conv"])
+    elif kind == "attn":
+        out, c["k"], c["v"] = _attn_decode(
+            cfg, hn, p, f"{pre}/attn", c["k"], c["v"], pos)
+    elif kind == "rglru":
         out, (c["state"], c["conv"]) = rglru_decode_step(
             cfg, hn, p, f"{pre}/mix", c["state"], c["conv"])
     else:
         out, c["k"], c["v"], c["pos"] = _local_attn_decode(
             cfg, hn, p, f"{pre}/attn", c["k"], c["v"], c["pos"], pos,
             cfg.rglru.window)
-    x = x + out
+    x = x + residual_scale(cfg, out)
+    if rec is not None:
+        rec.close(span)
+        span = rec.open("hybrid.mlp")
     h2 = norm(cfg, x, p, f"{pre}/norm2")
-    return x + mlp(cfg, h2, p, f"{pre}/mlp")
+    x = x + residual_scale(cfg, mlp(cfg, h2, p, f"{pre}/mlp"))
+    if rec is not None:
+        rec.close(span)
+    return x
 
 
 def _hybrid_layers(cfg, params, cache, new_cache, x, pos):
     """hybrid: the stacked super-blocks ``hyb{j}`` in turn (the pattern's
     blocks within each), then the remainder layers ``hybrem{j}``."""
-    rg = cfg.rglru
-    n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
+    pattern = cfg.hybrid_pattern
+    n_super, rem = divmod(cfg.n_layers, len(pattern))
     stacked = {k: v for k, v in params.items()
                if k.startswith("hyb") and not k.startswith("hybrem")}
     names = {j: [k for k in cache if k.startswith(f"cache/hyb{j}_")]
-             for j in range(len(rg.pattern))}
+             for j in range(len(pattern))}
     outs = {k: [] for ks in names.values() for k in ks}
     for l in range(n_super):
         p_l = _layer(stacked, l)
-        for j, kind in enumerate(rg.pattern):
+        for j, kind in enumerate(pattern):
             pre = f"cache/hyb{j}_"
             c = {k[len(pre):]: cache[k][l] for k in names[j]}
             x = _hybrid_block(cfg, x, p_l, f"hyb{j}", kind, c, pos)
@@ -515,7 +563,7 @@ def _hybrid_layers(cfg, params, cache, new_cache, x, pos):
         pre = f"cache/hybrem{j}_"
         c = {k[len(pre):]: v for k, v in cache.items() if k.startswith(pre)}
         x = _hybrid_block(cfg, x, tf.slice_layer(params, f"hybrem{j}/"),
-                          f"hybrem{j}", rg.pattern[j], c, pos)
+                          f"hybrem{j}", pattern[j], c, pos)
         new_cache.update({pre + k: v for k, v in c.items()})
     return x
 

@@ -7,6 +7,7 @@ compute in float32 and return the input's dtype, as in ``repro``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -95,6 +96,44 @@ def weak_scale(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x * c`` with the Python float first rounded to x's dtype, as jnp
     treats a weakly typed scalar (rounded on the host: no device copy)."""
     return x * float(torch.tensor(c, dtype=x.dtype))
+
+
+def embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The token embeddings as the first layer takes them: Granite's
+    ``embedding_multiplier`` (a plain product, as Granite computes it);
+    else sqrt(d_model) for the families that scale (gemma, griffin,
+    whisper's decoder), rounded as jnp rounds a weak scalar."""
+    if cfg.granite is not None:
+        return x * cfg.granite.embedding_multiplier
+    if cfg.family in ("dense", "vlm", "hybrid") or cfg.enc_dec:
+        return weak_scale(x, math.sqrt(cfg.d_model))
+    return x
+
+
+def residual_scale(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output as it joins the residual stream: times
+    Granite's ``residual_multiplier``, else as it is."""
+    if cfg.granite is None:
+        return h
+    return h * cfg.granite.residual_multiplier
+
+
+def uses_rope(cfg: ModelConfig) -> bool:
+    """Whether self-attention rotates q and k (not with Granite's NoPE)."""
+    return cfg.granite is None
+
+
+def attention_scale(cfg: ModelConfig) -> Optional[float]:
+    """The softmax scale: Granite's ``attention_multiplier``, else None
+    (1/sqrt(head_dim), the attention functions' default)."""
+    return None if cfg.granite is None else cfg.granite.attention_multiplier
+
+
+def logits_scale(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Granite's logits over ``logits_scaling``; else as they are."""
+    if cfg.granite is None:
+        return logits
+    return logits / cfg.granite.logits_scaling
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

@@ -6,7 +6,14 @@ single source of truth for the parameters, with the layer weights stacked
 along a leading [L, ...] dim as in ``repro`` (the hybrid family:
 ``hyb{j}/`` stacked over its super-blocks, ``hybrem{j}/`` for the
 remainder layers; enc-dec: ``encoder/`` and ``xdecoder/``), so both
-packages hold the same flat dicts.
+packages hold the same flat dicts.  A hybrid's super-block is its pattern
+of block kinds: Griffin's RG-LRU and local attention
+(recurrentgemma-9b), or the port's own Mamba-2 mixer and full attention
+(granite-4.0-h-micro, ``cfg.pattern``), each kind followed by the MLP.
+Granite's scalars (``cfg.granite``: embedding, residual and logits
+multipliers, the softmax scale, NoPE) apply where the config has them
+(``models/layers.py``) and leave every other architecture's numbers as
+they were.
 
 ``forward`` runs a whole sequence (prefill, the training forward pass):
 token embeddings (vlm: the projected image patches first; enc-dec: the
@@ -38,8 +45,10 @@ from repro_torch.models.attention import (NEG_INF, _finalize, _gqa_scores,
                                           _gqa_values, _merge,
                                           blockwise_attention)
 from repro_torch.models.init import ParamSpec, ParamSpecs
-from repro_torch.models.layers import (apply_rope, embed, norm, norm_specs,
-                                       softcap, weak_scale)
+from repro_torch.models.layers import (apply_rope, attention_scale, embed,
+                                       embed_scale, logits_scale, norm,
+                                       norm_specs, residual_scale, softcap,
+                                       uses_rope, weak_scale)
 from repro_torch.models.mlp import mlp, mlp_specs
 from repro_torch.models.moe import moe_block, moe_specs, padded_n_experts
 from repro_torch.models.rglru import rglru_mix, rglru_specs
@@ -101,17 +110,20 @@ def _layer_specs(cfg: ModelConfig, n_stacked: int,
 
 
 def _hybrid_specs(cfg: ModelConfig) -> ParamSpecs:
-    """Griffin pattern: super-blocks of (rglru, rglru, local_attn) stacked
-    as ``hyb{j}/``, plus the remainder layers ``hybrem{j}/`` unstacked."""
-    rg = cfg.rglru
-    n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
-    groups = [(f"hyb{j}", kind, n_super) for j, kind in enumerate(rg.pattern)]
-    groups += [(f"hybrem{j}", rg.pattern[j], None) for j in range(rem)]
+    """The hybrid's pattern (Griffin's (rglru, rglru, local_attn), or
+    ``cfg.pattern``'s mamba and attn blocks): super-blocks stacked as
+    ``hyb{j}/``, plus the remainder layers ``hybrem{j}/`` unstacked."""
+    pattern = cfg.hybrid_pattern
+    n_super, rem = divmod(cfg.n_layers, len(pattern))
+    groups = [(f"hyb{j}", kind, n_super) for j, kind in enumerate(pattern)]
+    groups += [(f"hybrem{j}", pattern[j], None) for j in range(rem)]
     specs: ParamSpecs = {}
     for pre, kind, n in groups:
         specs.update(norm_specs(cfg, f"{pre}/norm1", n))
         if kind == "rglru":
             specs.update(rglru_specs(cfg, f"{pre}/mix", n))
+        elif kind == "mamba":
+            specs.update(ssm_specs(cfg, f"{pre}/ssm", n))
         else:
             specs.update(_attn_specs(cfg, f"{pre}/attn", n))
         specs.update(norm_specs(cfg, f"{pre}/norm2", n))
@@ -158,15 +170,16 @@ def slice_layer(params: Dict, prefix: str) -> Dict:
 
 def logits_fn(cfg: ModelConfig, params: Dict,
               x: torch.Tensor) -> torch.Tensor:
-    """x: [b, s, d] -> logits [b, s, V] (padded vocab), soft-capped.  A plain
-    product, as ``repro`` leaves it to XLA outside any kernel."""
+    """x: [b, s, d] -> logits [b, s, V] (padded vocab), soft-capped (and
+    over Granite's ``logits_scaling``).  A plain product, as ``repro``
+    leaves it to XLA outside any kernel."""
     if cfg.tie_embeddings:
         w = params["embed/table"].to(x.dtype)                # [V, d]
         logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
         logits = torch.einsum("bsd,dv->bsv", x,
                               params["unembed/w"].to(x.dtype))
-    logits = softcap(logits, cfg.logits_softcap)
+    logits = logits_scale(cfg, softcap(logits, cfg.logits_softcap))
     return constrain(logits, "batch", "seq_nosp", "vocab")
 
 
@@ -193,7 +206,8 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
     """Pre-normed input -> attention output (before the residual add).
     x: [b, s, d]; ``kv_source`` (cross-attention) gives k and v.  Rotary
     embeddings at positions ``arange(s) + pos_offset``, none for the audio
-    family or cross-attention.  Under a context in mode 'sp' with TP > 1
+    family, cross-attention or Granite's NoPE; the softmax scale is
+    Granite's where it has one.  Under a context in mode 'sp' with TP > 1
     a causal block runs ``_sp_attention``, else the heads-TP blockwise
     schedule."""
     s = x.shape[1]
@@ -202,7 +216,8 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
     q = torch.einsum("bsd,dhk->bshk", x, p[f"{prefix}/wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", xs, p[f"{prefix}/wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", xs, p[f"{prefix}/wv"].to(x.dtype))
-    if kv_source is None and cfg.family != "audio":
+    scale = attention_scale(cfg)
+    if kv_source is None and cfg.family != "audio" and uses_rope(cfg):
         pos = torch.arange(s, device=x.device) + pos_offset
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -212,22 +227,22 @@ def attention_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, prefix: str,
         k = constrain(k, "batch", None, None, "head_dim")
         v = constrain(v, "batch", None, None, "head_dim")
         o = _sp_attention(q, k, v, causal=causal, window=window, tp=tp,
-                          chunk_kv=min(cfg.attn_chunk_kv, 512))
+                          chunk_kv=min(cfg.attn_chunk_kv, 512), scale=scale)
     else:
         # heads-TP: gather sequence, shard heads (exact triangular schedule)
         q = constrain(q, "batch", None, "heads", "head_dim")
         k = constrain(k, "batch", None, "kv_heads", "head_dim")
         v = constrain(v, "batch", None, "kv_heads", "head_dim")
         o = blockwise_attention(q, k, v, causal=causal, window=window,
-                                chunk_q=cfg.attn_chunk_q,
+                                scale=scale, chunk_q=cfg.attn_chunk_q,
                                 chunk_kv=cfg.attn_chunk_kv)
     return torch.einsum("bshk,hkd->bsd", o.to(x.dtype),
                         p[f"{prefix}/wo"].to(x.dtype))
 
 
 def _sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool, window: int, tp: int,
-                  chunk_kv: int) -> torch.Tensor:
+                  causal: bool, window: int, tp: int, chunk_kv: int,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Sequence-parallel attention: q cut into ``tp`` chunks along the
     sequence (the chunk-grid dim sharded over 'model', one chunk per
     rank), each attending to the whole (gathered) KV with rectangular
@@ -240,14 +255,16 @@ def _sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = constrain(q.reshape(b, tp, cq, h, d),
                    "batch", "seq_chunks", None, None, None)
     o = torch.stack([_masked_rect(qg[:, i], k, v, i * cq, causal, window,
-                                  chunk_kv) for i in range(tp)], dim=1)
+                                  chunk_kv, scale) for i in range(tp)],
+                    dim=1)
     o = constrain(o, "batch", "seq_chunks", None, None, None)
     return o.reshape(b, s, h, d)
 
 
 def _masked_rect(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_off: int, causal: bool, window: int,
-                 chunk_kv: int) -> torch.Tensor:
+                 chunk_kv: int, scale: Optional[float] = None
+                 ) -> torch.Tensor:
     """Rectangular blockwise attention for one q chunk at offset
     ``q_off``: qc [b, cq, h, d] against every kv block of k / v [b, sk,
     hk, d] (``sk // chunk`` blocks), the causal / window mask applied to
@@ -257,7 +274,7 @@ def _masked_rect(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     ck = min(chunk_kv, sk)
     nk = sk // ck
-    qs = weak_scale(qc, 1.0 / math.sqrt(d))
+    qs = weak_scale(qc, 1.0 / math.sqrt(d) if scale is None else scale)
     dev = qc.device
     q_pos = torch.arange(cq, device=dev) + q_off
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -314,15 +331,23 @@ def ssm_layer(cfg, x, p, pre):
 
 
 def hybrid_layer(cfg, x, p, pre, kind):
+    """One block of the hybrid's pattern: its mixer (an RG-LRU, Griffin's
+    local attention, a Mamba-2 mixer or full causal attention), then the
+    MLP, each sublayer pre-normed into the residual."""
     h = norm(cfg, _residual_in(x), p, f"{pre}/norm1")
     if kind == "rglru":
         h = rglru_mix(cfg, h, p, f"{pre}/mix")
+    elif kind == "mamba":
+        h = ssm_block(cfg, h, p, f"{pre}/ssm")
+    elif kind == "attn":
+        h = attention_block(cfg, h, p, f"{pre}/attn", causal=True)
     else:
         h = attention_block(cfg, h, p, f"{pre}/attn", causal=True,
                             window=cfg.rglru.window)
-    x = _residual_in(x + h)
+    x = _residual_in(x + residual_scale(cfg, h))
     h2 = norm(cfg, x, p, f"{pre}/norm2")
-    return _residual_in(x + mlp(cfg, h2, p, f"{pre}/mlp"))
+    return _residual_in(x + residual_scale(cfg, mlp(cfg, h2, p,
+                                                      f"{pre}/mlp")))
 
 
 # ---------------------------------------------------------------------------
@@ -429,8 +454,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         return norm(cfg, x, params, "final_norm"), aux
 
     x = embed(tokens, params["embed/table"], cdt)
-    if cfg.family in ("dense", "vlm", "hybrid"):
-        x = weak_scale(x, math.sqrt(cfg.d_model))  # gemma / griffin scaling
+    x = embed_scale(cfg, x)         # gemma / griffin / granite scaling
     if cfg.frontend == "vision":
         img = torch.einsum("bnd,de->bne", img_embeds.to(cdt),
                            params["img_proj/w"].to(cdt))
@@ -455,11 +479,11 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         aux["moe_load_balance"] = lb / cfg.n_layers
         aux["moe_z_loss"] = zl / cfg.n_layers
     elif cfg.family == "hybrid":
-        rg = cfg.rglru
-        n_super, rem = divmod(cfg.n_layers, len(rg.pattern))
+        pattern = cfg.hybrid_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pattern))
 
         def super_fn(h, p_sb):
-            for j, kind in enumerate(rg.pattern):
+            for j, kind in enumerate(pattern):
                 h = hybrid_layer(cfg, h, p_sb, f"hyb{j}", kind)
             return h
 
@@ -467,7 +491,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         for j in range(rem):
             # j bound now: a checkpoint calls the layer again in backward
             x = _remat(cfg, lambda h, p, j=j: hybrid_layer(
-                cfg, h, p, f"hybrem{j}", rg.pattern[j]))(
+                cfg, h, p, f"hybrem{j}", pattern[j]))(
                     x, slice_layer(params, f"hybrem{j}/"))
     else:  # dense / vlm
         x = _run_stack(cfg, x, params, "decoder",

@@ -2,7 +2,8 @@
 
 The port's copy of ``repro.registry``, under the same arch ids: the ten
 LMs (dense, moe, ssm, hybrid, audio enc-dec and vlm) and the paper's six
-taggers.
+taggers; and the port's own architectures (:data:`PORT_ONLY_ARCHS`),
+which ``repro`` does not have.
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ ARCHS: Dict[str, str] = {
     "flavor-tagging-gru": "flavor_tagging",
     "quickdraw-lstm": "quickdraw",
     "quickdraw-gru": "quickdraw",
+    # the port's own (no repro counterpart)
+    "granite-4.0-h-micro": "granite_4_0_h_micro",
 }
+
+#: arch ids the port has and ``repro`` does not
+PORT_ONLY_ARCHS = ("granite-4.0-h-micro",)
 
 
 def get_config(name: str) -> ModelConfig:

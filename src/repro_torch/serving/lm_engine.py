@@ -65,6 +65,22 @@ state absorbs every token it sees (ssm, hybrid): nothing rolls an SSM or
 RG-LRU state back past a rejected draft, so their speculative tokens
 would not be the sequential key's (``ROADMAP.md`` §3: a difference from
 ``repro``, whose engine speculates there and loses exactness).
+
+:meth:`LMServingEngine.last_logits` hands a caller the host logits of a
+key's last tick (the array the greedy argmax read, no copy) with the
+positions the tick decoded; :meth:`LMServingEngine.decode_cache` the
+key's decode cache as the tick left it.  Inside a ``repro_torch.tracing.recording()``
+a tick is one request: root ``engine.tick``, and for each key a plain
+tick holds ``lm.stage`` (the tokens and positions gathered and copied to
+the device), ``lm.step`` (the decode executor: a hybrid's
+``hybrid.<mixer>`` and ``hybrid.mlp`` spans inside it), ``lm.d2h`` (the
+logits' ``.cpu()``, which waits for the step) and ``lm.sample`` (the
+argmax and the slots' bookkeeping).  The root's counters beside
+``launches`` and ``builds``: ``rows`` (active slots), ``state_bytes``
+(the keys' resident decode caches: SSM, conv, KV), ``kv_live_tokens``
+(the KV positions the active slots hold after the tick, min(pos + 1,
+the cache's length) each) and ``kv_held_tokens`` (slots times the KV
+cache's length, what the masked attention reads).
 """
 
 from __future__ import annotations
@@ -72,19 +88,22 @@ from __future__ import annotations
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Optional, Union
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Union)
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.config import ModelConfig
 from repro_torch.core.hls import estimate_lm_decode
 from repro_torch.device import require_device
 from repro_torch.kernels.schedule import (DEFAULT_SCHEDULE_KEY,
                                           KernelSchedule, cache_meta,
                                           schedule_key)
-from repro_torch.models.decode import (decode_schedulable, decode_step,
-                                       init_cache, pack_decode_params)
+from repro_torch.models.decode import (cache_specs, decode_schedulable,
+                                       decode_step, init_cache,
+                                       pack_decode_params)
 from repro_torch.models.transformer import require_lm
 from repro_torch.serving.batcher import KeyStats, _now
 from repro_torch.serving.compile_cache import CachedExecutor, CompileCache
@@ -92,6 +111,25 @@ from repro_torch.serving.engine import EngineClosedError
 from repro_torch.serving.speculative import (SpecConfig, SpeculativeDecoder,
                                              accept_chunk,
                                              refuse_recurrent_spec)
+
+
+class TickLogits(NamedTuple):
+    """A key's last tick as the host saw it: ``rows`` [max_batch, vocab]
+    float32 (the array the argmax read), ``pos`` [max_batch] the position
+    each slot decoded and ``active`` [max_batch] which slots took part."""
+
+    rows: np.ndarray
+    pos: np.ndarray
+    active: np.ndarray
+
+
+def _kv_length(cache: Mapping[str, torch.Tensor]) -> int:
+    """The decode KV cache's length (the slots' positions it holds): a
+    full-length cache's max_seq, a ring's window; 0 without one."""
+    for name, t in cache.items():
+        if name == "cache/k" or name.endswith("_k"):
+            return t.shape[-3]
+    return 0
 
 
 @dataclass
@@ -136,6 +174,15 @@ class _KeyedDecoder:
         self.device = device
         self.slots = [Slot() for _ in range(max_batch)]
         self.cache = init_cache(cfg, max_batch, max_seq, cache_dtype, device)
+        #: recurrent entries (an SSM or RG-LRU state, a conv tail) -> their
+        #: batch axis: a claimed slot's rows start from zeros
+        self.recurrent = {
+            k: sp.logical_axes.index("batch")
+            for k, sp in cache_specs(cfg, max_batch, max_seq,
+                                     cache_dtype).items()
+            if k.endswith(("state", "conv"))}
+        self.kv_len = _kv_length(self.cache)
+        self.last: Optional[TickLogits] = None
         self.stats = KeyStats()          # request latency
         self.tick_stats = KeyStats()     # steady-state tick latency
         self.traces = 0                  # executor builds (cold: one a key)
@@ -186,6 +233,12 @@ class _KeyedDecoder:
         return self._step.warm(cache, tokens, pos)
 
     @property
+    def state_bytes(self) -> int:
+        """The bytes of the key's decode cache as it stands (a conv tail
+        takes the wider of its and the compute dtype at the first step)."""
+        return sum(t.nbytes for t in self.cache.values())
+
+    @property
     def any_active(self) -> bool:
         return any(s.active for s in self.slots)
 
@@ -194,6 +247,17 @@ class _KeyedDecoder:
             if not s.active:
                 return s
         return None
+
+    def restart(self, slot: Slot) -> None:
+        """Zero ``slot``'s rows of the recurrent state: a request's first
+        token has no past, whatever the slot's last occupant (or the idle
+        ticks, which step a free slot at position 0) left there.  The KV
+        cache needs nothing: a tick writes its position before attending,
+        and attention masks every later one."""
+        i = self.slots.index(slot)
+        with torch.inference_mode():
+            for k, axis in self.recurrent.items():
+                self.cache[k].select(axis, i).zero_()
 
 
 class LMServingEngine:
@@ -307,6 +371,7 @@ class LMServingEngine:
         s = dec.free_slot()
         if s is None:
             return None
+        dec.restart(s)
         s.active = True
         s.req_id = self._next_req
         self._next_req += 1
@@ -322,20 +387,34 @@ class LMServingEngine:
 
     def _tick_decoder(self, dec: _KeyedDecoder,
                       now: Optional[float]) -> Dict[int, List[int]]:
+        rec = tracing.ACTIVE
+        if rec is not None:
+            span = rec.open("lm.stage")
         tokens = np.zeros((dec.max_batch, 1), np.int64)
         pos = np.zeros((dec.max_batch,), np.int64)
-        n_active = 0
+        active = np.zeros((dec.max_batch,), bool)
         for i, s in enumerate(dec.slots):
             if s.active:
                 tokens[i, 0] = s.tokens[s.pos]
                 pos[i] = s.pos
-                n_active += 1
+                active[i] = True
+        n_active = int(active.sum())
         t0 = time.perf_counter()
-        logits, dec.cache = dec._step(
-            dec.cache, torch.from_numpy(tokens).to(dec.device),
-            torch.from_numpy(pos).to(dec.device))
+        tokens_d = torch.from_numpy(tokens).to(dec.device)
+        pos_d = torch.from_numpy(pos).to(dec.device)
+        if rec is not None:
+            rec.close(span)
+            span = rec.open("lm.step")
+        logits, dec.cache = dec._step(dec.cache, tokens_d, pos_d)
+        if rec is not None:
+            rec.close(span)
+            span = rec.open("lm.d2h")
         rows = logits[:, 0].float().cpu().numpy()   # waits for the step
         dt = time.perf_counter() - t0
+        if rec is not None:
+            rec.close(span)
+            span = rec.open("lm.sample")
+        dec.last = TickLogits(rows, pos, active)
         dec.ticks += 1
         if dec.ticks > 1:               # steady state: kernels built
             dec.decode_s += dt
@@ -360,6 +439,8 @@ class LMServingEngine:
                 dec.stats.record_one(t - s.arrival_s)
         if finished:
             dec.stats.batches += 1
+        if rec is not None:
+            rec.close(span)
         return finished
 
     # -- one speculative round: draft K, verify K+1 in one pass --------------
@@ -422,14 +503,55 @@ class LMServingEngine:
     def tick(self, now: Optional[float] = None) -> Dict[int, List[int]]:
         """One decode step (a speculative key: one round) on every key with
         active slots; returns every request finished this tick."""
-        finished: Dict[int, List[int]] = {}
+        rec = tracing.ACTIVE
+        if rec is not None:
+            rows, given = self._tick_counters()
+            root = rec.open_call("engine.tick", rows, self.compile_cache,
+                                 given)
+        try:
+            finished: Dict[int, List[int]] = {}
+            for dec in self._decoders.values():
+                if dec.any_active:
+                    if dec.spec_dec is not None:
+                        finished.update(self._tick_spec(dec, now))
+                    else:
+                        finished.update(self._tick_decoder(dec, now))
+            return finished
+        finally:
+            if rec is not None:
+                rec.close_call(root, self.compile_cache)
+
+    def _tick_counters(self):
+        """(active slots, {state_bytes, kv_live_tokens, kv_held_tokens})
+        of the tick about to run, for its root span."""
+        rows = live = held = state = 0
         for dec in self._decoders.values():
-            if dec.any_active:
-                if dec.spec_dec is not None:
-                    finished.update(self._tick_spec(dec, now))
-                else:
-                    finished.update(self._tick_decoder(dec, now))
-        return finished
+            state += dec.state_bytes
+            held += dec.max_batch * dec.kv_len
+            for s in dec.slots:
+                if s.active:
+                    rows += 1
+                    live += min(s.pos + 1, dec.kv_len)
+        return rows, {"state_bytes": state, "kv_live_tokens": live,
+                      "kv_held_tokens": held}
+
+    def last_logits(self, schedule: Optional[KernelSchedule] = None,
+                    spec: Optional[SpecConfig] = None
+                    ) -> Optional[TickLogits]:
+        """The host logits of the (schedule, spec) key's last plain tick
+        (None before its first): the array its argmax read, handed over
+        without a copy, with the positions the slots decoded."""
+        dec = self._decoders.get(self._key_for(schedule, spec))
+        return None if dec is None else dec.last
+
+    def decode_cache(self, schedule: Optional[KernelSchedule] = None,
+                     spec: Optional[SpecConfig] = None
+                     ) -> Optional[Mapping[str, torch.Tensor]]:
+        """The (schedule, spec) key's decode cache as it stands (None
+        before the key's first request): ``cache_specs``' entries, the
+        tensors themselves, each row a slot; a tick replaces them."""
+        dec = self._decoders.get(self._key_for(schedule, spec))
+        return None if dec is None else dec.cache
 
     def run_to_completion(self, max_ticks: int = 512,
                           now: Optional[float] = None) -> Dict[int, List[int]]:

@@ -29,8 +29,9 @@ def tiny_config(full: ModelConfig) -> ModelConfig:
     """Shrink an assigned arch to CPU-testable size, keeping its family,
     attention grouping structure, MLP type and block pattern (every LM
     family: a few experts, a narrow SSM, one hybrid super-block plus a
-    remainder layer, two encoder and decoder layers).  The taggers are
-    already tiny."""
+    remainder layer, two encoder and decoder layers; a hybrid with its own
+    ``pattern``, one whole period).  Granite's scalars are kept.  The
+    taggers are already tiny."""
     if full.rnn is not None:
         return full  # paper taggers are already tiny
     kw = dict(
@@ -64,6 +65,9 @@ def tiny_config(full: ModelConfig) -> ModelConfig:
     if full.rglru is not None:
         kw["rglru"] = dataclasses.replace(full.rglru, lru_width=64, window=16)
         kw["n_layers"] = 4  # one super-block + 1 remainder
+    pattern = getattr(full, "pattern", ())  # repro's configs have none
+    if pattern:
+        kw["n_layers"] = len(pattern)       # one whole period
     if full.enc_dec:
         kw.update(n_encoder_layers=2, n_decoder_layers=2, n_layers=2,
                   max_encoder_len=32)

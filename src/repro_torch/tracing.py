@@ -30,7 +30,10 @@ its call: ``rows`` (events), ``launches`` (the port's kernel launches,
 ``cuda.launch_total``, a CUDA graph's replay included), ``builds``
 (signatures the compile cache readied cold plus ``nvcc`` runs: a kernel
 built again shows here), ``graph_replays`` (1 where the executor replayed
-a CUDA graph, else 0) and ``graph_captures`` (graphs captured).
+a CUDA graph, else 0) and ``graph_captures`` (graphs captured).  A root
+may also be given counters of its own when it opens (the LM engine's
+``engine.tick``: ``state_bytes``, ``kv_live_tokens``,
+``kv_held_tokens``), kept as they were given.
 
 Records stay in memory; :attr:`Recording.spans` is filled when the
 recording ends, on ``time.perf_counter_ns``'s clock, with
@@ -114,6 +117,8 @@ class _Buffer:
         #: then 1 once closed by :meth:`Recording.close_call`
         self.counted: Dict[int, int] = {}
         self.counts: List[int] = []
+        #: root index -> the counters given when it opened
+        self.given: Dict[int, Mapping[str, int]] = {}
 
 
 class Recording:
@@ -169,12 +174,16 @@ class Recording:
             if top == i:
                 break
 
-    def open_call(self, name: str, rows: int, cache) -> int:
+    def open_call(self, name: str, rows: int, cache,
+                  given: Optional[Mapping[str, int]] = None) -> int:
         """Open a request's root span: ``cache`` is the engine's
-        ``CompileCache``, whose cold count ``builds`` reads."""
+        ``CompileCache``, whose cold count ``builds`` reads; ``given``,
+        counters of this request read by its caller (kept as given)."""
         counts = _counts(cache)
         i = self.open(name)
         buf = self._local.buf
+        if given:
+            buf.given[i] = given
         buf.counted[i] = len(buf.counts)
         buf.counts.append(rows)
         buf.counts.extend(counts)
@@ -203,7 +212,8 @@ class Recording:
                 j = buf.counted.get(i)
                 n = len(COUNTERS)
                 counters = ({} if j is None or not buf.counts[j + n] else
-                            dict(zip(COUNTERS, buf.counts[j:j + n])))
+                            dict(zip(COUNTERS, buf.counts[j:j + n]),
+                                 **buf.given.get(i, {})))
                 spans.append(Span(buf.names[i], buf.starts[i], end,
                                   index.get(buf.parents[i], -1),
                                   buf.calls[i], counters))

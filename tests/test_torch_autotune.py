@@ -35,8 +35,8 @@ from repro.testing import CONFORMANCE_TOL, tiny_config  # noqa: E402
 
 from repro_torch import autotune as at  # noqa: E402
 from repro_torch.autotune import space  # noqa: E402
-from repro_torch.config import (FixedPointConfig, ModelConfig,  # noqa: E402
-                                RNNConfig)
+from repro_torch.config import (PORT_ONLY_FIELDS,  # noqa: E402
+                                FixedPointConfig, ModelConfig, RNNConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import scan_layout  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
@@ -262,7 +262,8 @@ def lm_configs():
     jcfg = tiny_config(jget_config("gemma-2b"))
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)
-                         if f.name != "rnn"})
+                         if f.name != "rnn"
+                         and f.name not in PORT_ONLY_FIELDS})
     return cfg, jcfg
 
 

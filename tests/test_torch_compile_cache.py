@@ -292,14 +292,15 @@ def test_lm_engine_cold_then_warm_decode(tmp_path):
 
     from repro.testing import tiny_config
 
-    from repro_torch.config import ModelConfig
+    from repro_torch.config import PORT_ONLY_FIELDS, ModelConfig
     from repro_torch.models.decode import lm_params_from_jax
     from repro_torch.serving import LMServingEngine
 
     jcfg = tiny_config(jget_config("stablelm-3b"))
     tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                           for f in dataclasses.fields(ModelConfig)
-                          if f.name != "rnn"})
+                          if f.name != "rnn"
+                          and f.name not in PORT_ONLY_FIELDS})
     jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
     tparams = lm_params_from_jax(
         {k: np.asarray(v) for k, v in jparams.items()}, "cpu")

@@ -4,9 +4,10 @@
     ``repro``'s for the same ``(n, seed)`` (dtype, shape and bytes), and
     ``lm_token_stream`` the same batches, sharded or not;
   * ``repro_torch.registry``: the same arch ids, ``list_archs`` and
-    ``ASSIGNED_ARCHS``; every config the port carries equal to ``repro``'s
-    field by field (the registry's every arch); ``configs.get_config`` is
-    the registry's;
+    ``ASSIGNED_ARCHS`` beside the port's own (``PORT_ONLY_ARCHS``); every
+    config the port carries equal to ``repro``'s field by field (the
+    registry's every arch; the port's own fields at their defaults);
+    ``configs.get_config`` is the registry's;
   * ``repro_torch.ft``: ``HeartbeatMonitor``, ``StragglerPolicy`` and
     ``plan_elastic_restart`` make the same decisions on the same event
     sequences.
@@ -28,17 +29,18 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import data as tdata  # noqa: E402
 from repro_torch import ft as tft  # noqa: E402
 from repro_torch import registry as tregistry  # noqa: E402
-from repro_torch.config import ModelConfig  # noqa: E402
+from repro_torch.config import PORT_ONLY_FIELDS, ModelConfig  # noqa: E402
 
 DATASETS = ("top_tagging_dataset", "flavor_tagging_dataset",
             "quickdraw_dataset")
-#: configs the port carries: every arch id of the registry
+#: configs the port carries: every arch id of the registry (the last, the
+#: port's own, which ``repro`` does not have)
 PORTED = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b", "nemotron-4-340b",
           "mamba2-780m", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
           "recurrentgemma-9b", "whisper-medium", "phi-3-vision-4.2b",
           "top-tagging-lstm", "top-tagging-gru",
           "flavor-tagging-lstm", "flavor-tagging-gru", "quickdraw-lstm",
-          "quickdraw-gru")
+          "quickdraw-gru", "granite-4.0-h-micro")
 
 
 def _same_array(got, want):
@@ -73,8 +75,12 @@ def test_lm_token_stream_byte_identical(seed, process_count):
 
 
 def test_registry_ids_equal_repro():
-    assert tregistry.ARCHS == jregistry.ARCHS
-    assert tregistry.list_archs() == jregistry.list_archs()
+    own = set(tregistry.PORT_ONLY_ARCHS)
+    assert {k: v for k, v in tregistry.ARCHS.items() if k not in own} \
+        == jregistry.ARCHS
+    assert not own & set(jregistry.ARCHS)
+    assert [a for a in tregistry.list_archs() if a not in own] == \
+        jregistry.list_archs()
     assert tregistry.ASSIGNED_ARCHS == jregistry.ASSIGNED_ARCHS
     assert set(PORTED) == set(tregistry.ARCHS)
 
@@ -85,7 +91,11 @@ def test_registry_config_equals_repro(arch):
     got, want = tregistry.get_config(arch), jregistry.get_config(arch)
     assert isinstance(got, ModelConfig)
     for f in dataclasses.fields(ModelConfig):
-        g, w = getattr(got, f.name), getattr(want, f.name)
+        g = getattr(got, f.name)
+        if f.name in PORT_ONLY_FIELDS:
+            assert g == f.default, (arch, f.name, g)
+            continue
+        w = getattr(want, f.name)
         if dataclasses.is_dataclass(g):
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, (arch, f.name, g, w)

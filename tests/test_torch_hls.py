@@ -29,7 +29,8 @@ from test_hls_model import TABLE_2, TABLE_3, TABLE_4  # noqa: E402
 
 from repro_torch.autotune import SpaceSpec, enumerate_space  # noqa: E402
 from repro_torch.autotune import lm_decode_schedules  # noqa: E402
-from repro_torch.config import FixedPointConfig, ModelConfig  # noqa: E402
+from repro_torch.config import (PORT_ONLY_FIELDS,  # noqa: E402
+                                FixedPointConfig, ModelConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import hls  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
@@ -178,7 +179,8 @@ def lm_configs():
     jcfg = tiny_config(jget_config("gemma-2b"))
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)
-                         if f.name != "rnn"})
+                         if f.name != "rnn"
+                         and f.name not in PORT_ONLY_FIELDS})
     return cfg, jcfg
 
 

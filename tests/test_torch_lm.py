@@ -33,9 +33,12 @@ from repro.registry import get_config as jget_config  # noqa: E402
 from repro.serving.lm_engine import LMServingEngine as JLMEngine  # noqa: E402
 from repro.testing import CONFORMANCE_TOL, tiny_config  # noqa: E402
 
-from repro_torch.config import (ModelConfig, MoEConfig,  # noqa: E402
-                                RGLRUConfig, SSMConfig)
-from repro_torch.configs import LMS, TAGGERS, get_config  # noqa: E402
+from repro_torch.config import (PORT_ONLY_FIELDS, ModelConfig,  # noqa: E402
+                                MoEConfig, RGLRUConfig, SSMConfig)
+from repro_torch.configs import (LMS, PORT_ONLY_LMS, TAGGERS,  # noqa: E402
+                                 get_config)
+from repro_torch.registry import ARCHS as TARCHS  # noqa: E402
+from repro_torch.registry import PORT_ONLY_ARCHS  # noqa: E402
 from repro_torch.kernels import cuda, ops  # noqa: E402
 from repro_torch.kernels.schedule import KernelSchedule  # noqa: E402
 from repro_torch.models import decode as tdecode  # noqa: E402
@@ -59,10 +62,11 @@ SUBCONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "rglru": RGLRUConfig}
 
 def port_config(jcfg) -> ModelConfig:
     """The port's config with every field of ``jcfg`` it carries (the
-    family sub-configs as the port's own dataclasses)."""
+    family sub-configs as the port's own dataclasses); the port's own
+    fields at their defaults."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
-        if f.name == "rnn":
+        if f.name == "rnn" or f.name in PORT_ONLY_FIELDS:
             continue
         v = getattr(jcfg, f.name)
         if f.name in SUBCONFIGS and v is not None:
@@ -95,17 +99,36 @@ def setup(arch, **overrides):
 
 @pytest.mark.parametrize("name", sorted(LMS) + sorted(TAGGERS))
 def test_configs_equal_repro_field_by_field(name):
+    """Every field ``repro`` has, equal; the port's own fields
+    (``PORT_ONLY_FIELDS``) at their defaults on every arch ``repro``
+    has."""
     got, want = get_config(name), jget_config(name)
     for f in dataclasses.fields(ModelConfig):
-        g, w = getattr(got, f.name), getattr(want, f.name)
+        g = getattr(got, f.name)
+        if f.name in PORT_ONLY_FIELDS:
+            assert g == f.default, (name, f.name, g)
+            continue
+        w = getattr(want, f.name)
         if dataclasses.is_dataclass(g):
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, (name, f.name, g, w)
     port = {f.name for f in dataclasses.fields(ModelConfig)}
-    assert {f.name for f in dataclasses.fields(jconfig.ModelConfig)} \
-        - port == NOT_PORTED
+    jfields = {f.name for f in dataclasses.fields(jconfig.ModelConfig)}
+    assert jfields - port == NOT_PORTED
+    assert port - jfields == set(PORT_ONLY_FIELDS)
     assert got.param_count() == want.param_count()
     assert got.active_param_count() == want.active_param_count()
+
+
+def test_port_only_archs_are_listed_apart():
+    """The port's own LMs are registered, kept out of ``LMS`` (nothing
+    asks ``repro`` for them) and set the port's own fields."""
+    assert set(PORT_ONLY_LMS) == set(PORT_ONLY_ARCHS) <= set(TARCHS)
+    assert not set(PORT_ONLY_LMS) & (set(LMS) | set(TAGGERS))
+    for name, cfg in PORT_ONLY_LMS.items():
+        assert get_config(name) is cfg
+        assert any(getattr(cfg, f) != getattr(ModelConfig(), f)
+                   for f in PORT_ONLY_FIELDS), name
 
 
 @pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])

@@ -4,7 +4,10 @@ call id, the root's self time and its children add up to it to the ns,
 and the root's counters (rows, launches, builds, graph replays and
 captures) read their deltas.  Then the executors' CUDA graph replay
 (``serving/graphs.py``): a CPU engine never captures; its capture policy,
-driven on the CPU through a stand-in for the graph."""
+driven on the CPU through a stand-in for the graph.  Last, the LM
+engine's tick (a tiny granite-4.0-h-micro on the CPU): one tree a tick,
+its hybrid's spans inside ``lm.step``, the root's counters of the state
+it holds, and no tracer call while off."""
 
 import threading
 
@@ -18,9 +21,11 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.schedule import KernelSchedule
 from repro_torch.models import rnn_tagger
 from repro_torch.models.rnn_tagger import RNNTagger
+from repro_torch.models.model import build_model
 from repro_torch.registry import get_config
-from repro_torch.serving import graphs
+from repro_torch.serving import LMServingEngine, graphs
 from repro_torch.serving.engine import RNNServingEngine
+from repro_torch.testing import tiny_config
 
 TAG = "top-tagging-gru"
 #: (span, its parent) of one request, in the order the spans open
@@ -405,3 +410,86 @@ def test_close_drops_the_graphs(replaying, x):
     assert replaying._replays[0].graphs() == 1
     replaying.close()
     assert replaying._replays[0].graphs() == 0
+
+
+# ---------------------------------------------------------------------------
+# The LM engine's tick
+# ---------------------------------------------------------------------------
+
+#: (span, its parent) of one LM tick on a hybrid, in the order they open
+#: (the hybrid's spans repeat a layer, under ``lm.step``)
+LM_CHILDREN = [("lm.stage", "engine.tick"), ("lm.step", "engine.tick"),
+               ("lm.d2h", "engine.tick"), ("lm.sample", "engine.tick")]
+HYBRID = {"mamba": "hybrid.mamba", "attn": "hybrid.attn"}
+
+
+@pytest.fixture
+def lm():
+    cfg = tiny_config(get_config("granite-4.0-h-micro"))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    eng = LMServingEngine(cfg, params, max_batch=3, max_seq=24,
+                          cache_dtype="bfloat16", device="cpu")
+    eng.add_request([5, 6, 7, 8], max_new=4)
+    eng.add_request([1, 2], max_new=6)
+    eng.tick()                      # the executor readied
+    return cfg, eng
+
+
+def test_an_lm_tick_is_one_tree_with_its_counters(lm):
+    cfg, eng = lm
+    eng.tick()
+    pos = [s.pos for s in eng.slots if s.active]
+    with tracing.recording() as rec:
+        eng.tick()
+    spans = rec.spans
+    names = [s.name for s in spans]
+    assert names[0] == "engine.tick" and spans[0].parent == -1
+    assert {s.call for s in spans} == {spans[0].call}
+    top = [(s.name, spans[s.parent].name) for s in spans if s.parent == 0]
+    assert top == LM_CHILDREN
+    step = names.index("lm.step")
+    inner = [s.name for s in spans if s.parent == step]
+    want = [n for k in cfg.hybrid_pattern for n in (HYBRID[k], "hybrid.mlp")]
+    assert inner == want
+    for s in spans[1:]:
+        outer = spans[s.parent]
+        assert outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
+    c = spans[0].counters
+    dec = eng._decoders["default"]
+    assert c["rows"] == 2 == len(pos)
+    assert c["kv_live_tokens"] == sum(p + 1 for p in pos)
+    assert c["kv_held_tokens"] == 3 * 24
+    assert c["state_bytes"] == dec.state_bytes == sum(
+        t.nbytes for t in dec.cache.values())
+    assert c["launches"] == 0 and c["builds"] == 0
+
+
+def test_an_lm_tick_calls_no_tracer_while_off(lm, monkeypatch):
+    _, eng = lm
+
+    def refuse(*a, **kw):
+        raise AssertionError("a span site called the tracer while off")
+
+    for name in ("open", "close", "open_call", "close_call"):
+        monkeypatch.setattr(tracing.Recording, name, refuse)
+    before = eng.last_logits()
+    eng.tick()
+    assert tracing.ACTIVE is None
+    assert eng.last_logits() is not before
+    with tracing.recording() as rec:
+        pass
+    assert rec.spans == []
+
+
+def test_lm_answers_equal_with_recording_on(lm):
+    cfg, eng = lm
+    params = eng.params
+    twin = LMServingEngine(cfg, params, max_batch=3, max_seq=24,
+                           cache_dtype="bfloat16", device="cpu")
+    twin.add_request([5, 6, 7, 8], max_new=4)
+    twin.add_request([1, 2], max_new=6)
+    twin.tick()
+    with tracing.recording():
+        got = eng.run_to_completion()
+    assert got == twin.run_to_completion()
